@@ -1,0 +1,14 @@
+from .crossfade import CrossfadeStitcher, equal_power_curves, trim_leading, trim_trailing
+from .encoding import AudioEncoder, AudioFormat
+from .pcm import float_to_pcm16, make_wav_header
+
+__all__ = [
+    "AudioEncoder",
+    "AudioFormat",
+    "CrossfadeStitcher",
+    "equal_power_curves",
+    "float_to_pcm16",
+    "make_wav_header",
+    "trim_leading",
+    "trim_trailing",
+]

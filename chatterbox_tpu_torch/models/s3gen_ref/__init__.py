@@ -1,0 +1,3 @@
+"""Checkpoint-compatible S3Gen stack (reference architecture), uncached path."""
+from .config import FlowRefConfig, HiFTConfig, S3GenRefConfig  # noqa: F401
+from .model import draw_noise, init_s3gen_ref_params, s3gen_ref_inference  # noqa: F401

@@ -1,0 +1,162 @@
+"""S3Gen (reference architecture) chunk inference — torch counterpart of the
+uncached path of ``chatterbox_tpu/models/s3gen_ref/model.py``.
+
+``s3gen_ref_inference(tokens, ref, cache_source, noise) → (wav, source)``:
+the left-packed [pad | prompt | generated] token track through the
+upsample-conformer encoder, the CFM Euler solve with CFG, then the HiFT
+vocoder with the excitation-prefix continuity contract (the cached source
+overrides the new one over ``cache_len`` samples). Every random draw enters
+through ``noise`` (``draw_noise`` makes one from a torch.Generator).
+Voice embedding (tokenizer, CAMPPlus, mel frontends) is not ported yet
+(ROADMAP.md Queue 1 item 9): the conditioning ``ref`` dict comes from
+``conds.pt``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ...convert import convert_params
+from ...ops.initializers import DenseInit
+from ...ops.nn import linear
+from .config import S3GenRefConfig
+from .decoder import cfm_generate, cfm_noise_frames, init_estimator_params
+from .hift import _upsample_total, hift_decode, init_hift_params, make_source, predict_f0
+from .upsample_encoder import init_upsample_encoder_params, upsample_encode
+
+
+def init_s3gen_ref_params(cfg: S3GenRefConfig, generator: torch.Generator, device,
+                          dtype=torch.float32) -> Dict:
+    """Random flow + vocoder parameters with the JAX package's distributions
+    (the voice-embedding subtrees ``tokenizer``/``speaker`` are not part of
+    the port yet)."""
+    init = DenseInit(generator, device)
+    mk = lambda *shape: init.dense(shape)  # noqa: E731
+    fl = cfg.flow
+    tree = {
+        "flow": {
+            "input_emb": mk(fl.vocab_size, fl.input_size),
+            "spk_affine": {"w": mk(fl.spk_embed_dim, fl.output_size), "b": mk(fl.output_size)},
+            "encoder_proj": {"w": mk(fl.input_size, fl.output_size), "b": mk(fl.output_size)},
+            "encoder": init_upsample_encoder_params(init, fl),
+            "estimator": init_estimator_params(init, fl),
+        },
+        "mel2wav": init_hift_params(init, cfg.hift),
+    }
+    return convert_params(tree, device, dtype)
+
+
+def draw_noise(cfg: S3GenRefConfig, batch: int, n_tokens: int, generator: torch.Generator,
+               device) -> Dict[str, torch.Tensor]:
+    """The random inputs of one ``s3gen_ref_inference`` call. Drawn in a
+    fixed order with the CFM buffer first at a length independent of the
+    chunk (for chunks up to its 2048 frames), so a generator seeded the same
+    way gives frame t the same initial noise on every slice of a chunk."""
+    fpt = cfg.flow.up_stride
+    frames = (cfg.max_prompt_tokens + n_tokens) * fpt
+    H = cfg.hift.nb_harmonics + 1
+    L = n_tokens * fpt * _upsample_total(cfg.hift)
+    g = dict(generator=generator, device=device)
+    return {
+        "cfm": torch.randn((batch, cfm_noise_frames(frames), cfg.flow.output_size), **g),
+        "rand_ini": torch.rand((batch, H), **g),
+        "nsf": torch.randn((batch, L, H), **g),
+    }
+
+
+def _left_pack(buf: torch.Tensor, valid_len: torch.Tensor, fill=0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Right-align the valid prefix of a right-padded buffer: [v|pad] → [pad|v].
+    buf: [B, P] or [B, P, C] → (packed buffer, [B, P] valid mask)."""
+    B, P = buf.shape[:2]
+    off = (P - valid_len.long())[:, None]
+    j = torch.arange(P, device=buf.device)[None, :]
+    src = (j - off).clamp(0, P - 1)
+    mask = j >= off
+    if buf.dim() == 3:
+        packed = torch.gather(buf, 1, src[:, :, None].expand(B, P, buf.shape[2]))
+        packed = torch.where(mask[:, :, None], packed, fill)
+    else:
+        packed = torch.where(mask, torch.gather(buf, 1, src), fill)
+    return packed, mask
+
+
+def _spk_track(params: Dict, ref: Dict) -> torch.Tensor:
+    """Normalised speaker embedding → 80-d estimator conditioning track."""
+    e = ref["spk_emb"]
+    spk_n = e * torch.rsqrt(e.float().square().sum(-1, keepdim=True) + 1e-12).to(e.dtype)
+    return linear(spk_n, params["flow"]["spk_affine"]["w"], params["flow"]["spk_affine"]["b"])
+
+
+def _packed_prompt_mel(cfg: S3GenRefConfig, ref: Dict, dtype) -> torch.Tensor:
+    Pm = cfg.max_prompt_tokens * cfg.flow.up_stride
+    pm = ref["prompt_mel"][:, :Pm]
+    pm_len = ref["prompt_mel_len"].clamp_max(Pm)
+    packed, _ = _left_pack(pm.to(dtype), pm_len)
+    return packed
+
+
+def _encode_mu(params: Dict, cfg: S3GenRefConfig, tokens: torch.Tensor,
+               token_len: torch.Tensor, ref: Dict):
+    """Encoder over [pad | prompt | generated] → (mu [B, (P+T)·fpt, 80],
+    valid_f [B, (P+T)·fpt], spk [B, 80])."""
+    T = tokens.shape[1]
+    fl = cfg.flow
+    P = cfg.max_prompt_tokens
+    packed_prompt, prompt_mask = _left_pack(ref["prompt_tokens"], ref["prompt_len"].clamp_max(P))
+    full = torch.cat([packed_prompt.long(), tokens.long()], dim=1)
+    gen_valid = torch.arange(T, device=tokens.device)[None, :] < token_len[:, None]
+    valid = torch.cat([prompt_mask, gen_valid], dim=1)
+    emb = params["flow"]["input_emb"][full.clamp(0, fl.vocab_size - 1)]
+    emb = torch.where(valid[:, :, None], emb, 0.0)
+    h, valid_f = upsample_encode(params["flow"]["encoder"], fl, emb, valid)
+    mu = linear(h, params["flow"]["encoder_proj"]["w"], params["flow"]["encoder_proj"]["b"])
+    return mu, valid_f, _spk_track(params, ref)
+
+
+def _source_with_cache(params: Dict, cfg: S3GenRefConfig, mel_gen: torch.Tensor,
+                       source_cache: torch.Tensor, cache_len: torch.Tensor,
+                       rand_ini: torch.Tensor, nsf_noise: torch.Tensor) -> torch.Tensor:
+    """HiFT excitation with continuity (reference cache_source contract)."""
+    f0 = predict_f0(params["mel2wav"], cfg.hift, mel_gen)
+    source = make_source(params["mel2wav"], cfg.hift, f0, rand_ini, nsf_noise)
+    L = source.shape[1]
+    idx = torch.arange(L, device=source.device)[None, :]
+    return torch.where(idx < cache_len[:, None], source_cache[:, :L].to(source.dtype), source)
+
+
+def _mel_and_source(params: Dict, cfg: S3GenRefConfig, tokens: torch.Tensor,
+                    token_len: torch.Tensor, ref: Dict, source_cache: torch.Tensor,
+                    cache_len: torch.Tensor, noise: Dict[str, torch.Tensor]):
+    """Encoder → CFM mel → NSF excitation → (mel_gen [B, T·fpt, 80] f32,
+    source [B, T·spt])."""
+    B, T = tokens.shape
+    fl = cfg.flow
+    Pm = cfg.max_prompt_tokens * fl.up_stride
+    mu, valid_f, spk = _encode_mu(params, cfg, tokens, token_len, ref)
+    packed_mel = _packed_prompt_mel(cfg, ref, mu.dtype)
+    cond = torch.cat([packed_mel, packed_mel.new_zeros((B, T * fl.up_stride, packed_mel.shape[2]))],
+                     dim=1)
+    mel_full = cfm_generate(params["flow"]["estimator"], fl, noise["cfm"], mu, spk, cond, valid_f)
+    mel_gen = torch.where(valid_f[:, Pm:, None], mel_full[:, Pm:], 0.0)
+    # the mel→wav stack runs in float32 whatever the flow's activation dtype
+    mel_gen = mel_gen.float()
+    source = _source_with_cache(params, cfg, mel_gen, source_cache, cache_len,
+                                noise["rand_ini"], noise["nsf"])
+    return mel_gen, source
+
+
+def s3gen_ref_inference(
+    params: Dict,
+    cfg: S3GenRefConfig,
+    tokens: torch.Tensor,        # [B, T] generated speech tokens, right-padded
+    token_len: torch.Tensor,     # [B]
+    ref: Dict,                   # conditioning dict (runtime/loader.py)
+    source_cache: torch.Tensor,  # [B, T*samples_per_token] excitation prefix
+    cache_len: torch.Tensor,     # [B] valid samples in source_cache
+    noise: Dict[str, torch.Tensor],  # draw_noise(...)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One streaming chunk → (wav [B, T·spt], new_source_cache [B, T·spt])."""
+    mel_gen, source = _mel_and_source(params, cfg, tokens, token_len, ref, source_cache,
+                                      cache_len, noise)
+    return hift_decode(params["mel2wav"], cfg.hift, mel_gen, source), source

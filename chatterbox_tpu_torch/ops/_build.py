@@ -1,0 +1,107 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+Every ``csrc/*.cu`` compiles, in one nvcc call, into one shared library with a
+plain C interface (no PyTorch headers: seconds to build, not minutes):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o build/libchatterbox_kernels_<hash>.so csrc/*.cu
+
+The library lands in ``build/`` beside ``csrc/`` (listed in .gitignore), named
+by a hash of the sources and flags so an edited source rebuilds. Pointers and
+the stream pass as ``c_void_p``; each C launcher returns ``cudaGetLastError()``
+after its launch, and ``check`` raises on a non-zero code. nvcc is looked up
+as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then ``/usr/local/cuda/bin``.
+ptxas's register and spill report (``-Xptxas -v``, which does not change the
+generated code) is kept in ``build_info["log"]``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of each launcher (all return int = cudaError_t)
+_SIGNATURES = {
+    # q, k, v, k_new, v_new, k_scale, v_scale, start, pos, out,
+    # B, H, Hk, S, Dh, q_dtype, cache_dtype, scale, stream
+    "decode_attention_launch": [_P] * 10 + [_I] * 7 + [_F, _P],
+    # q, k, v, valid, out, B, H, T, Dh, dtype, scale, stream
+    "flash_mha_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
+}
+
+# dtype codes shared with csrc/*.cu
+DTYPE_F32, DTYPE_BF16, DTYPE_I8 = 0, 1, 2
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc",
+    ]:
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library unless it exists."""
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in sorted(SRC_DIR.glob("*.cu*")):
+        h.update(src.name.encode() + src.read_bytes())
+    out = BUILD_DIR / f"libchatterbox_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        build_info.update(path=str(out), seconds=0.0, cached=True)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr[-8000:]}"
+        )
+    os.replace(tmp, out)
+    build_info.update(path=str(out), seconds=seconds, cached=False,
+                      command=" ".join(cmd), log=proc.stderr)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher reported a CUDA error (refused launch etc.)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

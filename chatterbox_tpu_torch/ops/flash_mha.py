@@ -1,0 +1,95 @@
+"""K2: bidirectional multi-head attention with a key-validity mask.
+
+Replaces ``chatterbox_tpu/ops/pallas_mha.py::flash_mha`` (kernel
+``_mha_kernel``), which runs every transformer block of every CFM estimator
+evaluation on the uncached path. Semantics: softmax(q·kᵀ·scale) over the
+valid keys, float32 accumulation; a query row whose keys are all masked
+returns 0 (not the uniform average a plain masked softmax gives).
+
+``flash_mha`` is the wrapper the model calls: on a CPU tensor it runs
+``flash_mha_plain``; on a CUDA tensor it launches ``csrc/flash_mha.cu`` or
+raises. ``launches`` counts kernel launches per input dtype.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+from .nn import NEG_INF
+
+launches = {"float32": 0, "bfloat16": 0}
+
+_DTYPE_CODE = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
+_HEAD_DIMS = (32, 64, 128)
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def flash_mha_plain(
+    q: torch.Tensor,      # [B, H, T, dh]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: torch.Tensor,  # [B, T] bool key validity
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version (float32 math) → [B, H, T, dh] in q's dtype."""
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * scale
+    kmask = valid[:, None, None, :]
+    s = s.masked_fill(~kmask, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(kmask, torch.exp(s - m), 0.0)
+    out = torch.einsum("bhij,bhjd->bhid", p, v.float()) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out.to(q.dtype)
+
+
+def flash_mha(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """→ [B, H, T, dh]. CPU tensors take the plain version; CUDA tensors
+    launch the kernel, which masks the ragged T edge itself (no padding)."""
+    if q.device.type == "cpu":
+        return flash_mha_plain(q, k, v, valid, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha: unsupported device {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B,H,T,dh], got {tuple(q.shape)}")
+    B, H, T, dh = q.shape
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not supported {_HEAD_DIMS}")
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)}/{t.dtype} != q {tuple(q.shape)}/{q.dtype}")
+    if tuple(valid.shape) != (B, T) or valid.dtype != torch.bool:
+        raise ValueError(f"valid must be bool [B, T], got {tuple(valid.shape)}/{valid.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("valid", valid)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if scale is None:
+        scale = 1.0 / dh ** 0.5
+    out = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_mha_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
+            B, H, T, dh, _DTYPE_CODE[q.dtype], ctypes.c_float(scale), ctypes.c_void_p(stream),
+        )
+    _build.check(err, "flash_mha")
+    launches[str(q.dtype).removeprefix("torch.")] += 1
+    return out

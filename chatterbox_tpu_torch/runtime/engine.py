@@ -1,0 +1,602 @@
+"""TTSEngine: the streaming synthesis pipeline (torch counterpart of the
+per-request path of ``chatterbox_tpu/runtime/engine.py``).
+
+Same contract: ``ainit`` / ``stream`` / ``prepare_conditionals`` /
+``clear_voice_cache`` / ``shutdown``. ``stream`` chunks the text and runs two
+asyncio producers joined by bounded queues: the T3 producer prefills each
+chunk and loops decode slices (first a short look-ahead group so S3Gen starts
+sooner); the S3Gen producer re-synthesises the chunk's accumulated tokens
+("full" overlap) or each slice alone ("zero"), carries the vocoder's
+excitation cache across slices, then crossfades, trims and encodes.
+
+What this port serves today (the rest raises NotImplementedError naming its
+ROADMAP.md item): the default voice from ``MODEL_PATH/conds.pt``, random
+weights made on the device from a seeded generator, per-request decode
+(``MAX_DECODE_SLOTS=1``), no CFM prompt cache, no streaming CFM. The device is
+explicit: with no CUDA device and no ``device="cpu"``, construction raises.
+"""
+from __future__ import annotations
+
+import asyncio
+import collections
+import concurrent.futures
+import dataclasses
+import math
+import os
+import time
+import zlib
+from enum import Enum
+from pathlib import Path
+from typing import AsyncGenerator, Dict, Literal, Optional
+
+import numpy as np
+import torch
+
+from ..audio.crossfade import CrossfadeStitcher, trim_leading, trim_trailing
+from ..audio.encoding import AudioEncoder
+from ..audio.pcm import float_to_pcm16
+from ..logging_config import log
+from ..models.s3gen_ref import S3GenRefConfig, draw_noise, init_s3gen_ref_params, s3gen_ref_inference
+from ..models.t3 import T3Config, cond_embeddings, init_t3_params, make_decode_state, t3_decode_slice, t3_prefill
+from ..models.tokenizer import TextTokenizer
+from ..ops import _build
+from ..ops.initializers import make_generator
+from ..settings import check_supported, get_settings, get_tts_config
+from ..text import split_text_into_chunks
+from .cancellation import CancellationToken, race_cancellation
+from .loader import load_default_conds
+
+
+class InitializationState(Enum):
+    NOT_STARTED = "not_started"
+    INITIALIZING = "initializing"
+    READY = "ready"
+    ERROR = "error"
+
+
+@dataclasses.dataclass
+class Conditionals:
+    """Voice conditioning: T3 lanes [2, C, D] (cond, uncond) + the S3Gen ref dict."""
+
+    t3_cond_lanes: torch.Tensor
+    gen_ref: Dict
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    t3: T3Config
+    s3gen_ref: S3GenRefConfig
+    text_bucket: int = 16       # pad text token counts to multiples of this
+    max_new_tokens: int = 1000  # per-chunk decode cap
+    param_dtype: str = "float32"
+
+    @property
+    def gen(self) -> S3GenRefConfig:
+        return self.s3gen_ref
+
+    @staticmethod
+    def tiny_ref() -> "EngineConfig":
+        return EngineConfig(
+            t3=T3Config.tiny(),
+            s3gen_ref=EngineConfig._apply_ref_env_knobs(S3GenRefConfig.tiny()),
+            text_bucket=8,
+            max_new_tokens=64,
+        )
+
+    @staticmethod
+    def _apply_ref_env_knobs(ref_cfg: S3GenRefConfig) -> S3GenRefConfig:
+        """The JAX package's flow knobs, same variables:
+        CHATTERBOX_FLOW_PROMPT_TOKENS trims the prompt window,
+        CHATTERBOX_CFM_STEPS the Euler step count, CHATTERBOX_FLOW_BF16=1
+        keeps encoder/CFM activations in the weights' dtype."""
+        ptoks = int(os.environ.get("CHATTERBOX_FLOW_PROMPT_TOKENS", "0") or 0)
+        if 0 < ptoks < ref_cfg.max_prompt_tokens:
+            ref_cfg = dataclasses.replace(ref_cfg, max_prompt_tokens=ptoks, max_prompt_mel=2 * ptoks)
+        steps = int(os.environ.get("CHATTERBOX_CFM_STEPS", "0") or 0)
+        if 0 < steps != ref_cfg.flow.n_timesteps:
+            ref_cfg = dataclasses.replace(
+                ref_cfg, flow=dataclasses.replace(ref_cfg.flow, n_timesteps=steps))
+        if os.environ.get("CHATTERBOX_FLOW_BF16", "0") == "1":
+            ref_cfg = dataclasses.replace(
+                ref_cfg, flow=dataclasses.replace(ref_cfg.flow, bf16_activations=True))
+        return ref_cfg
+
+    @staticmethod
+    def full(param_dtype: str = "bfloat16") -> "EngineConfig":
+        """Published widths: T3 30×1024 (H=16, Dh=64), S3Gen ref. KV cache
+        dtype from CHATTERBOX_KV (int8 default, ``native`` = params dtype);
+        per-chunk decode cap from CHATTERBOX_MAX_NEW_TOKENS."""
+        arch = os.environ.get("CHATTERBOX_S3GEN_ARCH", "ref")
+        if arch != "ref":
+            raise NotImplementedError(
+                f"CHATTERBOX_S3GEN_ARCH={arch}: the DiT stack is ROADMAP.md Queue 1 item 11")
+        kv = os.environ.get("CHATTERBOX_KV", "int8")
+        cap = int(os.environ.get("CHATTERBOX_MAX_NEW_TOKENS", "1000"))
+        return EngineConfig(
+            t3=T3Config().with_(kv_cache_dtype=kv),
+            s3gen_ref=EngineConfig._apply_ref_env_knobs(S3GenRefConfig()),
+            param_dtype=param_dtype,
+            max_new_tokens=max(8, min(cap, 1000)),
+        )
+
+
+def _bucket(n: int, step: int, cap: int) -> int:
+    return min(cap, max(step, int(math.ceil(n / step)) * step))
+
+
+def _stable_seed(request_id: str) -> int:
+    """Process-independent seed from a request id."""
+    return zlib.crc32(request_id.encode()) & 0x7FFFFFFF
+
+
+def _queue_put_final(q: asyncio.Queue, item) -> None:
+    """Best-effort non-blocking sentinel put (drops one stale entry if full)."""
+    try:
+        q.put_nowait(item)
+    except asyncio.QueueFull:
+        try:
+            q.get_nowait()
+            q.put_nowait(item)
+        except (asyncio.QueueEmpty, asyncio.QueueFull):
+            pass
+
+
+SLICE_SIZE_SNAP = (8, 16, 25, 35, 50, 70, 100)
+
+
+def _snap_slice_size(requested: int, cap: int) -> int:
+    requested = max(1, min(requested, cap))
+    snapped = min(SLICE_SIZE_SNAP, key=lambda s: (abs(s - requested), s))
+    return max(1, min(snapped, cap))
+
+
+def _lookahead_size(slice_size: int) -> int:
+    """First-slice look-ahead: max(3, 0.2·slice)."""
+    return max(3, -(-slice_size // 5))
+
+
+def _token_bucket_sizes(slice_size: int, cap: int):
+    """Accumulated-token buckets: the slice size, then a doubling ladder."""
+    sizes = [min(slice_size, cap)]
+    b = 32
+    while b < cap:
+        if b > sizes[-1]:
+            sizes.append(b)
+        b *= 2
+    if sizes[-1] < cap:
+        sizes.append(cap)
+    return sizes
+
+
+def _resolve_device(device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' explicitly to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+class TTSEngine:
+    def __init__(self, engine_cfg: Optional[EngineConfig] = None, seed: int = 0,
+                 device=None, params: Optional[Dict] = None):
+        """``params`` (optional) replaces the random init: {"t3": …, "s3gen": …}
+        in the port's layout (``convert.convert_params``), on ``device``."""
+        settings = get_settings()
+        check_supported(settings)
+        if engine_cfg is None:
+            engine_cfg = (EngineConfig.tiny_ref() if os.environ.get("CHATTERBOX_TINY_MODEL")
+                          else EngineConfig.full(settings.DTYPE_POLICY))
+            if settings.KV_CACHE_DTYPE != "native":
+                engine_cfg = dataclasses.replace(
+                    engine_cfg, t3=engine_cfg.t3.with_(kv_cache_dtype=settings.KV_CACHE_DTYPE))
+        self.cfg = engine_cfg
+        self.seed = seed
+        self.device = _resolve_device(device)
+        self.gen_cfg = engine_cfg.gen
+        self.sr = self.gen_cfg.sample_rate
+        self.voice_cache: Dict[str, Conditionals] = {}
+        self.params: Optional[Dict] = params
+        self.tokenizer: Optional[TextTokenizer] = None
+        self._state = InitializationState.NOT_STARTED
+        self._progress = ""
+        self._error: Optional[str] = None
+        self.tts_semaphore = asyncio.Semaphore(max(1, settings.CONCURRENT_REQUESTS_PER_WORKER))
+        self._request_errors: Dict[str, str] = {}
+        # per-request record (tokens per chunk, samples, TTFA, wall), newest last
+        self.request_stats: "collections.OrderedDict[str, Dict]" = collections.OrderedDict()
+
+    # ------------------------------------------------------------------ init
+    def get_initialization_status(self) -> dict:
+        return {"state": self._state.value, "progress": self._progress, "error": self._error}
+
+    def shutdown(self) -> None:
+        log.info("Engine shutdown: releasing device buffers.")
+        self.params = None
+        self.voice_cache.clear()
+
+    async def ainit(self) -> None:
+        try:
+            asyncio.get_running_loop().set_default_executor(
+                concurrent.futures.ThreadPoolExecutor(max_workers=8, thread_name_prefix="chatterbox-io"))
+            self._state = InitializationState.INITIALIZING
+            self._progress = "Initializing models..."
+            await asyncio.to_thread(self._init_models)
+            self._progress = "Loading the default voice..."
+            await asyncio.to_thread(self._default_conditionals)
+            self._state = InitializationState.READY
+            self._progress = "Model ready"
+            log.info("Engine ready on %s", self.device)
+        except Exception as exc:
+            self._state = InitializationState.ERROR
+            self._error = str(exc)
+            self._progress = f"Failed: {exc}"
+            log.exception("Engine initialization failed")
+            raise
+
+    def _init_models(self) -> None:
+        model_dir = Path(get_settings().MODEL_PATH)
+        if self.params is None:
+            for name in ("t3_cfg.safetensors", "s3gen.safetensors"):
+                if (model_dir / name).exists():
+                    raise NotImplementedError(
+                        f"{model_dir / name}: checkpoint loading is ROADMAP.md Queue 1 item 8; "
+                        "the port runs on random weights only")
+            dtype = torch.bfloat16 if self.cfg.param_dtype == "bfloat16" else torch.float32
+            gen = make_generator(self.seed, self.device)
+            log.info("No checkpoint — random-init weights on %s (seed %d)", self.device, self.seed)
+            with torch.inference_mode():
+                self.params = {
+                    "t3": init_t3_params(self.cfg.t3, gen, self.device, dtype),
+                    "s3gen": init_s3gen_ref_params(self.cfg.s3gen_ref, gen, self.device, dtype),
+                }
+        if self.device.type == "cuda":
+            _build.library()  # build the kernels now, not inside the first request
+        tok_file = model_dir / "tokenizer.json"
+        self.tokenizer = TextTokenizer(str(tok_file) if tok_file.exists() else None,
+                                       self.cfg.t3.text_vocab_size)
+
+    # --------------------------------------------------------------- voices
+    def _default_conditionals(self) -> Conditionals:
+        """The no-voice_id conditionals, from ``MODEL_PATH/conds.pt``."""
+        if "default" not in self.voice_cache:
+            conds_file = Path(get_settings().MODEL_PATH) / "conds.pt"
+            raw = load_default_conds(conds_file)
+            if raw is None:
+                raise FileNotFoundError(
+                    f"{conds_file} not found: the port serves the snapshot's default voice "
+                    "only; building a voice from audio (voice cloning) is ROADMAP.md Queue 1 item 9")
+            self.voice_cache["default"] = self._conds_from_default_file(raw)
+            log.info("Default voice loaded from %s", conds_file)
+        return self.voice_cache["default"]
+
+    @torch.inference_mode()
+    def _conds_from_default_file(self, raw: Dict) -> Conditionals:
+        """The loaded ``conds.pt`` fields → Conditionals: the T3 lanes through
+        ``cond_embeddings`` (uncond lane: zero speaker and exaggeration), the
+        gen dict padded to the static prompt windows."""
+        t3c, rc, dev = self.cfg.t3, self.cfg.s3gen_ref, self.device
+        P = t3c.speech_cond_prompt_len
+        toks = raw["prompt_speech_tokens"][:, :P]
+        prompt = np.zeros((1, P), np.int64)
+        prompt[0, : toks.shape[1]] = toks[0]
+        prompt_t = torch.as_tensor(prompt, device=dev)
+        plen = torch.tensor([toks.shape[1]], device=dev)
+        spk = torch.as_tensor(raw["speaker_emb"], device=dev)
+        exag = torch.tensor([raw["emotion_adv"]], dtype=torch.float32, device=dev)
+        t3p = self.params["t3"]
+        cond = cond_embeddings(t3p, t3c, spk, prompt_t, exag, plen)
+        uncond = cond_embeddings(t3p, t3c, torch.zeros_like(spk), prompt_t, torch.zeros_like(exag), plen)
+        lanes = torch.cat([cond, uncond])
+
+        Pg, Pm, up = rc.max_prompt_tokens, rc.max_prompt_mel, rc.flow.up_stride
+        gtok = np.zeros((1, Pg), np.int64)
+        n_tok = min(raw["prompt_token"].shape[1], raw["prompt_token_len"], Pg)
+        gtok[0, :n_tok] = raw["prompt_token"][0, :n_tok]
+        mel = np.zeros((1, Pm, rc.n_mels), np.float32)
+        n_mel = min(raw["prompt_feat"].shape[1], raw["prompt_feat_len"], Pm)
+        mel[0, :n_mel] = raw["prompt_feat"][0, :n_mel]
+        # alignment rule: mel frames == up_stride × tokens
+        n_tok = min(n_tok, n_mel // up)
+        n_mel = n_tok * up
+        mel[0, n_mel:] = 0.0
+        param_dtype = self.params["s3gen"]["flow"]["input_emb"].dtype
+        ref = {
+            "spk_emb": torch.as_tensor(raw["embedding"], device=dev).to(param_dtype),
+            "prompt_tokens": torch.as_tensor(gtok, device=dev),
+            "prompt_len": torch.tensor([n_tok], device=dev),
+            "prompt_mel": torch.as_tensor(mel, device=dev),
+            "prompt_mel_len": torch.tensor([n_mel], device=dev),
+        }
+        return Conditionals(lanes, ref)
+
+    def prepare_conditionals(self, wav_fpath: str) -> None:
+        raise NotImplementedError(
+            "voice cloning from a reference wav (VoiceEncoder, S3TokenizerV2, CAMPPlus, "
+            "the feature frontends) is ROADMAP.md Queue 1 item 9")
+
+    def clear_voice_cache(self, voice_id: str) -> None:
+        if voice_id in self.voice_cache:
+            del self.voice_cache[voice_id]
+            log.info("Removed voice '%s' from cache.", voice_id)
+        else:
+            log.warning("Attempted to clear non-cached voice '%s'.", voice_id)
+
+    async def _get_conds(self, voice_id: Optional[str]) -> Conditionals:
+        if not voice_id:
+            return await asyncio.to_thread(self._default_conditionals)
+        if voice_id not in self.voice_cache:
+            self.prepare_conditionals(voice_id)
+        return self.voice_cache[voice_id]
+
+    # --------------------------------------------------------------- stream
+    async def stream(
+        self,
+        text: str,
+        output_format: str,
+        voice_id: Optional[str],
+        cfg_guidance_weight: float,
+        synthesis_temperature: float,
+        text_processing_chunk_size: int,
+        audio_tokens_per_slice: int,
+        remove_trailing_milliseconds: int,
+        remove_leading_milliseconds: int,
+        chunk_overlap_strategy: Literal["zero", "full"],
+        crossfade_duration_milliseconds: int,
+        request_id: str,
+        cancellation_token: CancellationToken,
+    ) -> AsyncGenerator[bytes, None]:
+        tts_cfg = get_tts_config()
+        async with self.tts_semaphore:
+            if self._state != InitializationState.READY:
+                raise RuntimeError(f"TTS Engine is not ready. Status: {self._state.value}")
+            start_time = time.time()
+            conds = await self._get_conds(voice_id)
+            text_chunks = await asyncio.to_thread(
+                split_text_into_chunks, text, text_processing_chunk_size)
+            if not text_chunks:
+                yield b""
+                return
+            # synth_samples: audio into the crossfade; samples: audio out of it
+            # (each faded seam merges fade_len samples of two slices into one)
+            # t3_s / s3gen_s: host wall of the device calls (they overlap)
+            stats = {"chunks": len(text_chunks), "t3_tokens": [], "synth_samples": 0,
+                     "samples": 0, "slices": 0, "ttfa_s": None, "wall_s": None,
+                     "t3_s": 0.0, "t3_steps": 0, "s3gen_s": 0.0}
+            self.request_stats[request_id] = stats
+            while len(self.request_stats) > 64:
+                self.request_stats.popitem(last=False)
+
+            token_q: asyncio.Queue = asyncio.Queue(maxsize=tts_cfg.SPEECH_TOKEN_QUEUE_MAX_SIZE)
+            pcm_q: asyncio.Queue = asyncio.Queue(maxsize=tts_cfg.PCM_CHUNK_QUEUE_MAX_SIZE)
+            slice_size = _snap_slice_size(audio_tokens_per_slice, self.cfg.max_new_tokens)
+            t3_task = asyncio.create_task(self._t3_producer(
+                text_chunks, token_q, conds, cfg_guidance_weight, synthesis_temperature,
+                slice_size, request_id, cancellation_token, stats))
+            s3_task = asyncio.create_task(self._s3gen_producer(
+                token_q, pcm_q, conds, chunk_overlap_strategy, slice_size,
+                crossfade_duration_milliseconds, remove_leading_milliseconds,
+                remove_trailing_milliseconds, len(text_chunks), request_id,
+                cancellation_token, stats))
+            first_pcm_at = [None]  # TTFA anchor: first audio, not the container header
+
+            async def pcm_generator():
+                while True:
+                    cancelled, item = await race_cancellation(pcm_q.get(), cancellation_token)
+                    if cancelled or item is None:
+                        break
+                    if first_pcm_at[0] is None:
+                        first_pcm_at[0] = time.time()
+                    yield item
+
+            encoder = AudioEncoder(output_format, self.sr, log_prefix=f"[{request_id}] ")
+            try:
+                async for out in encoder.encode(pcm_generator()):
+                    if stats["ttfa_s"] is None and first_pcm_at[0] is not None:
+                        stats["ttfa_s"] = first_pcm_at[0] - start_time
+                        log.info("[%s] Time to first audio chunk: %.4fs", request_id, stats["ttfa_s"])
+                    yield out
+                err = self._request_errors.pop(request_id, None)
+                if err is not None:
+                    raise RuntimeError(f"synthesis pipeline failed: {err}")
+            finally:
+                stats["wall_s"] = time.time() - start_time
+                self._request_errors.pop(request_id, None)
+                for task in (t3_task, s3_task):
+                    task.cancel()
+                await asyncio.gather(t3_task, s3_task, return_exceptions=True)
+
+    # ---------------------------------------------------------- T3 producer
+    async def _t3_producer(self, text_chunks, token_q: asyncio.Queue, conds: Conditionals,
+                           cfg_weight: float, temperature: float, slice_size: int,
+                           request_id: str, token: CancellationToken, stats: Dict) -> None:
+        t3p = self.params["t3"]
+        t3c = self.cfg.t3
+        dev = self.device
+        try:
+            for i, chunk in enumerate(text_chunks):
+                if token.is_cancelled():
+                    break
+                t_start = time.time()
+                ids = self.tokenizer.text_to_tokens(chunk)[0]
+                ids = np.concatenate(
+                    [[t3c.start_text_token], ids[: t3c.max_text_tokens - 2], [t3c.stop_text_token]]
+                ).astype(np.int64)
+                T_pad = _bucket(len(ids), self.cfg.text_bucket, t3c.max_text_tokens)
+                padded = np.zeros((1, T_pad), np.int64)
+                padded[0, : len(ids)] = ids
+                lanes = torch.as_tensor(np.repeat(padded, 2, axis=0), device=dev)
+                text_len = torch.full((2,), len(ids), dtype=torch.int64, device=dev)
+
+                def prefill():
+                    with torch.inference_mode():
+                        return t3_prefill(t3p, t3c, conds.t3_cond_lanes, lanes, text_len)
+
+                t0 = time.perf_counter()
+                cache = await asyncio.to_thread(prefill)
+                stats["t3_s"] += time.perf_counter() - t0
+                gen = make_generator((self.seed * 1_000_003 + _stable_seed(request_id) + i) & 0x7FFFFFFF, dev)
+                with torch.inference_mode():
+                    state = make_decode_state(t3c, 1, temperature, 0.95, cfg_weight, 1.2, gen, dev)
+                produced, slice_idx, kept, done = 0, 0, 0, False
+                pos0 = t3c.cond_len + T_pad
+                cache_depth = pos0 + 1 + t3c.max_speech_tokens
+                while produced < self.cfg.max_new_tokens and not done:
+                    if token.is_cancelled():
+                        break
+                    want = _lookahead_size(slice_size) if produced == 0 else slice_size
+                    n = min(want, self.cfg.max_new_tokens - produced)
+                    # bounds the plain attention's read; the kernel stops at each row's pos
+                    s_view = min(cache_depth, ((pos0 + produced + n + 1 + 255) // 256) * 256)
+
+                    def run_slice():
+                        with torch.inference_mode():
+                            toks = t3_decode_slice(t3p, t3c, cache, state, n, s_view)
+                            return toks.cpu().numpy(), bool(state["done"][0])
+
+                    t0 = time.perf_counter()
+                    toks, done = await asyncio.to_thread(run_slice)
+                    stats["t3_s"] += time.perf_counter() - t0
+                    stats["t3_steps"] += n
+                    row = toks[0]
+                    eos = np.where(row == t3c.stop_speech_token)[0]
+                    if len(eos):
+                        row = row[: eos[0]]
+                    produced += n
+                    kept += len(row)
+                    slice_idx += 1
+                    item = {
+                        "tokens": row,
+                        "chunk_idx": i,
+                        "slice_idx": slice_idx,
+                        "is_first_slice": slice_idx == 1,
+                        "is_last_slice": done or produced >= self.cfg.max_new_tokens,
+                        "is_first_chunk": i == 0,
+                        "is_last_chunk": i == len(text_chunks) - 1,
+                    }
+                    cancelled, _ = await race_cancellation(token_q.put(item), token)
+                    if cancelled:
+                        return
+                stats["t3_tokens"].append(kept)
+                log.info("[%s][T3] chunk %d/%d: %d slices, %d tokens in %.3fs", request_id,
+                         i + 1, len(text_chunks), slice_idx, kept, time.time() - t_start)
+        except Exception as exc:
+            log.exception("[%s][T3] producer error", request_id)
+            self._request_errors[request_id] = f"T3: {exc}"
+        finally:
+            if token.is_cancelled():
+                _queue_put_final(token_q, None)
+            else:
+                try:
+                    await asyncio.wait_for(token_q.put(None), timeout=10)
+                except asyncio.TimeoutError:
+                    _queue_put_final(token_q, None)
+
+    # -------------------------------------------------------- S3Gen producer
+    async def _s3gen_producer(self, token_q: asyncio.Queue, pcm_q: asyncio.Queue,
+                              conds: Conditionals, overlap: str, slice_size: int,
+                              crossfade_ms: int, lead_trim_ms: int, trail_trim_ms: int,
+                              n_chunks: int, request_id: str, token: CancellationToken,
+                              stats: Dict) -> None:
+        s3p = self.params["s3gen"]
+        s3c = self.gen_cfg
+        spt = s3c.samples_per_token
+        dev = self.device
+        stitcher = CrossfadeStitcher(int(self.sr * crossfade_ms / 1000.0))
+        buckets = _token_bucket_sizes(
+            slice_size, min(self.cfg.t3.max_speech_tokens + 8, self.cfg.max_new_tokens + 2))
+        # request-stable noise: every slice of a chunk reseeds the same
+        # generator, so frame t gets the same CFM noise on every re-synthesis
+        noise_gen = torch.Generator(device=dev)
+        base_seed = (1234 * 1_000_003 + _stable_seed(request_id)) & 0x7FFFFFFF
+        acc_tokens = np.zeros((0,), np.int64)
+        prev_samples = 0  # samples of the chunk already emitted (full overlap)
+        last_chunk_idx = -1
+        source_cache = np.zeros((0,), np.float32)
+
+        async def emit(audio: np.ndarray) -> bool:
+            if audio.size == 0:
+                return True
+            stats["samples"] += int(audio.size)
+            cancelled, _ = await race_cancellation(pcm_q.put(float_to_pcm16(audio)), token)
+            return not cancelled
+
+        try:
+            while True:
+                cancelled, item = await race_cancellation(token_q.get(), token)
+                if cancelled or item is None:
+                    break
+                t_start = time.time()
+                if item["chunk_idx"] != last_chunk_idx:
+                    acc_tokens = np.zeros((0,), np.int64)
+                    prev_samples = 0
+                    source_cache = np.zeros((0,), np.float32)
+                    last_chunk_idx = item["chunk_idx"]
+                    chunk_seed = base_seed + item["chunk_idx"]
+                new_toks = item["tokens"]
+                if item["is_last_slice"]:
+                    # reference quirk kept: speech EOS appends stop_text_token
+                    # (=0, a valid code)
+                    new_toks = np.concatenate([new_toks, [self.cfg.t3.stop_text_token]])
+                new_toks = new_toks[new_toks < s3c.vocab_size]
+                if overlap == "full":
+                    # re-synthesise the chunk's accumulated tokens; emit the new tail
+                    acc_tokens = np.concatenate([acc_tokens, new_toks])
+                    infer_tokens = acc_tokens
+                else:
+                    infer_tokens = new_toks
+                if infer_tokens.size == 0:
+                    continue
+                if infer_tokens.size < 3:
+                    infer_tokens = np.pad(infer_tokens, (0, 3 - infer_tokens.size))
+                T = next(b for b in buckets if b >= infer_tokens.size)
+                padded = np.full((1, T), s3c.vocab_size, np.int64)
+                padded[0, : infer_tokens.size] = infer_tokens
+                valid = infer_tokens.size * spt
+                # the previous slice's excitation overrides the new one's prefix
+                src = np.zeros((1, T * spt), np.float32)
+                cache_len = min(source_cache.size, T * spt) if overlap == "full" else 0
+                src[0, :cache_len] = source_cache[:cache_len]
+
+                def run(tokens=padded, n_valid=infer_tokens.size, src=src, cache_len=cache_len,
+                        seed=chunk_seed, T=T):
+                    with torch.inference_mode():
+                        noise_gen.manual_seed(seed)
+                        noise = draw_noise(s3c, 1, T, noise_gen, dev)
+                        w, ns = s3gen_ref_inference(
+                            s3p, s3c, torch.as_tensor(tokens, device=dev),
+                            torch.tensor([n_valid], device=dev), conds.gen_ref,
+                            torch.as_tensor(src, device=dev), torch.tensor([cache_len], device=dev),
+                            noise)
+                        return w[0].float().cpu().numpy(), ns[0].float().cpu().numpy()
+
+                t0 = time.perf_counter()
+                wav, new_src = await asyncio.to_thread(run)
+                stats["s3gen_s"] += time.perf_counter() - t0
+                audio = wav[:valid]
+                if overlap == "full":
+                    source_cache = new_src[:valid]
+                    audio = audio[prev_samples:]
+                    prev_samples = valid
+                if item["is_first_chunk"] and item["is_first_slice"]:
+                    audio = trim_leading(audio, lead_trim_ms, self.sr)
+                if item["is_last_chunk"] and item["is_last_slice"]:
+                    audio = trim_trailing(audio, trail_trim_ms, self.sr)
+                log.info("[%s][S3GEN] slice %d (chunk %d/%d): %d tokens → %.2fs audio in %.3fs",
+                         request_id, item["slice_idx"], item["chunk_idx"] + 1, n_chunks,
+                         infer_tokens.size, len(audio) / self.sr, time.time() - t_start)
+                stats["synth_samples"] += int(audio.size)
+                stats["slices"] += 1
+                if not await emit(stitcher.push(audio)):
+                    return
+        except Exception as exc:
+            log.exception("[%s][S3GEN] producer error", request_id)
+            self._request_errors[request_id] = f"S3Gen: {exc}"
+        finally:
+            if token.is_cancelled():
+                _queue_put_final(pcm_q, None)
+            else:
+                try:
+                    await emit(stitcher.flush())
+                    await asyncio.wait_for(pcm_q.put(None), timeout=10)
+                except asyncio.TimeoutError:
+                    _queue_put_final(pcm_q, None)

@@ -1,0 +1,83 @@
+"""Environment settings for the port (no pydantic).
+
+Reads the same environment variable names as ``chatterbox_tpu.config``
+(``MODEL_PATH``, ``MAX_DECODE_SLOTS``, ``TTS_*`` …, case-insensitive), from
+the process environment only. Defaults follow the JAX package except where the
+port does not implement a path yet: per-request decode (``MAX_DECODE_SLOTS=1``),
+no CFM prompt cache, no streaming CFM, no progressive slices.
+``check_supported`` raises ``NotImplementedError`` naming the ROADMAP.md item
+when one of those is asked for, instead of quietly ignoring it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import typing
+
+
+def _fill(cls, prefix: str):
+    env = {k.upper(): v for k, v in os.environ.items()}
+    types = typing.get_type_hints(cls)
+    values = {}
+    for f in dataclasses.fields(cls):
+        raw = env.get((prefix + f.name).upper())
+        if raw is not None:
+            values[f.name] = types[f.name](raw)
+    return cls(**values)
+
+
+@dataclasses.dataclass(frozen=True)
+class AppSettings:
+    MODEL_PATH: str = "models"
+    CONCURRENT_REQUESTS_PER_WORKER: int = 0
+    MAX_DECODE_SLOTS: int = 1
+    DTYPE_POLICY: str = "bfloat16"
+    KV_CACHE_DTYPE: str = "native"
+
+
+@dataclasses.dataclass(frozen=True)
+class TTSSettings:
+    """The ``TTS_*`` settings the engine reads (the per-request defaults of
+    the JAX package's HTTP layer arrive with the app factory)."""
+
+    SPEECH_TOKEN_QUEUE_MAX_SIZE: int = 2
+    PCM_CHUNK_QUEUE_MAX_SIZE: int = 3
+
+
+def get_settings() -> AppSettings:
+    return _fill(AppSettings, "")
+
+
+def get_tts_config() -> TTSSettings:
+    return _fill(TTSSettings, "TTS_")
+
+
+# (env name, port default, value(s) that ask for a path the port lacks, item)
+_UNPORTED = (
+    ("CHATTERBOX_CFM_PROMPT_CACHE", "0", ("1", "step", "static"),
+     "ROADMAP.md Queue 1 item 6 (CFM prompt cache)"),
+    ("CHATTERBOX_CFM_STREAM", "0", ("1",),
+     "ROADMAP.md Queue 1 item 6 (streaming CFM)"),
+    ("CHATTERBOX_PROGRESSIVE_SLICES", "0", ("1",),
+     "ROADMAP.md Queue 1 item 7 (progressive slices ride the streaming ladder)"),
+)
+# the JAX package's bounded re-synthesis window: any value but 0 is unported
+_WINDOW = "CHATTERBOX_OVERLAP_WINDOW_TOKENS"
+
+
+def check_supported(settings: AppSettings) -> None:
+    """Raise for a setting that selects a path the port does not have yet."""
+    if settings.MAX_DECODE_SLOTS > 1:
+        raise NotImplementedError(
+            f"MAX_DECODE_SLOTS={settings.MAX_DECODE_SLOTS}: batched decode is "
+            "ROADMAP.md Queue 1 item 4 (continuous-batching scheduler); the "
+            "port serves per request (MAX_DECODE_SLOTS=1)"
+        )
+    for name, default, unported, item in _UNPORTED:
+        value = os.environ.get(name, default).lower()
+        if value in unported:
+            raise NotImplementedError(f"{name}={value}: not ported yet — {item}")
+    if int(os.environ.get(_WINDOW, "0") or 0) != 0:
+        raise NotImplementedError(
+            f"{_WINDOW}: the bounded re-synthesis window is not ported; the port "
+            "re-synthesises each chunk's accumulated tokens (ROADMAP.md Queue 1 item 6)")

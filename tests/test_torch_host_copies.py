@@ -1,0 +1,123 @@
+"""The port's copies of the JAX package's jax-free host modules, held to
+their originals on the same inputs.
+
+``chatterbox_tpu_torch`` keeps its own text frontend, fallback tokenizer,
+PCM/WAV helpers, crossfade and container encoder, so that the port (and the
+GPU smoke run) imports nothing of ``chatterbox_tpu``. These tests keep the
+two copies from drifting apart: text and bytes must be identical, and the
+crossfade mix agrees to float32 rounding (the original may take its C++
+audiokit path, which computes the same curves in a different order).
+"""
+import asyncio
+
+import numpy as np
+import pytest
+
+from chatterbox_tpu.audio import crossfade as jxf
+from chatterbox_tpu.audio import encoding as jenc
+from chatterbox_tpu.audio import pcm as jpcm
+from chatterbox_tpu.models import tokenizer as jtok
+from chatterbox_tpu.text import processing as jproc
+from chatterbox_tpu.text import segmenter as jseg
+from chatterbox_tpu_torch.audio import crossfade as txf
+from chatterbox_tpu_torch.audio import encoding as tenc
+from chatterbox_tpu_torch.audio import pcm as tpcm
+from chatterbox_tpu_torch.models import tokenizer as ttok
+from chatterbox_tpu_torch.text import processing as tproc
+from chatterbox_tpu_torch.text import segmenter as tseg
+
+CROSSFADE_TOL = 1e-6  # float32 mix of values in [-1, 1]
+
+CORPUS = [
+    "",
+    "   ",
+    "Hello world",
+    "Hello from the port. This request runs on one graphics card.",
+    "Dr. Smith met Mr. Jones at 3 p.m. on Jan. 5th, e.g. near the U.S. border! Did they talk?",
+    "The quick brown fox jumps over the lazy dog, while the patient engineer watches the "
+    "kernels compile. Streaming speech should start quickly and keep ahead of playback. "
+    "A second text chunk begins somewhere around here.",
+    "It costs $3.50... or maybe 4.75?! Nobody knows; “quotes” and — dashes — too.",
+    "one two three four five six seven eight nine ten " * 30,
+    "Line one\nLine two\n\nNew paragraph\twith a tab.   Extra   spaces here",
+    "averyveryverylongwordwithoutanyspacesatallthatkeepsgoingandgoingandgoingpastthelimit" * 4,
+]
+
+
+@pytest.mark.parametrize("max_length", [None, 40, 150, 300])
+@pytest.mark.parametrize("i", range(len(CORPUS)))
+def test_text_chunking_matches(i, max_length):
+    assert tproc.split_text_into_chunks(CORPUS[i], max_length) == \
+        jproc.split_text_into_chunks(CORPUS[i], max_length)
+
+
+@pytest.mark.parametrize("i", range(len(CORPUS)))
+def test_sentence_segmentation_matches(i):
+    assert tseg.segment_sentences(CORPUS[i]) == jseg.segment_sentences(CORPUS[i])
+
+
+@pytest.mark.parametrize("i", range(len(CORPUS)))
+def test_fallback_tokenizer_ids_match(i):
+    want = jtok.TextTokenizer(None).text_to_tokens(CORPUS[i])
+    got = ttok.TextTokenizer(None).text_to_tokens(CORPUS[i])
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pcm16_bytes_and_wav_header_match(monkeypatch):
+    """The copy is the original's numpy path byte for byte. The original
+    takes its C++ audiokit when that is built, which rounds where numpy
+    truncates; its own contract (tests/test_native.py) allows that one LSB."""
+    from chatterbox_tpu import native
+
+    rng = np.random.default_rng(0)
+    audio = (rng.standard_normal(4099) * 0.7).astype(np.float32)  # some samples clip
+    audio[:3] = [1.0, -1.0, 0.0]
+    got = tpcm.float_to_pcm16(audio)
+    lsb = np.abs(np.frombuffer(got, "<i2").astype(np.int32)
+                 - np.frombuffer(jpcm.float_to_pcm16(audio), "<i2").astype(np.int32))
+    assert lsb.max() <= 1
+    monkeypatch.setattr(native, "float_to_pcm16", lambda audio: None)
+    assert got == jpcm.float_to_pcm16(audio)
+    for args in [(24000,), (24000, 1, 16, 1234), (16000, 2, 24), (44100, 1, 8, 0)]:
+        assert tpcm.make_wav_header(*args) == jpcm.make_wav_header(*args)
+
+
+@pytest.mark.parametrize("fade_len", [0, 1, 720])
+def test_crossfade_stitcher_matches(fade_len):
+    rng = np.random.default_rng(fade_len + 1)
+    sizes = [5, 1500, 700, 0, 3000, 719, 721]
+    chunks = [rng.uniform(-1, 1, n).astype(np.float32) for n in sizes]
+    t, j = txf.CrossfadeStitcher(fade_len), jxf.CrossfadeStitcher(fade_len)
+    for c in chunks:
+        np.testing.assert_allclose(t.push(c.copy()), j.push(c.copy()), atol=CROSSFADE_TOL)
+    np.testing.assert_allclose(t.flush(), j.flush(), atol=CROSSFADE_TOL)
+    if fade_len:
+        for got, want in zip(txf.equal_power_curves(fade_len), jxf.equal_power_curves(fade_len)):
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("ms", [0, 7, 250])
+def test_trims_match(ms):
+    audio = np.linspace(-1, 1, 9000, dtype=np.float32)
+    np.testing.assert_array_equal(txf.trim_leading(audio, ms, 24000), jxf.trim_leading(audio, ms, 24000))
+    np.testing.assert_array_equal(txf.trim_trailing(audio, ms, 24000), jxf.trim_trailing(audio, ms, 24000))
+
+
+@pytest.mark.parametrize("fmt", ["wav", "raw_pcm", "fmp4", "mp3", "webm"])
+def test_audio_encoder_matches(fmt):
+    t = tenc.AudioEncoder(fmt, 24000, bitrate="96k")
+    j = jenc.AudioEncoder(fmt, 24000, bitrate="96k")
+    assert (t.get_mime_type(), t.get_file_extension()) == (j.get_mime_type(), j.get_file_extension())
+    if fmt in ("wav", "raw_pcm"):
+        chunks = [b"\x01\x02" * 10, b"", b"\x7f\x80" * 3]
+
+        async def drain(enc):
+            async def gen():
+                for c in chunks:
+                    yield c
+            return [b async for b in enc.encode(gen())]
+
+        assert asyncio.run(drain(t)) == asyncio.run(drain(j))
+    else:
+        assert t.ffmpeg_argv() == j.ffmpeg_argv()
