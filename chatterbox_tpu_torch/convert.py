@@ -47,9 +47,10 @@ def _leaf(x: Any, key: str, parents: tuple, device, dtype) -> torch.Tensor:
     return t.contiguous().to(device)
 
 
-def convert_params(tree: Any, device="cpu", dtype=None, _key: str = "", _parents: tuple = ()):
+def convert_params(tree: Any, device, dtype=None, _key: str = "", _parents: tuple = ()):
     """Convert a JAX-layout parameter tree (dict / list nesting, array
-    leaves) into the port's layout on ``device``. ``dtype`` (optional) casts
+    leaves) into the port's layout on ``device`` (no default: the caller
+    names the device, the CPU included). ``dtype`` (optional) casts
     floating-point leaves."""
     if isinstance(tree, dict):
         return {k: convert_params(v, device, dtype, k, _parents + (_key,))

@@ -80,6 +80,43 @@ def init_hift_params(init, cfg: HiFTConfig) -> Dict:
     }
 
 
+def hift_receptive_margin(cfg: HiFTConfig) -> int:
+    """Conservative one-sided receptive field of the mel→wav stack, in output
+    samples. Every op in ``hift_decode`` is local (convs, transposed convs,
+    STFT/ISTFT windows), so a waveform sample further than this from a window
+    edge equals the full-length computation's sample: the basis of the
+    tail-windowed vocoder (``model.s3gen_ref_inference_tail``). A bound, not
+    tight: parallel branches' spans are summed."""
+    total_up = _upsample_total(cfg)
+    hop = cfg.istft_hop
+
+    def rb_span(k: int, dils) -> int:
+        # sequential dilated conv pairs: one-sided span in steps
+        return sum(((k - 1) // 2) * d + (k - 1) // 2 for d in dils)
+
+    rf = 3 * total_up  # conv_pre k7 at the mel rate
+    cum = _source_down_rates(cfg)
+    rate_in = total_up
+    for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+        rate_out = rate_in // u
+        rf += (-(-k // u) + 1) * rate_in                       # transposed conv
+        rf += max(
+            (rb_span(kk, dd) for kk, dd in zip(
+                cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)),
+            default=0,
+        ) * rate_out                                            # main resblocks
+        du = cum[i]
+        rf += cfg.istft_n_fft                                   # source STFT
+        rf += (2 * du if du > 1 else 1) * hop                   # source down conv
+        rf += rb_span(cfg.source_resblock_kernel_sizes[i],
+                      cfg.source_resblock_dilation_sizes[i]) * rate_out
+        rate_in = rate_out
+    rf += rate_in                    # final-stage reflection pad
+    rf += 3 * hop                    # conv_post k7 at the ISTFT frame rate
+    rf += cfg.istft_n_fft            # ISTFT window
+    return rf
+
+
 def _snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     a = alpha.float()
     x32 = x.float()

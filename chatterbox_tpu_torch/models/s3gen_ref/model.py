@@ -7,6 +7,8 @@ upsample-conformer encoder, the CFM Euler solve with CFG, then the HiFT
 vocoder with the excitation-prefix continuity contract (the cached source
 overrides the new one over ``cache_len`` samples). Every random draw enters
 through ``noise`` (``draw_noise`` makes one from a torch.Generator).
+``s3gen_ref_inference_tail`` is the same chunk with the vocoder run only on
+a receptive-field window around each row's emitted tail (exact).
 Voice embedding (tokenizer, CAMPPlus, mel frontends) is not ported yet
 (ROADMAP.md Queue 1 item 9): the conditioning ``ref`` dict comes from
 ``conds.pt``.
@@ -22,7 +24,14 @@ from ...ops.initializers import DenseInit
 from ...ops.nn import linear
 from .config import S3GenRefConfig
 from .decoder import cfm_generate, cfm_noise_frames, init_estimator_params
-from .hift import _upsample_total, hift_decode, init_hift_params, make_source, predict_f0
+from .hift import (
+    _upsample_total,
+    hift_decode,
+    hift_receptive_margin,
+    init_hift_params,
+    make_source,
+    predict_f0,
+)
 from .upsample_encoder import init_upsample_encoder_params, upsample_encode
 
 
@@ -160,3 +169,59 @@ def s3gen_ref_inference(
     mel_gen, source = _mel_and_source(params, cfg, tokens, token_len, ref, source_cache,
                                       cache_len, noise)
     return hift_decode(params["mel2wav"], cfg.hift, mel_gen, source), source
+
+
+def s3gen_ref_inference_tail(
+    params: Dict,
+    cfg: S3GenRefConfig,
+    tokens: torch.Tensor,        # [B, T] generated speech tokens, right-padded
+    token_len: torch.Tensor,     # [B]
+    ref: Dict,
+    source_cache: torch.Tensor,  # [B, T*samples_per_token] excitation prefix
+    cache_len: torch.Tensor,     # [B] valid samples in source_cache
+    noise: Dict[str, torch.Tensor],
+    start: torch.Tensor,         # [B] first wanted output sample (0 ≤ · ≤ T·spt − tail_len)
+    tail_len: int,               # samples returned per row
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunk inference that vocodes only a window around the emitted tail →
+    (wav_tail [B, tail_len] == full wav[:, start:start+tail_len],
+    new_source_cache [B, T·spt]).
+
+    Full-overlap serving re-synthesises the chunk's accumulated tokens every
+    slice but emits only the new tail. The encoder and the CFM are
+    bidirectional, but the mel→wav stack is local, so vocoding
+    [start − margin, start + tail + margin] reproduces the emitted samples
+    (margin = ``hift_receptive_margin``) at a vocoder cost that stays constant
+    per slice."""
+    mel_gen, source = _mel_and_source(params, cfg, tokens, token_len, ref, source_cache,
+                                      cache_len, noise)
+    return _vocode_tail_window(params, cfg, mel_gen, source, start, tail_len), source
+
+
+def _rows(x: torch.Tensor, first: torch.Tensor, width: int) -> torch.Tensor:
+    """Per-row window x[b, first[b] : first[b] + width] (along axis 1)."""
+    idx = first.long()[:, None] + torch.arange(width, device=x.device)
+    if x.dim() == 3:
+        idx = idx[:, :, None].expand(-1, -1, x.shape[2])
+    return torch.gather(x, 1, idx)
+
+
+def _vocode_tail_window(params: Dict, cfg: S3GenRefConfig, mel_gen: torch.Tensor,
+                        source: torch.Tensor, start: torch.Tensor, tail_len: int) -> torch.Tensor:
+    """Vocode each row's receptive-field window → wav[:, start:start+tail_len]
+    (see ``s3gen_ref_inference_tail``). Windows are whole tokens, so the mel
+    and the source stay in step."""
+    fpt = cfg.flow.up_stride
+    spt = cfg.samples_per_token
+    T = source.shape[1] // spt
+    margin_tok = -(-hift_receptive_margin(cfg.hift) // spt) + 1
+    tail_tok = -(-tail_len // spt)
+    win_tok = min(T, tail_tok + 2 * margin_tok)
+    start = start.long()
+    w0_tok = (start // spt - margin_tok).clamp(0, T - win_tok)  # [B]
+    mel_w = _rows(mel_gen, w0_tok * fpt, win_tok * fpt)
+    src_w = _rows(source, w0_tok * spt, win_tok * spt)
+    wav_w = hift_decode(params["mel2wav"], cfg.hift, mel_w, src_w)
+    # the JAX slice clamps its start into the window; so does this one
+    off = (start - w0_tok * spt).clamp(0, win_tok * spt - tail_len)
+    return _rows(wav_w, off, tail_len)

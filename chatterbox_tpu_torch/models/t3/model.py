@@ -35,7 +35,7 @@ from ...ops.nn import (
     rope_frequencies,
     swiglu,
 )
-from ...ops.sampling import gumbel_noise, top_p_filter
+from ...ops.sampling import counter_gumbel, top_p_filter
 from .config import T3Config
 
 Params = Dict
@@ -291,21 +291,24 @@ def t3_prefill(params: Params, cfg: T3Config, cond: torch.Tensor,
 
 
 # ---------------------------------------------------------------- decode
-def make_decode_state(cfg: T3Config, num_requests: int, temperature, top_p, cfg_weight,
-                      rep_penalty, generator: torch.Generator, device) -> Dict:
-    """Decode state for R requests; ``generator`` draws the sampling noise."""
-    R = num_requests
+def make_decode_state(cfg: T3Config, seeds, temperature, top_p, cfg_weight,
+                      rep_penalty, device) -> Dict:
+    """Decode state for R = len(seeds) requests. Row r samples with noise
+    from (seeds[r], its own step) only (``counter_gumbel``), so its tokens do
+    not depend on the other rows or on which row it occupies."""
+    R = len(seeds)
     vec = lambda x: torch.full((R,), float(x), dtype=torch.float32, device=device)  # noqa: E731
     return {
         "last_token": torch.full((R,), cfg.start_speech_token, dtype=torch.int64, device=device),
         "step": torch.zeros((R,), dtype=torch.int64, device=device),
         "done": torch.zeros((R,), dtype=torch.bool, device=device),
         "token_counts": torch.zeros((R, cfg.speech_vocab_size), dtype=torch.int32, device=device),
+        "seed": torch.as_tensor([int(x) & 0x7FFFFFFF for x in seeds], dtype=torch.int64,
+                                device=device),
         "temperature": vec(temperature),
         "top_p": vec(top_p),
         "cfg_weight": vec(cfg_weight),
         "rep_penalty": vec(rep_penalty),
-        "generator": generator,
     }
 
 
@@ -330,7 +333,7 @@ def t3_decode_slice(
     [r0-cond, r0-uncond, r1-cond, …]; finished requests re-emit the stop
     token and do not advance. ``s_view`` (≥ max(pos) + n_steps) bounds the
     plain attention's read; the kernel bounds each row at its own pos.
-    ``gumbel`` replaces the draws from ``state["generator"]`` (tests)."""
+    ``gumbel`` replaces the counter-based draws of ``state["seed"]`` (tests)."""
     R = state["last_token"].shape[0]
     dev = state["last_token"].device
     token_mask = _invalid_token_mask(cfg, dev)
@@ -352,8 +355,8 @@ def t3_decode_slice(
         rp = state["rep_penalty"][:, None]
         guided = torch.where(state["token_counts"] > 0,
                              torch.where(guided > 0, guided / rp, guided * rp), guided)
-        noise = gumbel[t] if gumbel is not None else gumbel_noise(
-            guided.shape, state["generator"], dev)
+        noise = gumbel[t] if gumbel is not None else counter_gumbel(
+            state["seed"], state["step"], guided.shape[-1])
         filtered = top_p_filter(guided / state["temperature"][:, None].clamp_min(1e-4),
                                 state["top_p"])
         sampled = (filtered + noise).argmax(-1)

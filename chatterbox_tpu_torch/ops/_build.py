@@ -1,10 +1,14 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` compiles, in one nvcc call, into one shared library with a
-plain C interface (no PyTorch headers: seconds to build, not minutes):
+Every ``csrc/*.cu`` compiles to an object file in its own nvcc process, all
+started together, and one more nvcc call links the objects into one shared
+library with a plain C interface (no PyTorch headers: seconds to build, not
+minutes):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/libchatterbox_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c -o build/<hash>.<pid>/<name>.o csrc/<name>.cu  # one per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/libchatterbox_kernels_<hash>.so build/<hash>.<pid>/*.o
 
 The library lands in ``build/`` beside ``csrc/`` (listed in .gitignore), named
 by a hash of the sources and flags so an edited source rebuilds. Pointers and
@@ -28,8 +32,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +45,8 @@ _SIGNATURES = {
     "decode_attention_launch": [_P] * 10 + [_I] * 7 + [_F, _P],
     # q, k, v, valid, out, B, H, T, Dh, dtype, scale, stream
     "flash_mha_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
+    # q, k, v, k_new, v_new, start, pos, out, B, H, Hk, S, Dh, dtype, n_sm, scale, stream
+    "decode_attention_pipelined_launch": [_P] * 8 + [_I] * 7 + [_F, _P],
 }
 
 # dtype codes shared with csrc/*.cu
@@ -67,23 +73,41 @@ def build() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
     for src in sorted(SRC_DIR.glob("*.cu*")):
         h.update(src.name.encode() + src.read_bytes())
-    out = BUILD_DIR / f"libchatterbox_kernels_{h.hexdigest()[:16]}.so"
+    digest = h.hexdigest()[:16]
+    out = BUILD_DIR / f"libchatterbox_kernels_{digest}.so"
     if out.exists():
         build_info.update(path=str(out), seconds=0.0, cached=True)
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, sources)]
+    obj_dir = BUILD_DIR / f"{digest}.{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    compiles = []
+    for src in sources:
+        cmd = [nvcc, *FLAGS, "-c", "-o", str(obj_dir / f"{src.stem}.o"), str(src)]
+        compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for cmd, proc in compiles:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err[-8000:]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    objects = [str(obj_dir / f"{src.stem}.o") for src in sources]
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *objects]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr[-8000:]}"
-        )
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+                           f"{proc.stderr[-8000:]}")
+    seconds = time.perf_counter() - t0
     os.replace(tmp, out)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     build_info.update(path=str(out), seconds=seconds, cached=False,
-                      command=" ".join(cmd), log=proc.stderr)
+                      command="\n".join([" ".join(c) for c, _ in compiles] + [" ".join(link)]),
+                      log="".join(logs) + proc.stderr)
     return out
 
 

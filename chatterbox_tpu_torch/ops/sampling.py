@@ -42,10 +42,26 @@ def top_p_filter(logits: torch.Tensor, top_p) -> torch.Tensor:
     return torch.where(keep, logits, NEG_INF)
 
 
-def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Standard Gumbel draws (the noise ``sample_token`` takes)."""
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=device).clamp_(min=tiny)
+_M32 = 0xFFFFFFFF
+
+
+def counter_gumbel(seed: torch.Tensor, step: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Standard Gumbel noise [R, vocab] (the noise ``sample_token`` takes)
+    from a counter-based hash of (seed[r], step[r], vocab index).
+
+    Row r's draws depend on its own seed and step only, never on the other
+    rows, which is what the JAX package gets from one key per slot folded
+    with the step. A few vectorised integer ops on the whole [R, vocab]
+    block: no generator state, no per-row launches. ``seed`` is int64 in
+    [0, 2^31), ``step`` int64 ≥ 0. Every multiply stays below 2^63 (a 32-bit
+    value times a constant below 2^31), so no signed overflow occurs."""
+    idx = torch.arange(vocab, dtype=torch.int64, device=seed.device)
+    h = ((seed * 0x9E3779B1 + step * 0x85EBCA77)[:, None] + idx) & _M32
+    for mul, shift in ((0x7FEB352D, 15), (0x2C1B3C6D, 16), (0x297A2D39, 15)):
+        h = h ^ (h >> 16)
+        h = (h * mul) & _M32
+        h = h ^ (h >> shift)
+    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))   # (0, 1), 24 bits
     return -torch.log(-torch.log(u))
 
 

@@ -1,19 +1,25 @@
-"""TTSEngine: the streaming synthesis pipeline (torch counterpart of the
-per-request path of ``chatterbox_tpu/runtime/engine.py``).
+"""TTSEngine: the streaming synthesis pipeline (torch counterpart of
+``chatterbox_tpu/runtime/engine.py``).
 
 Same contract: ``ainit`` / ``stream`` / ``prepare_conditionals`` /
 ``clear_voice_cache`` / ``shutdown``. ``stream`` chunks the text and runs two
-asyncio producers joined by bounded queues: the T3 producer prefills each
-chunk and loops decode slices (first a short look-ahead group so S3Gen starts
-sooner); the S3Gen producer re-synthesises the chunk's accumulated tokens
-("full" overlap) or each slice alone ("zero"), carries the vocoder's
-excitation cache across slices, then crossfades, trims and encodes.
+asyncio producers joined by bounded queues: the T3 producer decodes each chunk
+(first a short look-ahead group so S3Gen starts sooner); the S3Gen producer
+re-synthesises the chunk's accumulated tokens ("full" overlap) or each slice
+alone ("zero"), carries the vocoder's excitation cache across slices, then
+crossfades, trims and encodes.
+
+Two serving paths, as in the JAX package. With ``MAX_DECODE_SLOTS`` > 1 (the
+default, 16) every request decodes in a slot of one ``BatchedT3Decoder`` and
+synthesises through one ``S3GenScheduler`` micro-batcher (device-resident
+source state, tail-windowed vocoder); with ``MAX_DECODE_SLOTS=1`` each request
+prefills its own cache and calls S3Gen itself.
 
 What this port serves today (the rest raises NotImplementedError naming its
 ROADMAP.md item): the default voice from ``MODEL_PATH/conds.pt``, random
-weights made on the device from a seeded generator, per-request decode
-(``MAX_DECODE_SLOTS=1``), no CFM prompt cache, no streaming CFM. The device is
-explicit: with no CUDA device and no ``device="cpu"``, construction raises.
+weights made on the device from a seeded generator, no CFM prompt cache, no
+streaming CFM. The device is explicit: with no CUDA device and no
+``device="cpu"``, construction raises.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import asyncio
 import collections
 import concurrent.futures
 import dataclasses
+import functools
 import math
 import os
 import time
@@ -36,7 +43,13 @@ from ..audio.crossfade import CrossfadeStitcher, trim_leading, trim_trailing
 from ..audio.encoding import AudioEncoder
 from ..audio.pcm import float_to_pcm16
 from ..logging_config import log
-from ..models.s3gen_ref import S3GenRefConfig, draw_noise, init_s3gen_ref_params, s3gen_ref_inference
+from ..models.s3gen_ref import (
+    S3GenRefConfig,
+    draw_noise,
+    init_s3gen_ref_params,
+    s3gen_ref_inference,
+    s3gen_ref_inference_tail,
+)
 from ..models.t3 import T3Config, cond_embeddings, init_t3_params, make_decode_state, t3_decode_slice, t3_prefill
 from ..models.tokenizer import TextTokenizer
 from ..ops import _build
@@ -45,6 +58,8 @@ from ..settings import check_supported, get_settings, get_tts_config
 from ..text import split_text_into_chunks
 from .cancellation import CancellationToken, race_cancellation
 from .loader import load_default_conds
+from .s3gen_scheduler import MAX_TAIL_TOKENS, S3GenScheduler
+from .scheduler import BatchedT3Decoder
 
 
 class InitializationState(Enum):
@@ -182,7 +197,7 @@ class TTSEngine:
         """``params`` (optional) replaces the random init: {"t3": …, "s3gen": …}
         in the port's layout (``convert.convert_params``), on ``device``."""
         settings = get_settings()
-        check_supported(settings)
+        check_supported()
         if engine_cfg is None:
             engine_cfg = (EngineConfig.tiny_ref() if os.environ.get("CHATTERBOX_TINY_MODEL")
                           else EngineConfig.full(settings.DTYPE_POLICY))
@@ -200,7 +215,11 @@ class TTSEngine:
         self._state = InitializationState.NOT_STARTED
         self._progress = ""
         self._error: Optional[str] = None
-        self.tts_semaphore = asyncio.Semaphore(max(1, settings.CONCURRENT_REQUESTS_PER_WORKER))
+        # 0 = auto: as many concurrent requests as there are decode slots
+        self.tts_semaphore = asyncio.Semaphore(
+            settings.CONCURRENT_REQUESTS_PER_WORKER or max(1, settings.MAX_DECODE_SLOTS))
+        self.decoder: Optional[BatchedT3Decoder] = None         # MAX_DECODE_SLOTS > 1
+        self.s3gen_scheduler: Optional[S3GenScheduler] = None   # same gate
         self._request_errors: Dict[str, str] = {}
         # per-request record (tokens per chunk, samples, TTFA, wall), newest last
         self.request_stats: "collections.OrderedDict[str, Dict]" = collections.OrderedDict()
@@ -211,6 +230,11 @@ class TTSEngine:
 
     def shutdown(self) -> None:
         log.info("Engine shutdown: releasing device buffers.")
+        for sched in (self.decoder, self.s3gen_scheduler):
+            if sched is not None:
+                sched.stop()
+        self.decoder = None
+        self.s3gen_scheduler = None
         self.params = None
         self.voice_cache.clear()
 
@@ -223,6 +247,10 @@ class TTSEngine:
             await asyncio.to_thread(self._init_models)
             self._progress = "Loading the default voice..."
             await asyncio.to_thread(self._default_conditionals)
+            if get_settings().MAX_DECODE_SLOTS > 1:
+                self._init_schedulers()
+                self._progress = "Warming up the batched decoder..."
+                await self._warmup_decoder()
             self._state = InitializationState.READY
             self._progress = "Model ready"
             log.info("Engine ready on %s", self.device)
@@ -254,6 +282,53 @@ class TTSEngine:
         tok_file = model_dir / "tokenizer.json"
         self.tokenizer = TextTokenizer(str(tok_file) if tok_file.exists() else None,
                                        self.cfg.t3.text_vocab_size)
+
+    def _init_schedulers(self) -> None:
+        """The batched T3 decoder and the S3Gen micro-batcher, with the
+        first-audio gate between them (``CHATTERBOX_FIRST_AUDIO_GATE``: "0"
+        turns it off, a float sets its bounded wait in seconds, default 0.25)
+        and the tail-windowed vocoder unless ``CHATTERBOX_TAIL_VOCODE=0``."""
+        settings = get_settings()
+        self.decoder = BatchedT3Decoder(
+            self.params["t3"], self.cfg.t3, n_slots=settings.MAX_DECODE_SLOTS,
+            slice_size=get_tts_config().AUDIO_TOKENS_PER_SLICE)
+        rc = self.cfg.s3gen_ref
+        tail_infer = None
+        if os.environ.get("CHATTERBOX_TAIL_VOCODE", "1") == "1":
+            def tail_infer(p, tk, tl, rf, sr, cl, nz, start, tail_len):
+                return s3gen_ref_inference_tail(p, rc, tk, tl, rf, sr, cl, nz, start, tail_len)
+        # the source row holds the largest bucket plus the largest per-slice
+        # window shift (≤ slice + EOS ≤ MAX_TAIL_TOKENS)
+        self.s3gen_scheduler = S3GenScheduler(
+            self.params["s3gen"], rc,
+            state_tokens=self._reachable_token_cap() + MAX_TAIL_TOKENS, tail_infer=tail_infer)
+        gate_env = os.environ.get("CHATTERBOX_FIRST_AUDIO_GATE", "1")
+        if gate_env != "0":
+            timeout = 0.25 if gate_env == "1" else float(gate_env)
+            self.decoder.first_audio_gate = functools.partial(
+                self.s3gen_scheduler.wait_dispatch, timeout=timeout)
+
+    async def _warmup_decoder(self) -> None:
+        """Push one dummy chunk through the batched decoder (admission, a
+        look-ahead slice and a full slice) before the first request."""
+        conds = self.voice_cache["default"]
+        text = np.zeros((2, self.cfg.text_bucket), np.int64)
+        async for _ in self.decoder.decode_chunk(
+            conds.t3_cond_lanes, text, 4, 0.8, 0.95, 0.5, 1.2,
+            max_new_tokens=self.decoder.slice_size,
+            lookahead=_lookahead_size(self.decoder.slice_size),
+        ):
+            pass
+
+    def _reachable_token_cap(self) -> int:
+        """Largest accumulated-token count one text chunk can feed S3Gen:
+        per-chunk decode stops at ``max_new_tokens`` (+1 appended EOS code)."""
+        return min(self.cfg.t3.max_speech_tokens + 8, self.cfg.max_new_tokens + 2)
+
+    def _decode_seed(self, request_id: str, chunk_idx: int) -> int:
+        """The sampling seed of one text chunk: stable across processes and
+        independent of the slot and the co-tenants."""
+        return (self.seed * 1_000_003 + _stable_seed(request_id) + chunk_idx) & 0x7FFFFFFF
 
     # --------------------------------------------------------------- voices
     def _default_conditionals(self) -> Conditionals:
@@ -424,19 +499,30 @@ class TTSEngine:
                 T_pad = _bucket(len(ids), self.cfg.text_bucket, t3c.max_text_tokens)
                 padded = np.zeros((1, T_pad), np.int64)
                 padded[0, : len(ids)] = ids
-                lanes = torch.as_tensor(np.repeat(padded, 2, axis=0), device=dev)
-                text_len = torch.full((2,), len(ids), dtype=torch.int64, device=dev)
+                lanes = np.repeat(padded, 2, axis=0)
+                seed = self._decode_seed(request_id, i)
+
+                if self.decoder is not None:
+                    n_slices = await self._produce_chunk_batched(
+                        conds, lanes, len(ids), cfg_weight, temperature, slice_size, token_q,
+                        token, i, len(text_chunks), seed, stats)
+                    log.info("[%s][T3] chunk %d/%d: %d slices (batched) in %.3fs", request_id,
+                             i + 1, len(text_chunks), n_slices, time.time() - t_start)
+                    if n_slices < 0:  # cancelled mid-chunk
+                        return
+                    continue
 
                 def prefill():
                     with torch.inference_mode():
-                        return t3_prefill(t3p, t3c, conds.t3_cond_lanes, lanes, text_len)
+                        return t3_prefill(t3p, t3c, conds.t3_cond_lanes,
+                                          torch.as_tensor(lanes, device=dev),
+                                          torch.full((2,), len(ids), dtype=torch.int64, device=dev))
 
                 t0 = time.perf_counter()
                 cache = await asyncio.to_thread(prefill)
                 stats["t3_s"] += time.perf_counter() - t0
-                gen = make_generator((self.seed * 1_000_003 + _stable_seed(request_id) + i) & 0x7FFFFFFF, dev)
                 with torch.inference_mode():
-                    state = make_decode_state(t3c, 1, temperature, 0.95, cfg_weight, 1.2, gen, dev)
+                    state = make_decode_state(t3c, [seed], temperature, 0.95, cfg_weight, 1.2, dev)
                 produced, slice_idx, kept, done = 0, 0, 0, False
                 pos0 = t3c.cond_len + T_pad
                 cache_depth = pos0 + 1 + t3c.max_speech_tokens
@@ -491,6 +577,68 @@ class TTSEngine:
                 except asyncio.TimeoutError:
                     _queue_put_final(token_q, None)
 
+    async def _produce_chunk_batched(self, conds: Conditionals, lanes: np.ndarray, text_len: int,
+                                     cfg_weight: float, temperature: float, slice_size: int,
+                                     token_q: asyncio.Queue, token: CancellationToken,
+                                     chunk_idx: int, n_chunks: int, seed: int,
+                                     stats: Dict) -> int:
+        """Decode one text chunk in a slot of the batched decoder and re-cut
+        its token stream into request-sized slices → the slice count, or -1
+        if cancelled."""
+        buf = np.zeros((0,), np.int64)
+        slice_idx, kept = 0, 0
+        pending: Optional[dict] = None
+
+        def make_item(tokens: np.ndarray, idx: int) -> dict:
+            return {"tokens": tokens, "chunk_idx": chunk_idx, "slice_idx": idx,
+                    "is_first_slice": idx == 1, "is_last_slice": False,
+                    "is_first_chunk": chunk_idx == 0, "is_last_chunk": chunk_idx == n_chunks - 1}
+
+        async def emit(item: dict) -> bool:
+            cancelled, _ = await race_cancellation(token_q.put(item), token)
+            return not cancelled
+
+        # the first group goes out early (look-ahead) so S3Gen starts sooner;
+        # for the request's first chunk the decoder also runs a short slice
+        target = min(_lookahead_size(slice_size), slice_size)
+        async for row in self.decoder.decode_chunk(
+            conds.t3_cond_lanes, lanes, text_len, temperature, 0.95, cfg_weight, 1.2,
+            self.cfg.max_new_tokens, token, seed=seed,
+            lookahead=target if chunk_idx == 0 else 0, stats=stats,
+        ):
+            kept += len(row)
+            buf = np.concatenate([buf, row])
+            while len(buf) >= target:
+                if pending is not None and not await emit(pending):
+                    return -1
+                slice_idx += 1
+                pending = make_item(buf[:target], slice_idx)
+                buf = buf[target:]
+                target = slice_size
+                # tokens remain past the cut, so this slice is not the last:
+                # send it now instead of holding it for the next decode slice
+                if len(buf):
+                    if not await emit(pending):
+                        return -1
+                    pending = None
+        if token.is_cancelled():
+            return -1
+        stats["t3_tokens"].append(kept)
+        if len(buf):
+            if pending is not None and not await emit(pending):
+                return -1
+            slice_idx += 1
+            pending = make_item(buf, slice_idx)
+        if pending is None:
+            # no tokens at all: still send the final marker, so the EOS code
+            # and the trailing trim apply
+            slice_idx = 1
+            pending = make_item(np.zeros((0,), np.int64), slice_idx)
+        pending["is_last_slice"] = True
+        if not await emit(pending):
+            return -1
+        return slice_idx
+
     # -------------------------------------------------------- S3Gen producer
     async def _s3gen_producer(self, token_q: asyncio.Queue, pcm_q: asyncio.Queue,
                               conds: Conditionals, overlap: str, slice_size: int,
@@ -502,8 +650,7 @@ class TTSEngine:
         spt = s3c.samples_per_token
         dev = self.device
         stitcher = CrossfadeStitcher(int(self.sr * crossfade_ms / 1000.0))
-        buckets = _token_bucket_sizes(
-            slice_size, min(self.cfg.t3.max_speech_tokens + 8, self.cfg.max_new_tokens + 2))
+        buckets = _token_bucket_sizes(slice_size, self._reachable_token_cap())
         # request-stable noise: every slice of a chunk reseeds the same
         # generator, so frame t gets the same CFM noise on every re-synthesis
         noise_gen = torch.Generator(device=dev)
@@ -511,7 +658,8 @@ class TTSEngine:
         acc_tokens = np.zeros((0,), np.int64)
         prev_samples = 0  # samples of the chunk already emitted (full overlap)
         last_chunk_idx = -1
-        source_cache = np.zeros((0,), np.float32)
+        source_cache = np.zeros((0,), np.float32)  # per-request path: on the host
+        source_state = None                        # batched path: a device row
 
         async def emit(audio: np.ndarray) -> bool:
             if audio.size == 0:
@@ -530,6 +678,7 @@ class TTSEngine:
                     acc_tokens = np.zeros((0,), np.int64)
                     prev_samples = 0
                     source_cache = np.zeros((0,), np.float32)
+                    source_state = None
                     last_chunk_idx = item["chunk_idx"]
                     chunk_seed = base_seed + item["chunk_idx"]
                 new_toks = item["tokens"]
@@ -552,30 +701,45 @@ class TTSEngine:
                 padded = np.full((1, T), s3c.vocab_size, np.int64)
                 padded[0, : infer_tokens.size] = infer_tokens
                 valid = infer_tokens.size * spt
-                # the previous slice's excitation overrides the new one's prefix
-                src = np.zeros((1, T * spt), np.float32)
-                cache_len = min(source_cache.size, T * spt) if overlap == "full" else 0
-                src[0, :cache_len] = source_cache[:cache_len]
+                full = overlap == "full"
+                if self.s3gen_scheduler is not None:
+                    # batched: the source row stays on the device and only
+                    # the new tail comes back
+                    prev_rel = prev_samples if full else 0
+                    t0 = time.perf_counter()
+                    tail, start_used, new_state = await self.s3gen_scheduler.synthesize(
+                        padded[0], infer_tokens.size, conds.gen_ref, source_state,
+                        min(prev_samples, T * spt) if full else 0, chunk_seed,
+                        prev_rel=prev_rel, keep_state=full)
+                    stats["s3gen_s"] += time.perf_counter() - t0
+                    audio = tail[prev_rel - start_used: valid - start_used]
+                    if full:
+                        source_state = new_state
+                else:
+                    # the previous slice's excitation overrides the new one's prefix
+                    src = np.zeros((1, T * spt), np.float32)
+                    cache_len = min(source_cache.size, T * spt) if full else 0
+                    src[0, :cache_len] = source_cache[:cache_len]
 
-                def run(tokens=padded, n_valid=infer_tokens.size, src=src, cache_len=cache_len,
-                        seed=chunk_seed, T=T):
-                    with torch.inference_mode():
-                        noise_gen.manual_seed(seed)
-                        noise = draw_noise(s3c, 1, T, noise_gen, dev)
-                        w, ns = s3gen_ref_inference(
-                            s3p, s3c, torch.as_tensor(tokens, device=dev),
-                            torch.tensor([n_valid], device=dev), conds.gen_ref,
-                            torch.as_tensor(src, device=dev), torch.tensor([cache_len], device=dev),
-                            noise)
-                        return w[0].float().cpu().numpy(), ns[0].float().cpu().numpy()
+                    def run(tokens=padded, n_valid=infer_tokens.size, src=src,
+                            cache_len=cache_len, seed=chunk_seed, T=T):
+                        with torch.inference_mode():
+                            noise_gen.manual_seed(seed)
+                            noise = draw_noise(s3c, 1, T, noise_gen, dev)
+                            w, ns = s3gen_ref_inference(
+                                s3p, s3c, torch.as_tensor(tokens, device=dev),
+                                torch.tensor([n_valid], device=dev), conds.gen_ref,
+                                torch.as_tensor(src, device=dev),
+                                torch.tensor([cache_len], device=dev), noise)
+                            return w[0].float().cpu().numpy(), ns[0].float().cpu().numpy()
 
-                t0 = time.perf_counter()
-                wav, new_src = await asyncio.to_thread(run)
-                stats["s3gen_s"] += time.perf_counter() - t0
-                audio = wav[:valid]
-                if overlap == "full":
-                    source_cache = new_src[:valid]
-                    audio = audio[prev_samples:]
+                    t0 = time.perf_counter()
+                    wav, new_src = await asyncio.to_thread(run)
+                    stats["s3gen_s"] += time.perf_counter() - t0
+                    audio = wav[prev_samples if full else 0: valid]
+                    if full:
+                        source_cache = new_src[:valid]
+                if full:
                     prev_samples = valid
                 if item["is_first_chunk"] and item["is_first_slice"]:
                     audio = trim_leading(audio, lead_trim_ms, self.sr)

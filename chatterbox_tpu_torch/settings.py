@@ -2,9 +2,10 @@
 
 Reads the same environment variable names as ``chatterbox_tpu.config``
 (``MODEL_PATH``, ``MAX_DECODE_SLOTS``, ``TTS_*`` …, case-insensitive), from
-the process environment only. Defaults follow the JAX package except where the
-port does not implement a path yet: per-request decode (``MAX_DECODE_SLOTS=1``),
-no CFM prompt cache, no streaming CFM, no progressive slices.
+the process environment only. Defaults follow the JAX package (16 decode
+slots; ``MAX_DECODE_SLOTS=1`` serves per request) except where the port does
+not implement a path yet: no CFM prompt cache, no streaming CFM, no
+progressive slices.
 ``check_supported`` raises ``NotImplementedError`` naming the ROADMAP.md item
 when one of those is asked for, instead of quietly ignoring it.
 """
@@ -30,7 +31,7 @@ def _fill(cls, prefix: str):
 class AppSettings:
     MODEL_PATH: str = "models"
     CONCURRENT_REQUESTS_PER_WORKER: int = 0
-    MAX_DECODE_SLOTS: int = 1
+    MAX_DECODE_SLOTS: int = 16
     DTYPE_POLICY: str = "bfloat16"
     KV_CACHE_DTYPE: str = "native"
 
@@ -42,6 +43,7 @@ class TTSSettings:
 
     SPEECH_TOKEN_QUEUE_MAX_SIZE: int = 2
     PCM_CHUNK_QUEUE_MAX_SIZE: int = 3
+    AUDIO_TOKENS_PER_SLICE: int = 35   # the batched decoder's slice length
 
 
 def get_settings() -> AppSettings:
@@ -65,14 +67,8 @@ _UNPORTED = (
 _WINDOW = "CHATTERBOX_OVERLAP_WINDOW_TOKENS"
 
 
-def check_supported(settings: AppSettings) -> None:
+def check_supported() -> None:
     """Raise for a setting that selects a path the port does not have yet."""
-    if settings.MAX_DECODE_SLOTS > 1:
-        raise NotImplementedError(
-            f"MAX_DECODE_SLOTS={settings.MAX_DECODE_SLOTS}: batched decode is "
-            "ROADMAP.md Queue 1 item 4 (continuous-batching scheduler); the "
-            "port serves per request (MAX_DECODE_SLOTS=1)"
-        )
     for name, default, unported, item in _UNPORTED:
         value = os.environ.get(name, default).lower()
         if value in unported:

@@ -3,9 +3,9 @@
 
     python3 chip_profile.py [--out chiprun_out/chip_profile.json]
 
-The configuration is chip_smoke.py's: EngineConfig.full() with an int8 KV
-cache, random weights from seed 0, the seeded conds.pt as the default voice,
-CHATTERBOX_MAX_NEW_TOKENS=140, TF32 off. After one warm-up request it
+The configuration is chip_smoke.py's per-request phase: EngineConfig.full()
+with an int8 KV cache, random weights from seed 0, the seeded conds.pt as the
+default voice, CHATTERBOX_MAX_NEW_TOKENS=140, MAX_DECODE_SLOTS=1, TF32 off. After one warm-up request it
 measures, each figure on its own line:
 
 1. T3 alone: the prefill of the first request's text, then 35-step decode
@@ -111,8 +111,7 @@ def profile_t3(engine, out: dict) -> None:
         prefill = lambda: t3_prefill(t3p, t3c, lanes, torch.as_tensor(text, device=dev),  # noqa: E731
                                      torch.full((2,), len(ids), device=dev))
         prefill_s, cache = timed(prefill, dev)
-        gen = torch.Generator(device=dev).manual_seed(3)
-        state = make_decode_state(t3c, 1, 0.8, 0.95, 0.5, 1.2, gen, dev)
+        state = make_decode_state(t3c, [3], 0.8, 0.95, 0.5, 1.2, dev)
         pos0, n, produced = t3c.cond_len + T_pad, 35, 0
         walls = []
 
@@ -210,7 +209,8 @@ def main() -> int:
     print(out["gpu"], flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         write_conds(Path(tmp) / "conds.pt")
-        os.environ.update(MODEL_PATH=tmp, CHATTERBOX_MAX_NEW_TOKENS="140", CHATTERBOX_KV="int8")
+        os.environ.update(MODEL_PATH=tmp, CHATTERBOX_MAX_NEW_TOKENS="140", CHATTERBOX_KV="int8",
+                          MAX_DECODE_SLOTS="1")
 
         async def run():
             engine = TTSEngine(EngineConfig.full(), seed=0)

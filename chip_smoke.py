@@ -3,27 +3,47 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines; any failure raises and the script exits
-non-zero without printing the final line:
+Phases, each printing its own lines and its wall time; any failure raises and
+the script exits non-zero without printing the final line:
 
 1. the machine: GPU name and power limit (nvidia-smi), torch/CUDA versions,
    TF32 switched off for matmuls and cuDNN (float32 means float32 here);
-2. build: nvcc compiles chatterbox_tpu_torch/csrc/*.cu for sm_90a;
-3. kernels against their plain PyTorch versions at main-path shapes
-   (max-abs error against a stated tolerance, median CUDA-event times);
-4. serve: EngineConfig.full() (int8 KV cache, random weights from a seed, a
-   seeded conds.pt as the default voice, CHATTERBOX_MAX_NEW_TOKENS=140), three
-   requests through engine.stream(..., output_format="wav") with the HTTP
-   handler's arguments; each WAV is checked (RIFF header, sample count
-   against the tokens produced, finite, not silent) and the kernels' launch
-   counters must have risen during the run;
-5. native KV: one full-width T3 prefill and decode slice with a bf16 cache
-   must launch the kernel's bf16 body;
-6. the kernels' JSON summary, the GPU line, then the final JSON line.
+2. build: one nvcc per chatterbox_tpu_torch/csrc/*.cu, all started together,
+   for sm_90a, then one link;
+3. kernels against their plain PyTorch versions (max-abs error against a
+   stated tolerance): K1 and K2 at two lanes, then K1 (int8 and bf16
+   bodies), K2 and K3 at the batched path's shapes (32 lanes; 16 CFG pairs).
+   Each gets its device time (CUDA events around calls queued behind a
+   spin kernel), its time per call with the host's dispatch (CUDA events
+   around one call on an idle GPU), its plain version's device time, one
+   PyTorch library call's device time on the same inputs
+   (scaled_dot_product_attention, a yardstick the port never calls) and its
+   bound: the larger of the bytes it must move over 3.35 TB/s and its
+   operations over the peak rate for their type;
+4. batched serving: EngineConfig.full() (int8 KV cache, random weights from a
+   seed, a seeded conds.pt as the default voice, CHATTERBOX_MAX_NEW_TOKENS),
+   MAX_DECODE_SLOTS=16, 16 concurrent requests through
+   engine.stream(..., output_format="wav") with the HTTP handler's arguments,
+   some spanning two text chunks, under torch.profiler (CUDA activity only)
+   for the device's busy share. Every WAV is checked (RIFF header, sample
+   count against the tokens produced, finite, not silent); the decoder must
+   have run 12 or more slots at once, S3Gen must have batched 2 or more jobs,
+   and K1 (int8 body) and K2 must have launched. Then one 35-step slice at 16
+   slots, timed on the host and under the profiler;
+5. the per-request path (MAX_DECODE_SLOTS=1): two requests, one of two chunks,
+   with the same checks and K1/K2 launches;
+6. a full-width BatchedT3Decoder with a bf16 cache at 16 slots: 16 prefills,
+   one slice (K1's bf16 body at 32 lanes), then K3 against its plain version
+   and beside K1's bf16 body on the live cache of the first and last layer;
+7. the kernels' JSON summary, the GPU line, then the final JSON line.
+
+K1 and K2 report the launches of the batched serving phase (the main path);
+K3, which no serving path calls, reports its launches in phases 3 and 6.
 """
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
 import statistics
@@ -36,6 +56,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 KERNELS = {
     "decode_attention": {
@@ -46,11 +67,19 @@ KERNELS = {
         "source": "chatterbox_tpu_torch/csrc/flash_mha.cu",
         "replaces": "chatterbox_tpu/ops/pallas_mha.py:85",
     },
+    "decode_attention_pipelined": {
+        "source": "chatterbox_tpu_torch/csrc/decode_attention_pipelined.cu",
+        "replaces": "chatterbox_tpu/ops/pallas_attention_v3.py:415",
+    },
 }
 # Both sides compute in float32. A float32 output differs by summation order
 # only; a bfloat16 output is each side's float32 result rounded to bf16, so
 # the two may sit one bf16 step apart (2^-7 relative, |out| < 2 here).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+# H100 SXM data-sheet peaks: HBM bytes/s; dense operations/s by the type the
+# kernel's inputs arrive in (f32 math outside the tensor cores)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
 TEXTS = [
     "Hello from the port. This request runs on one graphics card.",
     "The quick brown fox jumps over the lazy dog, while the patient engineer "
@@ -65,6 +94,9 @@ REQUEST = dict(output_format="wav", voice_id=None, cfg_guidance_weight=0.5,
                audio_tokens_per_slice=35, remove_trailing_milliseconds=0,
                remove_leading_milliseconds=0, chunk_overlap_strategy="full",
                crossfade_duration_milliseconds=30)
+SLOTS = 16                 # MAX_DECODE_SLOTS of the batched phase
+LANES = 2 * SLOTS          # CFG pairs: the decode kernels' batch
+MAX_NEW_TOKENS = "140"     # per-chunk decode cap (random weights never stop)
 
 
 def gpu_line() -> str:
@@ -75,14 +107,67 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def profiler():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+
+
+def device_ms(prof) -> tuple[float, float]:
+    """(summed, busy) ms of the device activity (kernels, copies, fills) a
+    finished profiler saw: the sum of their durations, and the union of
+    their intervals. Read from the raw trace events: key_averages() takes
+    minutes over the hundreds of thousands of kernels of a serving run."""
+    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("torch.profiler recorded no device time")
+    summed = sum(b - a for a, b in spans)
+    busy, (lo, hi) = 0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return summed / 1e6, (busy + hi - lo) / 1e6
+
+
+def queued_ms(fn, n: int) -> float | None:
+    """Device ms per call of ``n`` calls queued behind a spin kernel, so the
+    GPU runs them back to back and the events around them hold no host time;
+    None if the host could not queue them all before the spin ended (the
+    device's launch queue is finite)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    spin_s = 3 * (time.perf_counter() - t0) + 2e-3
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_s * 2e9))   # ≥ spin_s at any SM clock up to 2 GHz
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    queued_s = time.perf_counter() - t0
+    b.synchronize()
+    return a.elapsed_time(b) / n if queued_s < spin_s else None
+
+
 def time_ms(fn, iters: int = 30, warmup: int = 3) -> tuple[float, float]:
-    """(device ms, call ms) of one call. Device: the kernels the call
-    launches, summed by torch.profiler and averaged over ``iters`` calls.
-    Call: the median CUDA-event time around one call on an idle GPU, which
-    also holds the host's dispatch (for a wrapper: its checks and the ctypes
-    launch), since the GPU waits for it after the first event."""
+    """(device ms, call ms) of one call. Device: ``queued_ms`` over
+    ``iters`` calls, or fewer when a call launches so many kernels that
+    ``iters`` of them overflow the launch queue. Call: the median CUDA-event
+    time around one call on an idle GPU, which also holds the host's
+    dispatch (for a wrapper: its checks and the ctypes launch), since the GPU
+    waits for it after the first event."""
     for _ in range(warmup):
         fn()
+    n, device = iters, None
+    while device is None and n >= 1:
+        device = queued_ms(fn, n)
+        n //= 2
+    if device is None:
+        raise RuntimeError("one call's launches do not fit behind the spin kernel")
     times = []
     for _ in range(iters):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -91,14 +176,14 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> tuple[float, float]:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in prof.key_averages())
-    if device_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return device_us / 1e3 / iters, statistics.median(times)
+    return device, statistics.median(times)
+
+
+def bound(bytes_moved: float, ops: float, dtype) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for the work of one call."""
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -114,18 +199,23 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> flo
     return err
 
 
+def quantize(x: torch.Tensor):
+    """Per-token int8 with f32 scales, as the model's cache stores it."""
+    s = x.float().abs().amax(-1).clamp_min(1e-8) / 127.0
+    return torch.round(x.float() / s[..., None]).clamp(-127, 127).to(torch.int8), s
+
+
 def check_decode_attention(results: dict) -> None:
+    """K1 at 2 lanes: windows at and past tile edges, every body."""
     from chatterbox_tpu_torch.ops import decode_attention as da
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     B, H, Hk, S, Dh = 2, 16, 16, 1300, 64
-    # (start, pos) per lane: left-pad offsets > 0; depths at, and one key
-    # past, a 64-key tile boundary; a deep row near the end of the cache
     windows = [((5, 17), (65, 129)), ((0, 33), (64, 640)), ((31, 12), (1299, 700))]
-    worst = {}
     for q_dtype, cache in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"),
                            (torch.bfloat16, "int8")):
+        worst = 0.0
         for (s0, s1), (p0, p1) in windows:
             rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
             q = rnd(B, H, Dh).to(q_dtype)
@@ -133,48 +223,34 @@ def check_decode_attention(results: dict) -> None:
             k, v = rnd(B, Hk, S, Dh), rnd(B, Hk, S, Dh)
             ks = vs = None
             if cache == "int8":
-                ks = k.abs().amax(-1).clamp_min(1e-8) / 127.0
-                vs = v.abs().amax(-1).clamp_min(1e-8) / 127.0
-                k = torch.round(k / ks[..., None]).clamp(-127, 127).to(torch.int8)
-                v = torch.round(v / vs[..., None]).clamp(-127, 127).to(torch.int8)
+                (k, ks), (v, vs) = quantize(k), quantize(v)
             else:
                 k, v = k.to(q_dtype), v.to(q_dtype)
             start = torch.tensor([s0, s1], dtype=torch.int32, device=dev)
             pos = torch.tensor([p0, p1], dtype=torch.int32, device=dev)
             s_view = min(S, ((max(p0, p1) + 1 + 255) // 256) * 256)
             args = (q, k, v, kn, vn, start, pos, ks, vs)
-            got = da.decode_attention(*args)
-            want = da.decode_attention_plain(*args, s_view=s_view)
-            err = compare(f"decode_attention[{cache}] start={s0},{s1} pos={p0},{p1}",
-                          got, want, TOL[q_dtype])
-            worst[cache] = max(worst.get(cache, 0.0), err)
-        # time the middle window (a typical decode depth)
-        (s0, s1), (p0, p1) = windows[1]
-        start = torch.tensor([s0, s1], dtype=torch.int32, device=dev)
-        pos = torch.tensor([p0, p1], dtype=torch.int32, device=dev)
-        args = (q, k, v, kn, vn, start, pos, ks, vs)
-        s_view = min(S, ((max(p0, p1) + 1 + 255) // 256) * 256)
-        ms, call_ms = time_ms(lambda: da.decode_attention(*args))
-        plain_ms, plain_call_ms = time_ms(lambda: da.decode_attention_plain(*args, s_view=s_view))
-        print(f"  decode_attention[{cache}] B={B} H={H} S={S} pos={p0},{p1}: device ms "
-              f"kernel {ms:.4f}, plain {plain_ms:.4f}; per call {call_ms:.4f}, "
-              f"{plain_call_ms:.4f}", flush=True)
-        results[cache] = {"max_abs_err": worst[cache], "ms": ms, "plain_ms": plain_ms,
-                          "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-                          "tol": TOL[q_dtype]}
+            worst = max(worst, compare(f"decode_attention[{cache}] B=2 start={s0},{s1} "
+                                       f"pos={p0},{p1}", da.decode_attention(*args),
+                                       da.decode_attention_plain(*args, s_view=s_view),
+                                       TOL[q_dtype]))
+        results[cache] = {"max_abs_err": worst, "tol": TOL[q_dtype]}
 
 
 def check_flash_mha(results: dict) -> None:
+    """K2 at 2 lanes (T = 1012 and 2500), then at the batched path's (16 jobs'
+    CFG pairs, the 64-token bucket: T = 2 × (250 + 64) frames)."""
     from chatterbox_tpu_torch.ops import flash_mha as fm
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
-    B, H, dh = 2, 8, 64
+    H, dh = 8, 64
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         worst, timing = 0.0, {}
-        for T in (1012, 2500):
-            q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev).to(dtype) for _ in range(3))
+        for B, T in ((2, 1012), (2, 2500), (LANES, 628)):
+            q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev).to(dtype)
+                       for _ in range(3))
             valid = torch.ones((B, T), dtype=torch.bool, device=dev)
             valid[0, T - 37:] = False          # padded tail
             if T == 1012:
@@ -183,19 +259,132 @@ def check_flash_mha(results: dict) -> None:
                 valid[1, :100] = False
             got = fm.flash_mha(q, k, v, valid, scale=0.125)
             want = fm.flash_mha_plain(q, k, v, valid, scale=0.125)
-            worst = max(worst, compare(f"flash_mha[{name}] T={T}", got, want, TOL[dtype]))
+            worst = max(worst, compare(f"flash_mha[{name}] B={B} T={T}", got, want, TOL[dtype]))
             if T == 1012:
                 zero = got[1].float().abs().max().item()
                 if zero != 0.0:
                     raise AssertionError(f"flash_mha[{name}]: all-masked lane gave {zero}, not 0")
+                continue
             ms, call_ms = time_ms(lambda: fm.flash_mha(q, k, v, valid, scale=0.125))
-            plain_ms, plain_call_ms = time_ms(lambda: fm.flash_mha_plain(q, k, v, valid, scale=0.125))
+            plain_ms, _ = time_ms(lambda: fm.flash_mha_plain(q, k, v, valid, scale=0.125))
+            mask = valid[:, None, None, :]
+            library_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=0.125))
+            n_keys = valid.sum().item()                   # Σ_b valid keys of lane b
+            ops = 4.0 * dh * H * T * n_keys               # QKᵀ and PV, 2 ops per FMA
+            moved = 4 * q.numel() * q.element_size() + valid.numel()
+            bound_ms, bound_by = bound(moved, ops, dtype)
             print(f"  flash_mha[{name}] B={B} H={H} T={T} dh={dh}: device ms kernel {ms:.4f}, "
-                  f"plain {plain_ms:.4f}; per call {call_ms:.4f}, {plain_call_ms:.4f}", flush=True)
-            timing[T] = {"ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
-                         "plain_call_ms": plain_call_ms}
-        results[name] = {"max_abs_err": worst, **timing[1012], "T2500": timing[2500],
-                         "tol": TOL[dtype]}
+                  f"plain {plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound_ms:.4f} "
+                  f"({bound_by}); kernel per call {call_ms:.4f}", flush=True)
+            timing[(B, T)] = {"shape": f"B={B} H={H} T={T} dh={dh}", "ms": ms,
+                              "plain_ms": plain_ms, "call_ms": call_ms,
+                              "library_ms": library_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by}
+        results[name] = {"max_abs_err": worst, "tol": TOL[dtype], **timing[(LANES, 628)],
+                         "B2_T2500": timing[(2, 2500)]}
+
+
+def batched_windows(dev, S: int):
+    """(start, pos) for 32 lanes: starts 0–160, ends 200–1270, one lane
+    empty (start = pos)."""
+    rng = np.random.default_rng(3)
+    start = rng.integers(0, 161, LANES)
+    pos = rng.integers(200, 1271, LANES)
+    start[5] = pos[5] = 700
+    pos = np.minimum(pos, S)
+    return (torch.as_tensor(start, dtype=torch.int32, device=dev),
+            torch.as_tensor(pos, dtype=torch.int32, device=dev))
+
+
+def decode_library_fn(q, k, v, kn, vn, start, pos):
+    """One scaled_dot_product_attention call computing the decode function:
+    the self-term appended as one more key, a boolean mask for [start, pos)."""
+    B, H, Dh = q.shape
+    S = k.shape[2]
+    k_ext = torch.cat([k, kn[:, :, None]], dim=2)
+    v_ext = torch.cat([v, vn[:, :, None]], dim=2)
+    idx = torch.arange(S + 1, device=q.device)
+    mask = ((idx >= start[:, None]) & (idx < pos[:, None])) | (idx == S)
+    mask = mask[:, None, None, :]
+    q4 = q[:, :, None]
+    return lambda: F.scaled_dot_product_attention(q4, k_ext, v_ext, attn_mask=mask,
+                                                  scale=1.0 / Dh ** 0.5)
+
+
+def decode_bound(q, cache_dtype, start, pos, Hk, scales: bool):
+    """Bound of one decode-attention call: each [start, pos) row of K and V
+    (and its f32 scales) read once, q / the current k, v read once, the
+    output written once; 4 ops per (row + self-term, head, Dh)."""
+    B, H, Dh = q.shape
+    rows = (pos - start).clamp_min(0).sum().item()
+    elem = torch.tensor([], dtype=cache_dtype).element_size()
+    moved = (2 * rows * Hk * Dh * elem + (2 * rows * Hk * 4 if scales else 0)
+             + (2 * B * H * Dh + 2 * B * Hk * Dh) * q.element_size() + 8 * B)
+    ops = 4.0 * (rows + B) * H * Dh
+    return bound(moved, ops, cache_dtype if cache_dtype == torch.int8 else q.dtype)
+
+
+def time_decode(name, fn, plain_fn, library_fn, bound_ms, bound_by, err, tol) -> dict:
+    ms, call_ms = time_ms(fn)
+    plain_ms, _ = time_ms(plain_fn)
+    library_ms, _ = time_ms(library_fn)
+    print(f"  {name}: device ms kernel {ms:.4f}, plain {plain_ms:.4f}, SDPA {library_ms:.4f}, "
+          f"bound {bound_ms:.4f} ({bound_by}); kernel per call {call_ms:.4f}", flush=True)
+    return {"max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "call_ms": call_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def check_batched_decode(k1: dict, k3: dict) -> None:
+    """K1 (int8 and bf16 bodies) and K3 (bf16 and f32) at the batched
+    decoder's shapes: 32 lanes, H = Hk = 16, Dh = 64, S = 1280. K3 is timed
+    beside K1's bf16 body on the same inputs."""
+    from chatterbox_tpu_torch.ops import decode_attention as da
+    from chatterbox_tpu_torch.ops import decode_attention_pipelined as dap
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    H = Hk = 16
+    S, Dh = 1280, 64
+    start, pos = batched_windows(dev, S)
+    shape = f"B={LANES} H={H} S={S} Dh={Dh}, mean window {(pos - start).float().mean().item():.1f}"
+    print(f"  batched decode inputs: {shape}", flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        rnd = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+        q = rnd(LANES, H, Dh).to(dtype)
+        kn, vn = rnd(LANES, Hk, Dh).to(dtype), rnd(LANES, Hk, Dh).to(dtype)
+        kf, vf = rnd(LANES, Hk, S, Dh), rnd(LANES, Hk, S, Dh)
+        k, v = kf.to(dtype), vf.to(dtype)
+        args = (q, k, v, kn, vn, start, pos)
+        want = da.decode_attention_plain(*args)
+        err = compare(f"decode_attention_pipelined[{name}] {shape}",
+                      dap.decode_attention_pipelined(*args), want, TOL[dtype])
+        bms, bby = decode_bound(q, dtype, start, pos, Hk, scales=False)
+        k3[name] = {"shape": shape, **time_decode(
+            f"decode_attention_pipelined[{name}] B={LANES}",
+            lambda: dap.decode_attention_pipelined(*args), lambda: da.decode_attention_plain(*args),
+            decode_library_fn(*args), bms, bby, err, TOL[dtype])}
+        if dtype == torch.bfloat16:
+            err1 = compare(f"decode_attention[bfloat16] {shape}", da.decode_attention(*args),
+                           want, TOL[dtype])
+            k1[f"bfloat16_B{LANES}"] = {"shape": shape, **time_decode(
+                f"decode_attention[bfloat16] B={LANES}", lambda: da.decode_attention(*args),
+                lambda: da.decode_attention_plain(*args), decode_library_fn(*args), bms, bby,
+                err1, TOL[dtype])}
+            (kq, ks), (vq, vs) = quantize(kf), quantize(vf)
+            qargs = (q, kq, vq, kn, vn, start, pos, ks, vs)
+            err8 = compare(f"decode_attention[int8] {shape}", da.decode_attention(*qargs),
+                           da.decode_attention_plain(*qargs), TOL[dtype])
+            # the yardstick reads the dequantised cache in bf16 (2x the bytes)
+            deq = lambda x, s: (x.float() * s[..., None]).to(dtype)  # noqa: E731
+            lib_args = (q, deq(kq, ks), deq(vq, vs), kn, vn, start, pos)
+            bms8, bby8 = decode_bound(q, torch.int8, start, pos, Hk, scales=True)
+            k1[f"int8_B{LANES}"] = {"shape": shape, **time_decode(
+                f"decode_attention[int8] B={LANES}", lambda: da.decode_attention(*qargs),
+                lambda: da.decode_attention_plain(*qargs), decode_library_fn(*lib_args),
+                bms8, bby8, err8, TOL[dtype])}
 
 
 def write_conds(path: Path, seed: int = 7) -> None:
@@ -217,7 +406,7 @@ def write_conds(path: Path, seed: int = 7) -> None:
     torch.save({"t3": t3, "gen": gen}, path)
 
 
-def check_wav(i: int, data: bytes, stats: dict, sr: int, spt: int, fade: int) -> float:
+def check_wav(i, data: bytes, stats: dict, sr: int, spt: int, fade: int) -> float:
     if len(data) < 44 or data[:4] != b"RIFF" or data[8:12] != b"WAVE" or data[36:40] != b"data":
         raise AssertionError(f"request {i}: no RIFF/WAVE header")
     channels, rate, _, _, bits = struct.unpack("<HLLHH", data[22:36])
@@ -225,7 +414,8 @@ def check_wav(i: int, data: bytes, stats: dict, sr: int, spt: int, fade: int) ->
         raise AssertionError(f"request {i}: header says {channels} ch, {rate} Hz, {bits} bit")
     pcm = np.frombuffer(data[44:], dtype="<i2")
     if pcm.size != stats["samples"]:
-        raise AssertionError(f"request {i}: {pcm.size} samples in the WAV, engine emitted {stats['samples']}")
+        raise AssertionError(f"request {i}: {pcm.size} samples in the WAV, "
+                             f"engine emitted {stats['samples']}")
     want = sum(n + 1 for n in stats["t3_tokens"]) * spt  # + the EOS code per chunk
     if stats["synth_samples"] != want:
         raise AssertionError(f"request {i}: synthesised {stats['synth_samples']} samples, "
@@ -239,10 +429,25 @@ def check_wav(i: int, data: bytes, stats: dict, sr: int, spt: int, fade: int) ->
     return pcm.size / sr
 
 
-async def serve(model_dir: Path) -> dict:
+def reset_launches():
     from chatterbox_tpu_torch.ops import decode_attention as da
+    from chatterbox_tpu_torch.ops import decode_attention_pipelined as dap
     from chatterbox_tpu_torch.ops import flash_mha as fm
-    from chatterbox_tpu_torch.runtime.cancellation import CancellationToken
+
+    for mod in (da, fm, dap):
+        mod.reset_launches()
+
+
+def read_launches() -> dict:
+    from chatterbox_tpu_torch.ops import decode_attention as da
+    from chatterbox_tpu_torch.ops import decode_attention_pipelined as dap
+    from chatterbox_tpu_torch.ops import flash_mha as fm
+
+    return {"decode_attention": dict(da.launches), "flash_mha": dict(fm.launches),
+            "decode_attention_pipelined": dict(dap.launches)}
+
+
+async def start_engine():
     from chatterbox_tpu_torch.runtime.engine import EngineConfig, TTSEngine
 
     cfg = EngineConfig.full()
@@ -250,61 +455,206 @@ async def serve(model_dir: Path) -> dict:
           f"kv={cfg.t3.kv_cache_dtype}, S3Gen conformer {cfg.s3gen_ref.flow.input_size} "
           f"({cfg.s3gen_ref.flow.num_blocks}+{cfg.s3gen_ref.flow.num_up_blocks} blocks), "
           f"HiFT {cfg.s3gen_ref.hift.base_channels}, params {cfg.param_dtype}, "
-          f"max_new_tokens {cfg.max_new_tokens}", flush=True)
+          f"max_new_tokens {cfg.max_new_tokens}, MAX_DECODE_SLOTS {os.environ['MAX_DECODE_SLOTS']}",
+          flush=True)
     t0 = time.perf_counter()
     engine = TTSEngine(cfg, seed=0)
     await engine.ainit()
     torch.cuda.synchronize()
     print(f"  ainit {time.perf_counter() - t0:.2f} s on {engine.device}", flush=True)
-    spt = cfg.gen.samples_per_token
-    fade = int(engine.sr * REQUEST["crossfade_duration_milliseconds"] / 1000)
-    da.reset_launches()
-    fm.reset_launches()
-    for i, text in enumerate(TEXTS):
-        rid = f"smoke-{i}"
+    return engine
+
+
+async def run_requests(engine, texts, prefix: str):
+    """Send ``texts`` concurrently → [(request id, wav bytes)]."""
+    from chatterbox_tpu_torch.runtime.cancellation import CancellationToken
+
+    async def one(i, text):
+        rid = f"{prefix}-{i}"
         data = b""
         async for chunk in engine.stream(text=text, request_id=rid,
                                          cancellation_token=CancellationToken(), **REQUEST):
             data += chunk
+        return rid, data
+
+    return await asyncio.gather(*[one(i, t) for i, t in enumerate(texts)])
+
+
+def report_requests(engine, results) -> float:
+    """Check each WAV and print its request's numbers → seconds of audio."""
+    spt = engine.cfg.gen.samples_per_token
+    fade = int(engine.sr * REQUEST["crossfade_duration_milliseconds"] / 1000)
+    total = 0.0
+    for rid, data in results:
         stats = engine.request_stats[rid]
-        audio_s = check_wav(i, data, stats, engine.sr, spt, fade)
-        print(f"  request {i}: {stats['chunks']} chunk(s), tokens {stats['t3_tokens']}, "
+        audio_s = check_wav(rid, data, stats, engine.sr, spt, fade)
+        total += audio_s
+        print(f"  {rid}: {stats['chunks']} chunk(s), tokens {stats['t3_tokens']}, "
               f"{audio_s:.2f} s audio, TTFA {stats['ttfa_s']:.3f} s, wall {stats['wall_s']:.3f} s, "
-              f"RTF {stats['wall_s'] / audio_s:.3f}; T3 {stats['t3_s']:.2f} s for "
-              f"{stats['t3_steps']} steps ({1e3 * stats['t3_s'] / stats['t3_steps']:.1f} ms/step "
-              f"incl. prefill), S3Gen {stats['s3gen_s']:.2f} s for {stats['slices']} calls",
-              flush=True)
-    launches = {"decode_attention": dict(da.launches), "flash_mha": dict(fm.launches)}
-    print(f"  launches during serving: {launches}", flush=True)
-    if not any(s["chunks"] >= 2 for s in engine.request_stats.values()):
+              f"RTF {stats['wall_s'] / audio_s:.3f}; T3 {stats['t3_s']:.2f} s over "
+              f"{stats['t3_steps']} steps, S3Gen {stats['s3gen_s']:.2f} s for "
+              f"{stats['slices']} calls", flush=True)
+    if not any(engine.request_stats[rid]["chunks"] >= 2 for rid, _ in results):
         raise AssertionError("no request spanned two text chunks")
-    if da.launches["int8"] == 0 or fm.launches["float32"] == 0:
-        raise AssertionError(f"the main path did not run both kernels: {launches}")
+    return total
 
-    print("== 5. native (bf16) KV cache at full width", flush=True)
-    from chatterbox_tpu_torch.models.t3 import make_decode_state, t3_decode_slice, t3_prefill
 
-    t3c = cfg.t3.with_(kv_cache_dtype="native")
+def require_main_path(launches: dict, what: str) -> None:
+    if launches["decode_attention"]["int8"] == 0 or launches["flash_mha"]["float32"] == 0:
+        raise AssertionError(f"{what} did not run K1's int8 body and K2: {launches}")
+
+
+def text_lanes(engine, text: str):
+    """A text chunk's T3 input as the engine builds it → (lanes [2, T_pad], length)."""
+    from chatterbox_tpu_torch.runtime.engine import _bucket
+
+    t3c = engine.cfg.t3
+    ids = engine.tokenizer.text_to_tokens(text)[0]
+    ids = np.concatenate([[t3c.start_text_token], ids[: t3c.max_text_tokens - 2],
+                          [t3c.stop_text_token]]).astype(np.int64)
+    T_pad = _bucket(len(ids), engine.cfg.text_bucket, t3c.max_text_tokens)
+    lanes = np.zeros((2, T_pad), np.int64)
+    lanes[:, : len(ids)] = ids
+    return lanes, len(ids)
+
+
+def fill_slots(engine, dec) -> int:
+    """Prefill one chunk into every slot of a decoder whose loop is idle →
+    the attention view for direct slices (on the card the kernel stops at
+    each row's own pos; the view bounds only the plain version's read)."""
     lanes = engine.voice_cache["default"].t3_cond_lanes
-    text = torch.zeros((2, 32), dtype=torch.long, device=engine.device)
-    text[:, :20] = torch.randint(1, 700, (20,), device=engine.device)
-    before = da.launches["native"]
-    with torch.inference_mode():
-        cache = t3_prefill(engine.params["t3"], t3c, lanes, text,
-                           torch.full((2,), 20, device=engine.device))
-        gen = torch.Generator(device=engine.device).manual_seed(5)
-        state = make_decode_state(t3c, 1, 0.8, 0.95, 0.5, 1.2, gen, engine.device)
-        toks = t3_decode_slice(engine.params["t3"], t3c, cache, state, 8)
-    torch.cuda.synchronize()
-    rose = da.launches["native"] - before
-    if cache["k"].dtype != torch.bfloat16 or rose == 0:
-        raise AssertionError(f"native KV: cache {cache['k'].dtype}, bf16-body launches {rose}")
-    if not ((toks >= 0) & (toks < t3c.speech_vocab_size)).all():
-        raise AssertionError("native KV: tokens out of range")
-    print(f"  native KV: prefill + 8-step slice, tokens {toks[0].tolist()}, "
-          f"bf16-body launches {rose}", flush=True)
+    for slot in range(dec.n_slots):
+        text, n = text_lanes(engine, TEXTS[slot % len(TEXTS)][: 40 + 7 * slot])
+        dec.insert(slot, lanes, text, n, 0.8, 0.95, 0.5, 1.2, seed=slot)
+    return dec.cfg.max_seq_len
+
+
+async def serve_batched(out: dict) -> dict:
+    engine = await start_engine()
+    dec, s3 = engine.decoder, engine.s3gen_scheduler
+    texts = [TEXTS[i % 3] if i % 3 else f"Stream {i}. {TEXTS[0]}" for i in range(SLOTS)]
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with profiler() as prof:
+        results = await run_requests(engine, texts, "batched")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    t1 = time.perf_counter()
+    summed_ms, busy_ms = device_ms(prof)
+    print(f"  {SLOTS} concurrent requests: wall {wall:.3f} s under the CUDA-only profiler "
+          f"(its summary took {time.perf_counter() - t1:.1f} s); device activity summed "
+          f"{summed_ms / 1e3:.3f} s", flush=True)
+    audio = report_requests(engine, results)
+    full = [(n, k, dt) for n, k, dt in dec.slice_log if n == SLOTS]
+    step_ms = 1e3 * sum(dt for *_, dt in full) / max(1, sum(k for _, k, _ in full))
+    print(f"  total: {audio:.2f} s of audio in {wall:.3f} s of wall = {audio / wall:.3f} s of audio "
+          f"per s at {SLOTS} streams; device busy {busy_ms / 1e3:.3f} s = "
+          f"{100 * busy_ms / 1e3 / wall:.1f} % of the wall; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"  decoder: max_active_seen {dec.max_active_seen}; {len(full)} slices at {SLOTS} "
+          f"active slots, host wall {step_ms:.2f} ms per step; S3Gen max_batch_seen "
+          f"{s3.max_batch_seen}", flush=True)
+    print(f"  launches during serving: {launches}", flush=True)
+    require_main_path(launches, "batched serving")
+    if dec.max_active_seen < SLOTS * 3 // 4:   # 12 of 16
+        raise AssertionError(f"the decoder ran at most {dec.max_active_seen} slots at once")
+    if s3.max_batch_seen < 2:
+        raise AssertionError("S3Gen never batched two jobs")
+
+    # one 35-step slice at 16 active slots, on the idle serving decoder
+    view = fill_slots(engine, dec)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec.run_slice(35, view)
+        walls.append(time.perf_counter() - t0)
+    with profiler() as prof:
+        dec.run_slice(35, view)
+        torch.cuda.synchronize()
+    slice_dev, _ = device_ms(prof)
+    for slot in range(SLOTS):
+        dec.finish(slot)
+    alone_ms = 1e3 * statistics.median(walls) / 35
+    print(f"  one 35-step slice at {SLOTS} slots alone: host wall {alone_ms:.2f} ms per step "
+          f"({[round(1e3 * w, 1) for w in walls]} ms per slice), device {slice_dev / 35:.3f} ms "
+          f"per step ({100 * slice_dev / 35 / alone_ms:.1f} % busy)", flush=True)
+    out.update(wall_s=wall, audio_s=audio, audio_per_wall=audio / wall, busy=busy_ms / 1e3 / wall,
+               max_active_seen=dec.max_active_seen, s3gen_max_batch=s3.max_batch_seen,
+               serving_step_ms=step_ms, alone_step_ms=alone_ms, slice_device_ms=slice_dev)
     engine.shutdown()
     return launches
+
+
+async def serve_per_request(out: dict):
+    engine = await start_engine()
+    reset_launches()
+    results = []
+    for i, text in enumerate(TEXTS[:2]):   # one after the other
+        results += await run_requests(engine, [text], f"single{i}")
+    launches = read_launches()
+    report_requests(engine, results)
+    print(f"  launches: {launches}", flush=True)
+    require_main_path(launches, "per-request serving")
+    if engine.decoder is not None:
+        raise AssertionError("MAX_DECODE_SLOTS=1 built a batched decoder")
+    return engine
+
+
+def batched_bf16_decoder(engine, k1: dict, k3: dict) -> int:
+    """Phase 6 → K3 launches."""
+    from chatterbox_tpu_torch.ops import decode_attention as da
+    from chatterbox_tpu_torch.ops import decode_attention_pipelined as dap
+    from chatterbox_tpu_torch.runtime.scheduler import BatchedT3Decoder
+
+    t3c = engine.cfg.t3.with_(kv_cache_dtype="native")
+    dec = BatchedT3Decoder(engine.params["t3"], t3c, n_slots=SLOTS, slice_size=35)
+    if dec.cache["k"].dtype != torch.bfloat16:
+        raise AssertionError(f"native KV cache is {dec.cache['k'].dtype}")
+    view = fill_slots(engine, dec)
+    reset_launches()
+    toks, _ = dec.run_slice(35, view)
+    torch.cuda.synchronize()
+    rose = read_launches()["decode_attention"]["native"]
+    if rose != 35 * t3c.num_layers:
+        raise AssertionError(f"bf16 body launched {rose} times, not 35 x {t3c.num_layers}")
+    if not ((toks >= 0) & (toks < t3c.speech_vocab_size)).all():
+        raise AssertionError("bf16 decoder: tokens out of range")
+    print(f"  {SLOTS} prefills + one 35-step slice at {LANES} lanes: K1 bf16-body launches "
+          f"{rose}; slot 0 tokens {toks[0][:8].tolist()}…", flush=True)
+    dev = engine.device
+    g = torch.Generator(device=dev).manual_seed(6)
+    start, pos = dec.cache["start"], dec.cache["pos"]
+    H, Hk, Dh = t3c.num_heads, t3c.num_kv_heads, t3c.head_dim
+    shape = (f"live cache B={LANES} H={H} S={t3c.max_seq_len} Dh={Dh}, windows "
+             f"{int((pos - start).min())}–{int((pos - start).max())}")
+    for layer in (0, t3c.num_layers - 1):
+        rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+        args = (rnd(LANES, H, Dh), dec.cache["k"][layer], dec.cache["v"][layer],
+                rnd(LANES, Hk, Dh), rnd(LANES, Hk, Dh), start, pos)
+        want = da.decode_attention_plain(*args)
+        err = compare(f"decode_attention_pipelined[bfloat16] layer {layer} {shape}",
+                      dap.decode_attention_pipelined(*args), want, TOL[torch.bfloat16])
+        k3["live"] = max(k3.get("live", 0.0), err)
+        if layer == 0:
+            k3_ms, _ = time_ms(lambda: dap.decode_attention_pipelined(*args))
+            k1_ms, _ = time_ms(lambda: da.decode_attention(*args))
+            print(f"  layer 0 live cache: device ms K3 {k3_ms:.4f}, K1 bf16 {k1_ms:.4f}",
+                  flush=True)
+            k3["live_ms"], k1["live_bf16_ms"] = k3_ms, k1_ms
+    return read_launches()["decode_attention_pipelined"]["native"]
+
+
+def phase(title: str):
+    print(f"== {title}", flush=True)
+    return time.perf_counter()
+
+
+def done(t0: float, walls: dict, key: str) -> None:
+    walls[key] = time.perf_counter() - t0
+    print(f"  [phase wall {walls[key]:.1f} s]", flush=True)
 
 
 def main() -> int:
@@ -315,7 +665,8 @@ def main() -> int:
     import chatterbox_tpu_torch  # noqa: F401  (fails outside a checkout)
     from chatterbox_tpu_torch.ops import _build
 
-    print("== 1. machine", flush=True)
+    walls: dict = {}
+    t0 = phase("1. machine")
     print(f"  {gpu_line()}", flush=True)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
@@ -323,41 +674,71 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"  allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
+    done(t0, walls, "machine")
 
-    print("== 2. build", flush=True)
-    t0 = time.perf_counter()
+    t0 = phase("2. build")
     _build.library()
     info = _build.build_info
-    print(f"  {info.get('command', info['path'])}", flush=True)
-    print(f"  built in {info['seconds']:.2f} s (cached: {info['cached']}); "
-          f"loaded after {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"  {info.get('command', info['path'])}".replace("\n", "\n  "), flush=True)
+    print(f"  built in {info['seconds']:.2f} s (cached: {info['cached']})", flush=True)
     if info.get("log"):
         print("  " + info["log"].strip().replace("\n", "\n  "), flush=True)
+    done(t0, walls, "build")
 
-    print("== 3. kernels against their plain versions", flush=True)
-    k1, k2 = {}, {}
+    t0 = phase("3. kernels against their plain versions")
+    k1, k2, k3 = {}, {}, {}
+    reset_launches()
     check_decode_attention(k1)
     check_flash_mha(k2)
+    check_batched_decode(k1, k3)
+    k3_launches = read_launches()["decode_attention_pipelined"]["native"]
+    done(t0, walls, "kernels")
 
-    print("== 4. serve (EngineConfig.full, int8 KV)", flush=True)
+    serving, k3_live = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = Path(tmp) / "models"
         model_dir.mkdir()
         write_conds(model_dir / "conds.pt")
-        os.environ.update(MODEL_PATH=str(model_dir), CHATTERBOX_MAX_NEW_TOKENS="140",
-                          CHATTERBOX_KV="int8")
-        launches = asyncio.run(serve(model_dir))
+        os.environ.update(MODEL_PATH=str(model_dir), CHATTERBOX_MAX_NEW_TOKENS=MAX_NEW_TOKENS,
+                          CHATTERBOX_KV="int8", MAX_DECODE_SLOTS=str(SLOTS))
+        t0 = phase(f"4. batched serving ({SLOTS} slots, int8 KV, {SLOTS} concurrent requests)")
+        launches = asyncio.run(serve_batched(serving))
+        gc.collect()
+        torch.cuda.empty_cache()
+        done(t0, walls, "batched_serving")
 
-    print("== 6. summary", flush=True)
-    # ms / plain_ms: device time per call; call_ms: with the host's dispatch
+        t0 = phase("5. per-request serving (MAX_DECODE_SLOTS=1, int8 KV)")
+        os.environ["MAX_DECODE_SLOTS"] = "1"
+        engine = asyncio.run(serve_per_request(serving))
+        done(t0, walls, "per_request_serving")
+
+        t0 = phase(f"6. BatchedT3Decoder with a bf16 cache at {SLOTS} slots; K3 on its live cache")
+        k3_launches += batched_bf16_decoder(engine, k1, k3_live)
+        engine.shutdown()
+        done(t0, walls, "bf16_decoder")
+
+    print("== 7. summary", flush=True)
+    rounded = {k: round(v, 1) for k, v in walls.items()}
+    print(f"  phase walls (s): {json.dumps(rounded)}", flush=True)
+    # ms / plain_ms / library_ms: device time per call; call_ms: with the
+    # host's dispatch; bound_ms: bytes over 3.35 TB/s or operations over peak
+    k3_main = {**k3["bfloat16"], "max_abs_err": max(k3["bfloat16"]["max_abs_err"], k3_live["live"]),
+               "live_cache_err": k3_live["live"], "live_cache_ms": k3_live["live_ms"]}
     summary = {"kernels": [
         dict(name="decode_attention", route="cuda", **KERNELS["decode_attention"],
-             launches=launches["decode_attention"]["int8"], body="int8", **k1["int8"],
-             other_bodies={"bfloat16": k1["bfloat16"], "float32": k1["float32"]}),
+             launches=launches["decode_attention"]["int8"], body="int8", **k1[f"int8_B{LANES}"],
+             other_bodies={"bfloat16": k1[f"bfloat16_B{LANES}"], "B2_checks": {
+                 c: k1[c] for c in ("int8", "bfloat16", "float32")},
+                 "live_bf16_ms": k1["live_bf16_ms"]}),
         dict(name="flash_mha", route="cuda", **KERNELS["flash_mha"],
              launches=launches["flash_mha"]["float32"], body="float32", **k2["float32"],
              other_bodies={"bfloat16": k2["bfloat16"]}),
+        dict(name="decode_attention_pipelined", route="cuda",
+             **KERNELS["decode_attention_pipelined"], launches=k3_launches, body="bfloat16",
+             launches_from="phases 3 and 6 (no serving path calls it)", **k3_main,
+             other_bodies={"float32": k3["float32"]}),
     ]}
+    print(f"  serving: {json.dumps(serving)}", flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,14 @@
-"""K1 parity: the port's decode attention (plain version, which its wrapper
-runs for CPU tensors) against the JAX package's Pallas kernel
-``paired_decode_attention(..., interpret=True)``.
+"""K1 and K3 parity: the port's decode attention wrappers (on CPU tensors
+they run the plain version) against the JAX package's Pallas kernels
+``paired_decode_attention(..., interpret=True)`` and
+``paired_decode_attention_pipelined(..., interpret=True)``.
 
 Mirrors the cases of tests/test_pallas_v3.py and tests/test_int8_kv.py:
 MHA and GQA, float and int8 caches, rows with start > 0, and garbage past
 pos that must not leak in. The port's cache is [B, Hk, S, Dh]; the JAX
 kernel reads the paired [B, Hk/2, S, 2·Dh] layout built from the same data.
-The CUDA kernel itself is compared with this plain version on the card, by
-chip_smoke.py. Tolerance 2e-5 (float32, as tests/test_pallas_v3.py).
+The CUDA kernels themselves are compared with the plain version on the card,
+by chip_smoke.py. Tolerance 2e-5 (float32, as tests/test_pallas_v3.py).
 """
 import numpy as np
 import pytest
@@ -21,8 +22,10 @@ from chatterbox_tpu.ops.pallas_attention_v3 import (
     pack_cache_paired,
     pack_scales_paired,
     paired_decode_attention,
+    paired_decode_attention_pipelined,
 )
 from chatterbox_tpu_torch.ops import decode_attention as da
+from chatterbox_tpu_torch.ops import decode_attention_pipelined as dap
 
 TOL = 2e-5
 
@@ -135,3 +138,45 @@ def test_wrapper_rejects_other_devices():
     q = torch.zeros((1, 4, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         da.decode_attention(q, q, q, q, q, q, q)
+
+
+@pytest.mark.parametrize("heads", [(4, 4), (8, 2)])  # (H, Hk): MHA and GQA
+def test_pipelined_matches_pallas(heads):
+    """K3: the cases of tests/test_pallas_v3.py::test_pipelined_matches_reference
+    (a row with start > 0 and one 2 rows deep) against the pipelined Pallas
+    kernel with a 3-deep copy ring."""
+    H, Hk = heads
+    B, S, Dh = 4, 512, 64
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((B, H, Dh)).astype(np.float32)
+    kc = rng.standard_normal((B, S, Hk, Dh)).astype(np.float32)
+    vc = rng.standard_normal((B, S, Hk, Dh)).astype(np.float32)
+    kn = rng.standard_normal((B, Hk, Dh)).astype(np.float32)
+    vn = rng.standard_normal((B, Hk, Dh)).astype(np.float32)
+    start = np.array([0, 5, 17, 2], np.int32)
+    pos = np.array([40, 200, 255, 9], np.int32)
+    want = paired_decode_attention_pipelined(
+        jnp.asarray(q), pack_cache_paired(jnp.asarray(kc)), pack_cache_paired(jnp.asarray(vc)),
+        jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(start), jnp.asarray(pos),
+        s_view=256, n_buf=3, interpret=True,
+    )
+    head_major = lambda a: to_t(np.ascontiguousarray(np.moveaxis(a, 1, 2)))  # noqa: E731
+    got = dap.decode_attention_pipelined(to_t(q), head_major(kc), head_major(vc), to_t(kn),
+                                         to_t(vn), to_t(start), to_t(pos), s_view=256)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), atol=TOL, rtol=TOL)
+
+
+def test_pipelined_wrapper_uses_plain_version_on_cpu_and_counts_no_launch():
+    q, kc, vc, kn, vn, start, pos = _inputs(4, (8, 2), B=3)
+    head_major = lambda a: to_t(np.ascontiguousarray(np.moveaxis(a, 1, 2)))  # noqa: E731
+    args = (to_t(q), head_major(kc), head_major(vc), to_t(kn), to_t(vn), to_t(start), to_t(pos))
+    dap.reset_launches()
+    got = dap.decode_attention_pipelined(*args)
+    torch.testing.assert_close(got, da.decode_attention_plain(*args), atol=0, rtol=0)
+    assert dap.launches == {"native": 0}
+
+
+def test_pipelined_wrapper_rejects_other_devices():
+    q = torch.zeros((1, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        dap.decode_attention_pipelined(q, q, q, q, q, q, q)

@@ -2,12 +2,14 @@
 
 Both engines serve EngineConfig.tiny_ref() with the same parameters (the JAX
 engine's random init, converted) and the same seeded default voice
-(``conds.pt`` in a temporary MODEL_PATH), on the per-request path the port
-implements (MAX_DECODE_SLOTS=1, no CFM prompt cache). A greedy request is
-sent to both with the arguments the HTTP handler passes; the WAVs must be
-valid and hold the same number of samples (the noise differs — threefry
-against Philox — so the samples themselves are not compared; the modules'
-numerics are held by the other test_torch_* files).
+(``conds.pt`` in a temporary MODEL_PATH), with no CFM prompt cache, on both
+serving paths: per request (MAX_DECODE_SLOTS=1) and batched
+(MAX_DECODE_SLOTS=4: the continuous-batching decoder and the S3Gen
+micro-batcher). Greedy requests are sent to both with the arguments the HTTP
+handler passes; the WAVs must be valid and hold the same number of samples
+(the noise differs — threefry against the port's generators — so the samples
+themselves are not compared; the modules' numerics are held by the other
+test_torch_* files).
 """
 import asyncio
 
@@ -76,9 +78,9 @@ def env(tmp_path_factory):
     reset_config_cache()
 
 
-async def _collect(engine, token):
+async def _collect(engine, token, **kw):
     out = b""
-    async for chunk in engine.stream(**REQUEST, cancellation_token=token):
+    async for chunk in engine.stream(**{**REQUEST, **kw}, cancellation_token=token):
         out += chunk
     return out
 
@@ -88,12 +90,47 @@ def served(env):
     jeng = JTTSEngine(JEngineConfig.tiny_ref(), seed=3)
     asyncio.run(jeng.ainit())
     jwav = asyncio.run(_collect(jeng, JToken()))
-    params = {k: convert_params(jax_tree_to_np(jeng.params[k])) for k in ("t3", "s3gen")}
+    params = {k: convert_params(jax_tree_to_np(jeng.params[k]), "cpu") for k in ("t3", "s3gen")}
     jeng.shutdown()
     teng = TTSEngine(EngineConfig.tiny_ref(), seed=3, device="cpu", params=params)
     asyncio.run(teng.ainit())
     twav = asyncio.run(_collect(teng, CancellationToken()))
     return jwav, twav, teng
+
+
+# three concurrent greedy requests for the batched path: one spans two chunks
+BATCHED = [
+    dict(text="Hello there. This is a test of the port.", request_id="batched-0"),
+    dict(text="A short one.", request_id="batched-1"),
+    dict(text="Three requests share the decoder.", request_id="batched-2"),
+]
+
+
+async def _collect_concurrently(engine, token_cls):
+    return await asyncio.gather(*[_collect(engine, token_cls(), **kw) for kw in BATCHED])
+
+
+@pytest.fixture(scope="module")
+def served_batched(env):
+    mp = pytest.MonkeyPatch()
+    mp.setenv("MAX_DECODE_SLOTS", "4")
+    mp.setenv("CHATTERBOX_PRECOMPILE", "0")
+    reset_config_cache()
+    try:
+        jeng = JTTSEngine(JEngineConfig.tiny_ref(), seed=3)
+        asyncio.run(jeng.ainit())
+        jwavs = asyncio.run(_collect_concurrently(jeng, JToken))
+        params = {k: convert_params(jax_tree_to_np(jeng.params[k]), "cpu") for k in ("t3", "s3gen")}
+        jeng.shutdown()
+        teng = TTSEngine(EngineConfig.tiny_ref(), seed=3, device="cpu", params=params)
+        asyncio.run(teng.ainit())
+        twavs = asyncio.run(_collect_concurrently(teng, CancellationToken))
+        seen = (teng.decoder.max_active_seen, teng.s3gen_scheduler.max_batch_seen)
+        teng.shutdown()
+    finally:
+        mp.undo()
+        reset_config_cache()
+    return jwavs, twavs, teng, seen
 
 
 def test_greedy_request_matches_jax_engine_sample_count(served):
@@ -106,19 +143,44 @@ def test_greedy_request_matches_jax_engine_sample_count(served):
     assert np.abs(pcm).max() > 0
 
 
+def _check_samples_follow_tokens(wav, stats, teng, fade_ms):
+    assert len(stats["t3_tokens"]) == stats["chunks"]
+    spt = teng.cfg.gen.samples_per_token
+    assert stats["synth_samples"] == sum(n + 1 for n in stats["t3_tokens"]) * spt, stats
+    fade = int(teng.sr * fade_ms / 1000)
+    seams, rest = divmod(stats["synth_samples"] - stats["samples"], fade)
+    assert rest == 0 and 0 <= seams < stats["slices"], stats
+    assert (len(wav) - 44) // 2 == stats["samples"]
+
+
 def test_samples_follow_tokens(served):
     """Full overlap synthesises (kept tokens + the appended EOS code) ×
     samples per token for every text chunk; each crossfaded seam then merges
     fade_len samples of two slices into one."""
     _, twav, teng = served
     stats = teng.request_stats[REQUEST["request_id"]]
-    assert stats["chunks"] >= 2 and len(stats["t3_tokens"]) == stats["chunks"]
-    spt = teng.cfg.gen.samples_per_token
-    assert stats["synth_samples"] == sum(n + 1 for n in stats["t3_tokens"]) * spt, stats
-    fade = int(teng.sr * REQUEST["crossfade_duration_milliseconds"] / 1000)
-    seams, rest = divmod(stats["synth_samples"] - stats["samples"], fade)
-    assert rest == 0 and 0 <= seams < stats["slices"], stats
-    assert (len(twav) - 44) // 2 == stats["samples"]
+    assert stats["chunks"] >= 2
+    _check_samples_follow_tokens(twav, stats, teng, REQUEST["crossfade_duration_milliseconds"])
+
+
+def test_batched_requests_match_jax_engine_sample_counts(served_batched):
+    """Three concurrent greedy requests through both engines' batched paths:
+    equal WAV lengths, request by request, and the port really batched."""
+    jwavs, twavs, teng, (max_active, max_batch) = served_batched
+    for jwav, twav in zip(jwavs, twavs):
+        assert twav[:44] == jwav[:44]
+        assert len(twav) == len(jwav) > 44
+        assert np.abs(np.frombuffer(twav[44:], dtype="<i2")).max() > 0
+    assert teng.request_stats["batched-0"]["chunks"] >= 2
+    assert max_active >= 2 and max_batch >= 1, (max_active, max_batch)
+
+
+def test_batched_samples_follow_tokens(served_batched):
+    _, twavs, teng, _ = served_batched
+    for kw, twav in zip(BATCHED, twavs):
+        stats = teng.request_stats[kw["request_id"]]
+        _check_samples_follow_tokens(twav, stats, teng, REQUEST["crossfade_duration_milliseconds"])
+        assert stats["t3_steps"] > 0 and stats["t3_s"] > 0
 
 
 def test_default_voice_fields(env):
@@ -130,10 +192,10 @@ def test_default_voice_fields(env):
 
 
 def test_unported_settings_raise(env, monkeypatch):
-    monkeypatch.setenv("MAX_DECODE_SLOTS", "4")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+    monkeypatch.setenv("CHATTERBOX_CFM_STREAM", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         TTSEngine(EngineConfig.tiny_ref(), device="cpu")
-    monkeypatch.setenv("MAX_DECODE_SLOTS", "1")
+    monkeypatch.setenv("CHATTERBOX_CFM_STREAM", "0")
     monkeypatch.setenv("CHATTERBOX_CFM_PROMPT_CACHE", "step")
     with pytest.raises(NotImplementedError, match="prompt cache"):
         TTSEngine(EngineConfig.tiny_ref(), device="cpu")

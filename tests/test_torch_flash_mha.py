@@ -59,7 +59,7 @@ def test_tf_block_matches_jax_flash_branch(monkeypatch):
     jcfg = JFlowCfg.tiny()
     p = jdec.init_estimator_params(jax.random.PRNGKey(0), jcfg)
     tf_j = p["mid"][0]["tf"][0]
-    tf_t = convert_params(jax_tree_to_np(tf_j))
+    tf_t = convert_params(jax_tree_to_np(tf_j), "cpu")
     B, T, C = 2, 70, jcfg.dec_channels[0]
     rng = np.random.default_rng(8)
     x = rng.standard_normal((B, T, C)).astype(np.float32)

@@ -2,8 +2,8 @@
 their originals on the same inputs.
 
 ``chatterbox_tpu_torch`` keeps its own text frontend, fallback tokenizer,
-PCM/WAV helpers, crossfade and container encoder, so that the port (and the
-GPU smoke run) imports nothing of ``chatterbox_tpu``. These tests keep the
+PCM/WAV helpers, crossfade, container encoder and serving metrics, so that
+the port (and the GPU smoke run) imports nothing of ``chatterbox_tpu``. These tests keep the
 two copies from drifting apart: text and bytes must be identical, and the
 crossfade mix agrees to float32 rounding (the original may take its C++
 audiokit path, which computes the same curves in a different order).
@@ -17,12 +17,14 @@ from chatterbox_tpu.audio import crossfade as jxf
 from chatterbox_tpu.audio import encoding as jenc
 from chatterbox_tpu.audio import pcm as jpcm
 from chatterbox_tpu.models import tokenizer as jtok
+from chatterbox_tpu.runtime import metrics as jmetrics
 from chatterbox_tpu.text import processing as jproc
 from chatterbox_tpu.text import segmenter as jseg
 from chatterbox_tpu_torch.audio import crossfade as txf
 from chatterbox_tpu_torch.audio import encoding as tenc
 from chatterbox_tpu_torch.audio import pcm as tpcm
 from chatterbox_tpu_torch.models import tokenizer as ttok
+from chatterbox_tpu_torch.runtime import metrics as tmetrics
 from chatterbox_tpu_torch.text import processing as tproc
 from chatterbox_tpu_torch.text import segmenter as tseg
 
@@ -121,3 +123,21 @@ def test_audio_encoder_matches(fmt):
         assert asyncio.run(drain(t)) == asyncio.run(drain(j))
     else:
         assert t.ffmpeg_argv() == j.ffmpeg_argv()
+
+
+def test_metrics_snapshots_match():
+    """The same events into both registries give the same snapshot (uptime
+    aside), percentiles past the window included."""
+    t, j = tmetrics.Metrics(), jmetrics.Metrics()
+    for m in (t, j):
+        ev = np.random.default_rng(9)
+        for i in range(700):  # more than the 512-sample percentile window
+            m.record_request(None if i % 7 == 0 else float(ev.uniform(0.1, 3.0)),
+                             float(ev.uniform(1.0, 9.0)), failed=i % 11 == 0, cancelled=i % 13 == 0)
+            m.record_tokens(int(ev.integers(0, 40)))
+            m.record_stage(("t3_decode_device", "t3_prefill_device", "s3gen_device")[i % 3],
+                           float(ev.uniform(0.0, 0.5)), items=int(ev.integers(1, 17)))
+    ts, js = t.snapshot(), j.snapshot()
+    ts.pop("uptime_s")
+    js.pop("uptime_s")
+    assert ts == js

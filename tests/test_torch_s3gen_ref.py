@@ -18,7 +18,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from torch_port_helpers import jax_tree_to_np, to_np, to_t
+from torch_port_helpers import (
+    conditioned_s3gen_params,
+    jax_s3gen_noise,
+    jax_tree_to_np,
+    to_np,
+    to_t,
+)
 
 from chatterbox_tpu.models.s3gen_ref import decoder as jdec
 from chatterbox_tpu.models.s3gen_ref import hift as jhift
@@ -33,18 +39,11 @@ from chatterbox_tpu_torch.models.s3gen_ref import upsample_encoder as tenc
 from chatterbox_tpu_torch.models.s3gen_ref.config import S3GenRefConfig
 
 # float32 on both sides; differences are summation order (~1e-6 relative
-# per op), so every module and the whole chain are held at 1e-4.
-#
-# The random-weight HiFT stack grows its activations layer by layer: on
-# unit-variance mels its output conv (conv_post) gives values with std ~200,
-# so every magnitude saturates at exp(log 100) and ~90 % of the waveform sits
-# on the ±audio_limit clip, where any two implementations agree trivially.
-# The fixture therefore scales conv_post by HIFT_POST_SCALE (output std ~1)
-# and lowers its log-magnitude bias by HIFT_LOGMAG_SHIFT, in both packages'
-# parameters alike; the tests assert that no compared sample is clipped.
+# per op), so every module and the whole chain are held at 1e-4. The HiFT
+# parameters are conditioned (torch_port_helpers.conditioned_s3gen_params) so
+# the waveform does not sit on the clip, and the tests assert that no
+# compared sample is clipped.
 MODULE_TOL = 1e-4
-HIFT_POST_SCALE = 5e-3
-HIFT_LOGMAG_SHIFT = 2.0
 
 
 def _assert_unclipped(wav, limit):
@@ -61,15 +60,8 @@ def _jit(fn):
 @pytest.fixture(scope="module")
 def params():
     jcfg = JCfg.tiny()
-    jp = jmodel.init_s3gen_ref_params(jax.random.PRNGKey(0), jcfg)
-    post = jp["mel2wav"]["conv_post"]
-    shift = np.zeros(post["b"].shape, np.float32)
-    shift[: jcfg.hift.istft_n_fft // 2 + 1] = HIFT_LOGMAG_SHIFT
-    jp = {"flow": jp["flow"], "mel2wav": {
-        **jp["mel2wav"],
-        "conv_post": {"w": post["w"] * HIFT_POST_SCALE, "b": post["b"] * HIFT_POST_SCALE - shift},
-    }}
-    return jcfg, jp, convert_params(jax_tree_to_np(jp))
+    jp = conditioned_s3gen_params(jmodel.init_s3gen_ref_params(jax.random.PRNGKey(0), jcfg), jcfg)
+    return jcfg, jp, convert_params(jax_tree_to_np(jp), "cpu")
 
 
 @pytest.fixture
@@ -146,20 +138,6 @@ def test_hift_decode_matches(params):
     np.testing.assert_allclose(to_np(got), np.asarray(want), atol=MODULE_TOL, rtol=MODULE_TOL)
 
 
-def _jax_noise(jcfg, key, B, T):
-    """The draws JAX's s3gen_ref_inference makes, in the port's dict form."""
-    fl, hc = jcfg.flow, jcfg.hift
-    frames = (jcfg.max_prompt_tokens + T) * fl.up_stride
-    assert frames <= jdec._NOISE_FRAMES
-    k_ini, k_noise = jax.random.split(jax.random.fold_in(key, 1))
-    H = hc.nb_harmonics + 1
-    return {
-        "cfm": to_t(jax.random.normal(key, (B, jdec._NOISE_FRAMES, fl.output_size), jnp.float32)),
-        "rand_ini": to_t(jax.random.uniform(k_ini, (B, H))),
-        "nsf": to_t(jax.random.normal(k_noise, (B, T * jcfg.samples_per_token, H))),
-    }
-
-
 @pytest.mark.parametrize("cache_len", [0, 100])
 def test_s3gen_ref_inference_end_to_end(params, cache_len):
     """Tokens → waveform through encoder, CFM (K2) and HiFT, with JAX's
@@ -185,7 +163,7 @@ def test_s3gen_ref_inference_end_to_end(params, cache_len):
         jnp.asarray(src), jnp.asarray(clen), key)
     got_w, got_s = tmodel.s3gen_ref_inference(
         tp, S3GenRefConfig.tiny(), to_t(tokens), to_t(tlen), {k: to_t(v) for k, v in ref.items()},
-        to_t(src), to_t(clen), _jax_noise(jcfg, key, B, T))
+        to_t(src), to_t(clen), jax_s3gen_noise(jcfg, key, B, T))
     assert got_w.shape == (B, T * spt)
     assert np.isfinite(to_np(got_w)).all()
     np.testing.assert_allclose(to_np(got_s), np.asarray(want_s), atol=MODULE_TOL, rtol=MODULE_TOL)

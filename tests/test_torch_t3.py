@@ -39,7 +39,7 @@ def _jit(fn):
 def setup():
     jcfg = JT3Config.tiny()
     jparams = jm.init_t3_params(jax.random.PRNGKey(0), jcfg)
-    tparams = convert_params(jax_tree_to_np(jparams))
+    tparams = convert_params(jax_tree_to_np(jparams), "cpu")
     rng = np.random.default_rng(0)
     spk = rng.standard_normal((1, jcfg.speaker_embed_dim)).astype(np.float32)
     prompt = rng.integers(0, jcfg.num_speech_codes, (1, jcfg.speech_cond_prompt_len)).astype(np.int32)
@@ -135,8 +135,7 @@ def test_decode_slices_match(setup, kv, temperature):
 
     tcfg = T3Config.tiny().with_(kv_cache_dtype=kv)
     tcache = tm.t3_prefill(tparams, tcfg, t_lanes, to_t(text), to_t(tlen))
-    tstate = tm.make_decode_state(tcfg, 1, temperature, 0.95, 0.5, 1.2,
-                                  torch.Generator().manual_seed(0), "cpu")
+    tstate = tm.make_decode_state(tcfg, [0], temperature, 0.95, 0.5, 1.2, "cpu")
     gumbel = to_t(_jax_gumbel(jcfg, 2 * SLICE))
     got = torch.cat([
         tm.t3_decode_slice(tparams, tcfg, tcache, tstate, SLICE, 256,

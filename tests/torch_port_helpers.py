@@ -31,3 +31,45 @@ def jax_tree_to_np(tree):
     import jax
 
     return jax.tree.map(np.asarray, tree)
+
+
+# The random-weight HiFT stack grows its activations layer by layer: on
+# unit-variance mels its output conv (conv_post) gives values with std ~200,
+# so every magnitude saturates at exp(log 100) and ~90 % of the waveform sits
+# on the ±audio_limit clip, where any two implementations agree trivially.
+# ``conditioned_s3gen_params`` scales conv_post by HIFT_POST_SCALE (output std
+# ~1) and lowers its log-magnitude bias by HIFT_LOGMAG_SHIFT, in both packages'
+# parameters alike.
+HIFT_POST_SCALE = 5e-3
+HIFT_LOGMAG_SHIFT = 2.0
+
+
+def conditioned_s3gen_params(jp, jcfg, post_scale: float = HIFT_POST_SCALE):
+    """A JAX S3Gen ref parameter tree with conv_post conditioned as above
+    (``post_scale`` replaces HIFT_POST_SCALE)."""
+    post = jp["mel2wav"]["conv_post"]
+    shift = np.zeros(post["b"].shape, np.float32)
+    shift[: jcfg.hift.istft_n_fft // 2 + 1] = HIFT_LOGMAG_SHIFT
+    return {"flow": jp["flow"], "mel2wav": {
+        **jp["mel2wav"],
+        "conv_post": {"w": post["w"] * post_scale, "b": post["b"] * post_scale - shift},
+    }}
+
+
+def jax_s3gen_noise(jcfg, key, B, T):
+    """The draws JAX's s3gen_ref_inference makes from ``key`` (CFM initial
+    noise, HiFT initial phases, NSF noise), in the port's noise-dict form."""
+    import jax
+    import jax.numpy as jnp
+
+    from chatterbox_tpu.models.s3gen_ref import decoder as jdec
+
+    fl, hc = jcfg.flow, jcfg.hift
+    assert (jcfg.max_prompt_tokens + T) * fl.up_stride <= jdec._NOISE_FRAMES
+    k_ini, k_noise = jax.random.split(jax.random.fold_in(key, 1))
+    H = hc.nb_harmonics + 1
+    return {
+        "cfm": to_t(jax.random.normal(key, (B, jdec._NOISE_FRAMES, fl.output_size), jnp.float32)),
+        "rand_ini": to_t(jax.random.uniform(k_ini, (B, H))),
+        "nsf": to_t(jax.random.normal(k_noise, (B, T * jcfg.samples_per_token, H))),
+    }
