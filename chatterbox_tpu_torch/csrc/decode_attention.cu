@@ -8,238 +8,390 @@
 // a self-term, folded in before normalising. int8 scales multiply the scores
 // and the probabilities; no dequantised cache is written.
 //
-// What bounds it on the H100: bytes. Each step reads the filled cache prefix
-// (2 * S * Dh elements per (lane, kv head)) and does ~4 flops per element, far
-// below the card's ~295 flop/byte balance point, so the kernel is a memory
-// stream. The design reads only each row's own [start, pos) prefix (the TPU
-// kernel read a static view bucket), in 64-key tiles staged through shared
-// memory as float32, with the online-softmax state (max, sum, accumulator) in
-// shared memory. One block per (lane, kv head) serves the G query heads of that
-// kv head from one read of its cache (GQA without repeating the cache).
-// Known limit of this first design: B * Hk blocks (32 at the full config) on
-// 132 SMs underfill the card; splitting S across blocks (flash-decoding, with a
-// second combine pass) is the fix a later change should measure.
+// What bounds it on the H100: bytes. Each step reads the filled cache window
+// (2 * (pos - start) * Dh elements per (lane, kv head)) and does ~4 flops per
+// element, far below the card's ~295 flop/byte balance point, so the kernel is
+// a memory stream, and a stream needs many bytes in flight. At the batched
+// decoder's shapes (32 lanes x 16 kv heads, windows of ~600 rows) one block
+// per (lane, kv head) walking ten 64-row tiles in turn, with four barriers per
+// tile, left the card mostly waiting; instead the design is split-S flash
+// decoding:
+//   - the grid is (slice, kv head, lane), a slice being kSlice = 256 cache rows
+//     (ceil(S / 256) slices, from S alone: nothing is read on the host; 2,560
+//     blocks at S = 1280). A block reads only its slice's part of [start,
+//     pos); a block whose part is empty writes an empty partial (l = 0) and
+//     exits. Of 64, 128, 256 and 512 rows, 256 was the fastest at the batched
+//     windows on an H100;
+//   - each lane loads 16 bytes per row chunk (16 int8 or 8 bf16 values), a
+//     warp owns whole rows, scores are reduced with warp shuffles, and the
+//     online-softmax state and the accumulator stay in registers. The next
+//     tile's loads are issued before the current tile's math (a register
+//     double buffer); nothing is staged in shared memory, and the block's one
+//     barrier folds its four warps into one partial (m, l, acc) in f32;
+//   - the G query heads of a kv head share each read of its rows;
+//   - a second small kernel, one block per (lane, kv head), folds the partials
+//     and the self-term, weighting each partial by exp(m - M) and skipping
+//     those with l = 0, and writes the output.
 //
 // Layouts: q/out [B, H, Dh]; k/v cache [B, Hk, S, Dh]; k_new/v_new [B, Hk, Dh];
-// scales [B, Hk, S] f32; start/pos [B] int32. Launches on the caller's stream,
-// allocates nothing, does not synchronise; returns cudaGetLastError().
+// scales [B, Hk, S] f32; start/pos [B] int32; scratch (f32) holds the partials
+// acc [B, Hk, n_slice, G, Dh] then (m, l) [B, Hk, n_slice, G, 2]. Launches on
+// the caller's stream, allocates nothing, does not synchronise; returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
+constexpr int kSlice = 256;        // cache rows per block
 constexpr int kThreads = 128;
-constexpr int kTile = 64;          // keys per shared-memory tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kSteps = 2;          // row loads per warp per tile (K and V each)
 constexpr float kNegInf = -1e9f;   // finite mask value, as the JAX package
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ void from_f32(float v, float* dst) { *dst = v; }
 __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* dst) { *dst = __float2bfloat16(v); }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// the 16 / sizeof(CT) cache values of one 16-byte chunk, as f32
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[4]) {
+  x[0] = __uint_as_float(u.x);
+  x[1] = __uint_as_float(u.y);
+  x[2] = __uint_as_float(u.z);
+  x[3] = __uint_as_float(u.w);
 }
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// shared memory (floats): q [G*DH] | acc [G*DH] | k [kTile*(DH+1)] |
-// v [kTile*DH] | p [G*kTile] | m, l, alpha, pself [4*G]
-template <int DH>
-__host__ __device__ constexpr size_t smem_floats(int G) {
-  return size_t(2 * G * DH + kTile * (DH + 1) + kTile * DH + G * kTile + 4 * G);
-}
-
-template <typename QT, typename CT, int DH>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
-                        const CT* __restrict__ vc, const QT* __restrict__ k_new,
-                        const QT* __restrict__ v_new, const float* __restrict__ k_scale,
-                        const float* __restrict__ v_scale, const int* __restrict__ start,
-                        const int* __restrict__ pos, QT* __restrict__ out,
-                        int H, int Hk, int S, float scale) {
-  extern __shared__ float smem[];
-  const int G = H / Hk;
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  constexpr int kWarps = kThreads / 32;
-
-  float* q_s = smem;                       // [G][DH], pre-scaled
-  float* acc_s = q_s + G * DH;             // [G][DH]
-  float* k_s = acc_s + G * DH;             // [kTile][DH+1] (padded: no bank conflicts)
-  float* v_s = k_s + kTile * (DH + 1);     // [kTile][DH]
-  float* p_s = v_s + kTile * DH;           // [G][kTile]
-  float* m_s = p_s + G * kTile;            // [G]
-  float* l_s = m_s + G;                    // [G]
-  float* alpha_s = l_s + G;                // [G]
-  float* pself_s = alpha_s + G;            // [G]
-
-  const int lo = max(start[b], 0);
-  const int hi = min(pos[b], S);
-  const size_t head = size_t(b) * Hk + hk;
-  const CT* kbase = kc + head * size_t(S) * DH;
-  const CT* vbase = vc + head * size_t(S) * DH;
-  const float* ksc = k_scale ? k_scale + head * size_t(S) : nullptr;
-  const float* vsc = v_scale ? v_scale + head * size_t(S) : nullptr;
-  const size_t qoff = (size_t(b) * H + size_t(hk) * G) * DH;
-
-  for (int i = tid; i < G * DH; i += kThreads) {
-    q_s[i] = to_f32(q[qoff + i]) * scale;
-    acc_s[i] = 0.f;
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[16]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    x[i] = static_cast<float>(static_cast<int8_t>((w[i >> 2] >> (8 * (i & 3))) & 0xffu));
+}
+
+template <typename CT>
+struct Tile {   // one lane's share of a tile: kSteps rows of K and V (+ int8 scales)
+  uint4 k[kSteps], v[kSteps];
+  float ks[kSteps], vs[kSteps];
+  bool in[kSteps];
+};
+
+template <typename QT, typename CT, int DH, int G>
+__global__ void __launch_bounds__(kThreads)
+decode_slice_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
+                    const CT* __restrict__ vc, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale, const int* __restrict__ start,
+                    const int* __restrict__ pos, float* __restrict__ part_acc,
+                    float* __restrict__ part_ml, int H, int Hk, int S, int n_slice,
+                    float scale) {
+  constexpr bool kInt8 = std::is_same<CT, int8_t>::value;
+  constexpr int E = 16 / sizeof(CT);       // values per 16-byte chunk
+  constexpr int R = DH / E;                // lanes per cache row
+  constexpr int RPL = 32 / R;              // rows per warp load
+  constexpr int kTileRows = kWarps * kSteps * RPL;
+  static_assert(R >= 1 && R <= 32 && kSlice % kTileRows == 0, "unsupported head dim");
+  __shared__ float red_m[kWarps][G], red_l[kWarps][G], red_acc[kWarps][G][DH];
+
+  const int sl = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = lane / R;    // row of the warp load
+  const int c = lane % R;      // chunk of the row
+  const int s0 = sl * kSlice;
+  const int lo = max(max(start[b], 0), s0);
+  const int hi = min(min(pos[b], S), s0 + kSlice);
+  const size_t head = size_t(b) * Hk + hk;
+  const size_t part = (head * n_slice + sl) * G;   // partial of query head g: part + g
+
+  if (lo >= hi) {
+    for (int i = threadIdx.x; i < G * DH; i += kThreads) part_acc[part * DH + i] = 0.f;
+    if (threadIdx.x < G) {
+      part_ml[(part + threadIdx.x) * 2] = kNegInf;
+      part_ml[(part + threadIdx.x) * 2 + 1] = 0.f;
+    }
+    return;
+  }
+
+  const CT* kbase = kc + head * size_t(S) * DH + c * E;
+  const CT* vbase = vc + head * size_t(S) * DH + c * E;
+  const float* ksc = kInt8 ? k_scale + head * size_t(S) : nullptr;
+  const float* vsc = kInt8 ? v_scale + head * size_t(S) : nullptr;
+
+  // this lane's chunk of each query head, pre-scaled into the log2 domain
+  float qr[G][E];
+  const QT* qh = q + (size_t(b) * H + size_t(hk) * G) * DH + c * E;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < E; ++e) qr[g][e] = to_f32(qh[g * DH + e]) * (scale * kLog2e);
+
+  auto load = [&](Tile<CT>& t, int tile) {
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      const int row = s0 + tile * kTileRows + (warp * kSteps + st) * RPL + sub;
+      t.in[st] = row >= lo && row < hi;
+      if (t.in[st]) {
+        t.k[st] = *reinterpret_cast<const uint4*>(kbase + size_t(row) * DH);
+        t.v[st] = *reinterpret_cast<const uint4*>(vbase + size_t(row) * DH);
+        if constexpr (kInt8) {
+          t.ks[st] = ksc[row];
+          t.vs[st] = vsc[row];
+        }
+      } else {
+        t.k[st] = t.v[st] = make_uint4(0u, 0u, 0u, 0u);
+        t.ks[st] = t.vs[st] = 0.f;
+      }
+    }
+  };
+
+  float m[G], l[G], acc[G][E];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+
+  auto compute = [&](const Tile<CT>& t) {
+    float s[kSteps][G];
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      float kx[E];
+      unpack(t.k[st], kx);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) d = fmaf(qr[g][e], kx[e], d);
+#pragma unroll
+        for (int o = 1; o < R; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        if constexpr (kInt8) d *= t.ks[st];
+        s[st][g] = t.in[st] ? d : kNegInf;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mx = s[0][g];
+#pragma unroll
+      for (int st = 1; st < kSteps; ++st) mx = fmaxf(mx, s[st][g]);
+#pragma unroll
+      for (int o = R; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = exp2f(m[g] - m_new);
+      m[g] = m_new;
+      l[g] *= alpha;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+    }
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      float vx[E];
+      unpack(t.v[st], vx);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float p = t.in[st] ? exp2f(s[st][g] - m[g]) : 0.f;
+        l[g] += p;
+        const float pv = kInt8 ? p * t.vs[st] : p;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pv, vx[e], acc[g][e]);
+      }
+    }
+  };
+
+  // the tiles of this slice that meet [lo, hi), two in flight at a time
+  const int t_end = (hi - s0 + kTileRows - 1) / kTileRows;
+  Tile<CT> ta, tb;
+  int ti = (lo - s0) / kTileRows;
+  load(ta, ti);
+  while (true) {
+    if (ti + 1 < t_end) load(tb, ti + 1);
+    compute(ta);
+    if (++ti >= t_end) break;
+    if (ti + 1 < t_end) load(ta, ti + 1);
+    compute(tb);
+    if (++ti >= t_end) break;
+  }
+
+  // fold the warp: lanes of one chunk (same c) hold partials over their rows
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int o = R; o < 32; o <<= 1) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+    }
+    if (sub == 0) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) red_acc[warp][g][c * E + e] = acc[g][e];
+      if (c == 0) {
+        red_m[warp][g] = m[g];
+        red_l[warp][g] = l[g];
+      }
+    }
   }
   __syncthreads();
 
-  for (int t0 = lo; t0 < hi; t0 += kTile) {
-    const int n = min(kTile, hi - t0);
-    // stage the tile (contiguous rows t0..t0+n of this head) as float32
-    for (int i = tid; i < n * DH; i += kThreads) {
-      const int r = i / DH, d = i - r * DH;
-      const size_t src = size_t(t0) * DH + i;
-      k_s[r * (DH + 1) + d] = to_f32(kbase[src]);
-      v_s[i] = to_f32(vbase[src]);
-    }
-    __syncthreads();
-    // scores for (g, j)
-    for (int i = tid; i < G * kTile; i += kThreads) {
-      const int g = i / kTile, j = i - g * kTile;
-      float s = kNegInf;
-      if (j < n) {
-        const float* qr = q_s + g * DH;
-        const float* kr = k_s + j * (DH + 1);
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < DH; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = ksc ? dot * ksc[t0 + j] : dot;
-      }
-      p_s[i] = s;
-    }
-    __syncthreads();
-    // online-softmax update, one warp per query row
-    for (int g = warp; g < G; g += kWarps) {
-      float* pr = p_s + g * kTile;
-      float mx = kNegInf;
-      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, pr[j]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int j = lane; j < kTile; j += 32) {
-        const float e = j < n ? expf(pr[j] - m_new) : 0.f;
-        sum += e;
-        pr[j] = (vsc && j < n) ? e * vsc[t0 + j] : e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        alpha_s[g] = a;
-        l_s[g] = l_s[g] * a + sum;
-        m_s[g] = m_new;
+  // fold the block's warps into the slice's partial; a warp without rows in
+  // the window has l = 0 and is skipped
+  for (int i = threadIdx.x; i < G * DH; i += kThreads) {
+    const int g = i / DH, d = i - g * DH;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      if (red_l[w][g] > 0.f) mx = fmaxf(mx, red_m[w][g]);
+    float a = 0.f, sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      if (red_l[w][g] > 0.f) {
+        const float wt = exp2f(red_m[w][g] - mx);
+        a = fmaf(wt, red_acc[w][g][d], a);
+        sum = fmaf(wt, red_l[w][g], sum);
       }
     }
-    __syncthreads();
-    // acc = acc * alpha + p @ V
-    for (int i = tid; i < G * DH; i += kThreads) {
-      const int g = i / DH, d = i - g * DH;
-      const float* pr = p_s + g * kTile;
-      float a = acc_s[i] * alpha_s[g];
-      for (int j = 0; j < n; ++j) a = fmaf(pr[j], v_s[j * DH + d], a);
-      acc_s[i] = a;
+    part_acc[part * DH + i] = a;
+    if (d == 0) {
+      part_ml[(part + g) * 2] = mx;
+      part_ml[(part + g) * 2 + 1] = sum;
     }
-    __syncthreads();
   }
+}
 
-  // self-term: the current token's k/v (never quantised)
+// One block per (kv head, lane): the self-term and the fold of the slices'
+// partials into the output.
+template <typename QT, int DH, int G>
+__global__ void __launch_bounds__(kThreads)
+decode_combine_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
+                      const QT* __restrict__ v_new, const float* __restrict__ part_acc,
+                      const float* __restrict__ part_ml, QT* __restrict__ out, int H, int Hk,
+                      int n_slice, float scale) {
+  __shared__ float s_self[G];
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t head = size_t(b) * Hk + hk;
+  const size_t qoff = (size_t(b) * H + size_t(hk) * G) * DH;
   const QT* kn = k_new + head * DH;
   const QT* vn = v_new + head * DH;
   for (int g = warp; g < G; g += kWarps) {
-    float dot = 0.f;
-    for (int d = lane; d < DH; d += 32) dot = fmaf(q_s[g * DH + d], to_f32(kn[d]), dot);
-    dot = warp_sum(dot);
-    if (lane == 0) {
-      const float m_fin = fmaxf(m_s[g], dot);
-      const float a = expf(m_s[g] - m_fin);
-      const float ps = expf(dot - m_fin);
-      alpha_s[g] = a;
-      pself_s[g] = ps;
-      l_s[g] = l_s[g] * a + ps;
-    }
+    float d = 0.f;
+    for (int i = lane; i < DH; i += 32) d = fmaf(to_f32(q[qoff + g * DH + i]), to_f32(kn[i]), d);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+    if (lane == 0) s_self[g] = d * (scale * kLog2e);
   }
   __syncthreads();
-  for (int i = tid; i < G * DH; i += kThreads) {
+  const size_t part0 = head * n_slice * G;
+  for (int i = threadIdx.x; i < G * DH; i += kThreads) {
     const int g = i / DH, d = i - g * DH;
-    const float o = (acc_s[i] * alpha_s[g] + pself_s[g] * to_f32(vn[d])) / fmaxf(l_s[g], 1e-30f);
-    from_f32(o, out + qoff + i);
+    const float ss = s_self[g];
+    float mx = ss;
+    for (int sl = 0; sl < n_slice; ++sl) {
+      const float* ml = part_ml + (part0 + size_t(sl) * G + g) * 2;
+      if (ml[1] > 0.f) mx = fmaxf(mx, ml[0]);
+    }
+    const float ps = exp2f(ss - mx);
+    float num = ps * to_f32(vn[d]), den = ps;
+    for (int sl = 0; sl < n_slice; ++sl) {
+      const size_t p = part0 + size_t(sl) * G + g;
+      const float* ml = part_ml + p * 2;
+      if (ml[1] > 0.f) {
+        const float wt = exp2f(ml[0] - mx);
+        num = fmaf(wt, part_acc[p * DH + d], num);
+        den = fmaf(wt, ml[1], den);
+      }
+    }
+    from_f32(num / den, out + qoff + i);
   }
 }
 
-template <typename QT, typename CT, int DH>
+template <typename QT, typename CT, int DH, int G>
 int launch(const void* q, const void* k, const void* v, const void* kn, const void* vn,
            const float* ks, const float* vs, const int* start, const int* pos, void* out,
-           int B, int H, int Hk, int S, float scale, cudaStream_t stream) {
-  auto kernel = decode_attention_kernel<QT, CT, DH>;
-  const size_t bytes = smem_floats<DH>(H / Hk) * sizeof(float);
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<dim3(Hk, B), kThreads, bytes, stream>>>(
-      static_cast<const QT*>(q), static_cast<const CT*>(k), static_cast<const CT*>(v),
-      static_cast<const QT*>(kn), static_cast<const QT*>(vn), ks, vs, start, pos,
-      static_cast<QT*>(out), H, Hk, S, scale);
+           float* scratch, int B, int Hk, int S, float scale, cudaStream_t stream) {
+  const int H = Hk * G;
+  const int n_slice = (S + kSlice - 1) / kSlice;
+  float* part_acc = scratch;
+  float* part_ml = scratch + size_t(B) * Hk * n_slice * G * DH;
+  decode_slice_kernel<QT, CT, DH, G><<<dim3(n_slice, Hk, B), kThreads, 0, stream>>>(
+      static_cast<const QT*>(q), static_cast<const CT*>(k), static_cast<const CT*>(v), ks, vs,
+      start, pos, part_acc, part_ml, H, Hk, S, n_slice, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  decode_combine_kernel<QT, DH, G><<<dim3(Hk, B), kThreads, 0, stream>>>(
+      static_cast<const QT*>(q), static_cast<const QT*>(kn), static_cast<const QT*>(vn),
+      part_acc, part_ml, static_cast<QT*>(out), H, Hk, n_slice, scale);
   return cudaGetLastError();
 }
 
+template <typename QT, typename CT, int DH>
+int dispatch_g(int G, const void* q, const void* k, const void* v, const void* kn,
+               const void* vn, const float* ks, const float* vs, const int* start,
+               const int* pos, void* out, float* scratch, int B, int Hk, int S, float scale,
+               cudaStream_t stream) {
+  switch (G) {
+    case 1: return launch<QT, CT, DH, 1>(q, k, v, kn, vn, ks, vs, start, pos, out, scratch, B, Hk, S, scale, stream);
+    case 2: return launch<QT, CT, DH, 2>(q, k, v, kn, vn, ks, vs, start, pos, out, scratch, B, Hk, S, scale, stream);
+    case 4: return launch<QT, CT, DH, 4>(q, k, v, kn, vn, ks, vs, start, pos, out, scratch, B, Hk, S, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename QT, typename CT>
-int dispatch_dh(int Dh, const void* q, const void* k, const void* v, const void* kn,
+int dispatch_dh(int Dh, int G, const void* q, const void* k, const void* v, const void* kn,
                 const void* vn, const float* ks, const float* vs, const int* start,
-                const int* pos, void* out, int B, int H, int Hk, int S, float scale,
+                const int* pos, void* out, float* scratch, int B, int Hk, int S, float scale,
                 cudaStream_t stream) {
   switch (Dh) {
-    case 32: return launch<QT, CT, 32>(q, k, v, kn, vn, ks, vs, start, pos, out, B, H, Hk, S, scale, stream);
-    case 64: return launch<QT, CT, 64>(q, k, v, kn, vn, ks, vs, start, pos, out, B, H, Hk, S, scale, stream);
-    case 128: return launch<QT, CT, 128>(q, k, v, kn, vn, ks, vs, start, pos, out, B, H, Hk, S, scale, stream);
+    case 32: return dispatch_g<QT, CT, 32>(G, q, k, v, kn, vn, ks, vs, start, pos, out, scratch, B, Hk, S, scale, stream);
+    case 64: return dispatch_g<QT, CT, 64>(G, q, k, v, kn, vn, ks, vs, start, pos, out, scratch, B, Hk, S, scale, stream);
+    case 128: return dispatch_g<QT, CT, 128>(G, q, k, v, kn, vn, ks, vs, start, pos, out, scratch, B, Hk, S, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// Cache rows per slice: the wrapper sizes the scratch as
+// B * Hk * ceil(S / rows) * G * (Dh + 2) floats.
+extern "C" int decode_attention_slice_rows() { return kSlice; }
+
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (cache only; scales given)
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* k_new, const void* v_new,
                                        const void* k_scale, const void* v_scale,
                                        const void* start, const void* pos, void* out,
-                                       int B, int H, int Hk, int S, int Dh, int q_dtype,
-                                       int cache_dtype, float scale, void* stream) {
-  if (B <= 0 || Hk <= 0 || H % Hk != 0) return cudaErrorInvalidValue;
+                                       void* scratch, int B, int H, int Hk, int S, int Dh,
+                                       int q_dtype, int cache_dtype, float scale,
+                                       void* stream) {
+  if (B <= 0 || Hk <= 0 || S <= 0 || H % Hk != 0) return cudaErrorInvalidValue;
+  const int G = H / Hk;
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int* st = static_cast<const int*>(start);
   const int* ps = static_cast<const int*>(pos);
+  float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && cache_dtype == 0)
-    return dispatch_dh<float, float>(Dh, q, k, v, k_new, v_new, nullptr, nullptr, st, ps, out, B, H, Hk, S, scale, s);
+    return dispatch_dh<float, float>(Dh, G, q, k, v, k_new, v_new, nullptr, nullptr, st, ps, out, sc, B, Hk, S, scale, s);
   if (q_dtype == 1 && cache_dtype == 1)
-    return dispatch_dh<__nv_bfloat16, __nv_bfloat16>(Dh, q, k, v, k_new, v_new, nullptr, nullptr, st, ps, out, B, H, Hk, S, scale, s);
+    return dispatch_dh<__nv_bfloat16, __nv_bfloat16>(Dh, G, q, k, v, k_new, v_new, nullptr, nullptr, st, ps, out, sc, B, Hk, S, scale, s);
   if (cache_dtype == 2 && ks != nullptr && vs != nullptr) {
     if (q_dtype == 0)
-      return dispatch_dh<float, int8_t>(Dh, q, k, v, k_new, v_new, ks, vs, st, ps, out, B, H, Hk, S, scale, s);
+      return dispatch_dh<float, int8_t>(Dh, G, q, k, v, k_new, v_new, ks, vs, st, ps, out, sc, B, Hk, S, scale, s);
     if (q_dtype == 1)
-      return dispatch_dh<__nv_bfloat16, int8_t>(Dh, q, k, v, k_new, v_new, ks, vs, st, ps, out, B, H, Hk, S, scale, s);
+      return dispatch_dh<__nv_bfloat16, int8_t>(Dh, G, q, k, v, k_new, v_new, ks, vs, st, ps, out, sc, B, Hk, S, scale, s);
   }
   return cudaErrorInvalidValue;
 }

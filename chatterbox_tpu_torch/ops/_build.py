@@ -40,9 +40,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of each launcher (all return int = cudaError_t)
 _SIGNATURES = {
-    # q, k, v, k_new, v_new, k_scale, v_scale, start, pos, out,
+    # q, k, v, k_new, v_new, k_scale, v_scale, start, pos, out, scratch,
     # B, H, Hk, S, Dh, q_dtype, cache_dtype, scale, stream
-    "decode_attention_launch": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "decode_attention_launch": [_P] * 11 + [_I] * 7 + [_F, _P],
+    # () → cache rows per slice of decode_attention_launch
+    "decode_attention_slice_rows": [],
     # q, k, v, valid, out, B, H, T, Dh, dtype, scale, stream
     "flash_mha_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
     # q, k, v, k_new, v_new, start, pos, out, B, H, Hk, S, Dh, dtype, n_sm, scale, stream

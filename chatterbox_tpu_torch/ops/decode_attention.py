@@ -15,12 +15,19 @@ TPU's paired ``[B, Hk/2, S, 128]`` layout existed only to fill 128 lanes.
 
 ``decode_attention`` is the wrapper the model calls: on a CPU tensor it runs
 ``decode_attention_plain``; on a CUDA tensor it launches
-``csrc/decode_attention.cu`` or raises. ``launches`` counts kernel launches
-per cache body ("native" = float/bf16 cache, "int8").
+``csrc/decode_attention.cu`` or raises. The kernel is split-S flash decoding:
+one block per (slice of ``slice_rows()`` = 256 cache rows, kv head, lane)
+writes a partial (max, sum, accumulator) into float32 scratch that the
+wrapper allocates, and a second kernel folds the partials and the self-term.
+The slice count comes from S, never from ``pos``: nothing is read back to
+the host. ``launches`` counts wrapper calls that launched the kernel (one per
+call, whatever the CUDA launches inside) per cache body ("native" =
+float/bf16 cache, "int8").
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -33,7 +40,7 @@ launches = {"native": 0, "int8": 0}
 _DTYPE_CODE = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16,
                torch.int8: _build.DTYPE_I8}
 _HEAD_DIMS = (32, 64, 128)
-_MAX_G_TIMES_DH = 1024
+_GROUPS = (1, 2, 4)   # query heads per kv head with a compiled body
 
 
 def reset_launches() -> None:
@@ -96,7 +103,7 @@ def _check_cuda_args(q, k_cache, v_cache, k_new, v_new, start, pos, k_scale, v_s
     want_cache = torch.int8 if quantized else q.dtype
     if k_cache.dtype != want_cache or v_cache.dtype != want_cache:
         raise ValueError(f"cache dtype {k_cache.dtype} must be {want_cache}")
-    if Dh not in _HEAD_DIMS or H % Hk or (H // Hk) * Dh > _MAX_G_TIMES_DH:
+    if Dh not in _HEAD_DIMS or H % Hk or H // Hk not in _GROUPS:
         raise ValueError(f"unsupported heads: H={H} Hk={Hk} Dh={Dh}")
     shapes = {
         "k_cache": (k_cache, (B, Hk, S, Dh)), "v_cache": (v_cache, (B, Hk, S, Dh)),
@@ -122,6 +129,12 @@ def _check_cuda_args(q, k_cache, v_cache, k_new, v_new, start, pos, k_scale, v_s
         raise ValueError("scales must be float32")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
+
+
+@functools.cache
+def slice_rows() -> int:
+    """Cache rows per block of the CUDA kernel (builds the library)."""
+    return _build.library().decode_attention_slice_rows()
 
 
 def decode_attention(
@@ -150,6 +163,9 @@ def decode_attention(
     out = torch.empty_like(q)
     quantized = k_scale is not None
     lib = _build.library()
+    n_slice = -(-S // slice_rows())
+    scratch = torch.empty(B * Hk * n_slice * (H // Hk) * (Dh + 2), dtype=torch.float32,
+                          device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.decode_attention_launch(
@@ -157,7 +173,7 @@ def decode_attention(
             k_new.data_ptr(), v_new.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
-            start.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            start.data_ptr(), pos.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             B, H, Hk, S, Dh, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
             ctypes.c_float(1.0 / Dh ** 0.5), ctypes.c_void_p(stream),
         )

@@ -41,7 +41,9 @@ import torch
 
 from chip_smoke import REQUEST, TEXTS, gpu_line, write_conds
 
-K1, K2 = "decode_attention_kernel", "flash_mha_kernel"
+# the CUDA kernels of each wrapper, matched in the profiler's kernel names
+# (K1 launches a slice kernel and a combine kernel per call)
+KERNELS = {"K1": ("decode_slice_kernel", "decode_combine_kernel"), "K2": ("flash_mha_kernel",)}
 
 
 def sync(dev: torch.device) -> None:
@@ -82,11 +84,13 @@ def device_kernels(fn, dev):
 def summarize(name: str, rows: dict, per: int = 1) -> dict:
     """Print and return the total, the K1/K2 shares and the top kernels."""
     total = sum(us for us, _ in rows.values())
-    share = {k: sum(us for key, (us, _) in rows.items() if k in key) / total for k in (K1, K2)}
-    calls = {k: sum(n for key, (_, n) in rows.items() if k in key) for k in (K1, K2)}
+    share = {k: sum(us for key, (us, _) in rows.items() if any(n in key for n in names)) / total
+             for k, names in KERNELS.items()}
+    calls = {k: sum(c for key, (_, c) in rows.items() if any(n in key for n in names))
+             for k, names in KERNELS.items()}
     print(f"  {name}: device {total / 1e3 / per:.3f} ms per unit ({per} units); "
-          f"K1 {100 * share[K1]:.1f} % ({calls[K1]} calls), K2 {100 * share[K2]:.1f} % "
-          f"({calls[K2]} calls)", flush=True)
+          f"K1 {100 * share['K1']:.1f} % ({calls['K1']} calls), K2 {100 * share['K2']:.1f} % "
+          f"({calls['K2']} calls)", flush=True)
     top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:12]
     for key, (us, n) in top:
         print(f"    {100 * us / total:5.1f} %  {us / 1e3:9.3f} ms  {n:6d}x  {key[:100]}", flush=True)

@@ -11,15 +11,19 @@ the script exits non-zero without printing the final line:
 2. build: one nvcc per chatterbox_tpu_torch/csrc/*.cu, all started together,
    for sm_90a, then one link;
 3. kernels against their plain PyTorch versions (max-abs error against a
-   stated tolerance): K1 and K2 at two lanes, then K1 (int8 and bf16
-   bodies), K2 and K3 at the batched path's shapes (32 lanes; 16 CFG pairs).
-   Each gets its device time (CUDA events around calls queued behind a
-   spin kernel), its time per call with the host's dispatch (CUDA events
-   around one call on an idle GPU), its plain version's device time, one
-   PyTorch library call's device time on the same inputs
+   stated tolerance): K1 and K2 at two lanes, K1 (every body, at 2 and at
+   32 lanes) on windows that start and end at, one row before and one row
+   past its slice length and twice it, the bodies no serving path runs (K2
+   at dh = 32 and 128; K1 at Dh = 32 and 128, G = 2 and 4), then K1 (int8
+   and bf16 bodies), K2 and K3 at the batched path's shapes (32 lanes; 16
+   CFG pairs). Each gets its device time (CUDA events around calls queued
+   behind a spin kernel), its time per call with the host's dispatch (CUDA
+   events around one call on an idle GPU), its plain version's device time,
+   one PyTorch library call's device time on the same inputs
    (scaled_dot_product_attention, a yardstick the port never calls) and its
    bound: the larger of the bytes it must move over 3.35 TB/s and its
-   operations over the peak rate for their type;
+   operations over the tensor-core peak for their type (float32 at the TF32
+   rate);
 4. batched serving: EngineConfig.full() (int8 KV cache, random weights from a
    seed, a seeded conds.pt as the default voice, CHATTERBOX_MAX_NEW_TOKENS),
    MAX_DECODE_SLOTS=16, 16 concurrent requests through
@@ -76,10 +80,12 @@ KERNELS = {
 # only; a bfloat16 output is each side's float32 result rounded to bf16, so
 # the two may sit one bf16 step apart (2^-7 relative, |out| < 2 here).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
-# H100 SXM data-sheet peaks: HBM bytes/s; dense operations/s by the type the
-# kernel's inputs arrive in (f32 math outside the tensor cores)
+# H100 SXM data-sheet peaks: HBM bytes/s; dense tensor-core operations/s by
+# the type the kernel's inputs arrive in. float32 counts at the TF32 rate: an
+# f32 attention can run its products on the tensor cores (K2 does, split into
+# bf16 parts), so the 67e12 of f32 math outside them is not the least time.
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
+PEAK_OPS_S = {torch.float32: 495e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
 TEXTS = [
     "Hello from the port. This request runs on one graphics card.",
     "The quick brown fox jumps over the lazy dog, while the patient engineer "
@@ -205,31 +211,53 @@ def quantize(x: torch.Tensor):
     return torch.round(x.float() / s[..., None]).clamp(-127, 127).to(torch.int8), s
 
 
+# K1's bodies as (query dtype, cache): an int8 cache serves bf16 queries
+DECODE_BODIES = ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"),
+                 (torch.bfloat16, "int8"))
+
+
+def decode_inputs(g, B: int, H: int, Hk: int, S: int, Dh: int, q_dtype, cache: str):
+    """Random K1 inputs for one body → ((q, k, v, k_new, v_new), (k_scale,
+    v_scale)); the scales are None unless the cache is int8."""
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=g.device)  # noqa: E731
+    q = rnd(B, H, Dh).to(q_dtype)
+    kn, vn = rnd(B, Hk, Dh).to(q_dtype), rnd(B, Hk, Dh).to(q_dtype)
+    k, v = rnd(B, Hk, S, Dh), rnd(B, Hk, S, Dh)
+    if cache == "int8":
+        (k, ks), (v, vs) = quantize(k), quantize(v)
+        return (q, k, v, kn, vn), (ks, vs)
+    return (q, k.to(q_dtype), v.to(q_dtype), kn, vn), (None, None)
+
+
+def slice_edge_windows(L: int) -> list[tuple[int, int]]:
+    """(start, pos) pairs that start and end at, one row before and one row
+    past K1's slice length L and twice it (starts also at 0)."""
+    edges = [L - 1, L, L + 1, 2 * L - 1, 2 * L, 2 * L + 1]
+    return [(s, p) for s in [0, *edges] for p in edges if s <= p]
+
+
 def check_decode_attention(results: dict) -> None:
-    """K1 at 2 lanes: windows at and past tile edges, every body."""
+    """K1 at 2 lanes: windows at and past tile and slice edges, every body."""
     from chatterbox_tpu_torch.ops import decode_attention as da
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     B, H, Hk, S, Dh = 2, 16, 16, 1300, 64
+    edges = slice_edge_windows(da.slice_rows())
+    print(f"  K1 slice length {da.slice_rows()} rows; {len(edges)} slice-edge windows",
+          flush=True)
     windows = [((5, 17), (65, 129)), ((0, 33), (64, 640)), ((31, 12), (1299, 700))]
-    for q_dtype, cache in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16"),
-                           (torch.bfloat16, "int8")):
+    # the slice-edge windows two at a time: (starts, ends) of lanes 0 and 1
+    pairs = zip(edges[::2], edges[1::2] + edges[:1])
+    windows += [((a[0], b[0]), (a[1], b[1])) for a, b in pairs]
+    for q_dtype, cache in DECODE_BODIES:
         worst = 0.0
         for (s0, s1), (p0, p1) in windows:
-            rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
-            q = rnd(B, H, Dh).to(q_dtype)
-            kn, vn = rnd(B, Hk, Dh).to(q_dtype), rnd(B, Hk, Dh).to(q_dtype)
-            k, v = rnd(B, Hk, S, Dh), rnd(B, Hk, S, Dh)
-            ks = vs = None
-            if cache == "int8":
-                (k, ks), (v, vs) = quantize(k), quantize(v)
-            else:
-                k, v = k.to(q_dtype), v.to(q_dtype)
+            tensors, scales = decode_inputs(g, B, H, Hk, S, Dh, q_dtype, cache)
             start = torch.tensor([s0, s1], dtype=torch.int32, device=dev)
             pos = torch.tensor([p0, p1], dtype=torch.int32, device=dev)
             s_view = min(S, ((max(p0, p1) + 1 + 255) // 256) * 256)
-            args = (q, k, v, kn, vn, start, pos, ks, vs)
+            args = (*tensors, start, pos, *scales)
             worst = max(worst, compare(f"decode_attention[{cache}] B=2 start={s0},{s1} "
                                        f"pos={p0},{p1}", da.decode_attention(*args),
                                        da.decode_attention_plain(*args, s_view=s_view),
@@ -334,6 +362,61 @@ def time_decode(name, fn, plain_fn, library_fn, bound_ms, bound_by, err, tol) ->
     return {"max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "call_ms": call_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+def check_decode_slice_edges(k1: dict) -> None:
+    """K1 at 32 lanes, every body, on windows at and across its slice edges."""
+    from chatterbox_tpu_torch.ops import decode_attention as da
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    H = Hk = 16
+    S, Dh = 1280, 64
+    edges = slice_edge_windows(da.slice_rows())
+    wins = [edges[i % len(edges)] for i in range(LANES)]
+    start = torch.tensor([w[0] for w in wins], dtype=torch.int32, device=dev)
+    pos = torch.tensor([w[1] for w in wins], dtype=torch.int32, device=dev)
+    for q_dtype, cache in DECODE_BODIES:
+        tensors, scales = decode_inputs(g, LANES, H, Hk, S, Dh, q_dtype, cache)
+        args = (*tensors, start, pos, *scales)
+        err = compare(f"decode_attention[{cache}] B={LANES} slice-edge windows",
+                      da.decode_attention(*args), da.decode_attention_plain(*args),
+                      TOL[q_dtype])
+        k1[f"slice_edges_B{LANES}_{cache}"] = {"max_abs_err": err, "tol": TOL[q_dtype]}
+
+
+def check_other_shapes(k1: dict, k2: dict) -> None:
+    """The compiled bodies no serving path runs, at 2 lanes: K2 at dh = 32
+    and 128, K1 at Dh = 32 and 128 and at G = 2 and 4."""
+    from chatterbox_tpu_torch.ops import decode_attention as da
+    from chatterbox_tpu_torch.ops import flash_mha as fm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        worst = 0.0
+        for dh in (32, 128):
+            q, k, v = (rnd(2, 4, 300, dh).to(dtype) for _ in range(3))
+            valid = torch.ones((2, 300), dtype=torch.bool, device=dev)
+            valid[1, 250:] = False
+            worst = max(worst, compare(f"flash_mha[{name}] dh={dh} B=2 T=300",
+                                       fm.flash_mha(q, k, v, valid, scale=dh ** -0.5),
+                                       fm.flash_mha_plain(q, k, v, valid, scale=dh ** -0.5),
+                                       TOL[dtype]))
+        k2[f"other_dh_{name}"] = {"max_abs_err": worst, "tol": TOL[dtype]}
+    start = torch.tensor([3, 200], dtype=torch.int32, device=dev)
+    pos = torch.tensor([300, 517], dtype=torch.int32, device=dev)
+    for q_dtype, cache in DECODE_BODIES:
+        worst = 0.0
+        for H, Hk, Dh in ((8, 8, 32), (8, 8, 128), (8, 4, 64), (8, 2, 64)):
+            tensors, scales = decode_inputs(g, 2, H, Hk, 600, Dh, q_dtype, cache)
+            args = (*tensors, start, pos, *scales)
+            worst = max(worst, compare(f"decode_attention[{cache}] H={H} Hk={Hk} Dh={Dh} B=2",
+                                       da.decode_attention(*args),
+                                       da.decode_attention_plain(*args), TOL[q_dtype]))
+        k1[f"other_shapes_{cache}"] = {"max_abs_err": worst, "tol": TOL[q_dtype]}
 
 
 def check_batched_decode(k1: dict, k3: dict) -> None:
@@ -689,7 +772,9 @@ def main() -> int:
     k1, k2, k3 = {}, {}, {}
     reset_launches()
     check_decode_attention(k1)
+    check_decode_slice_edges(k1)
     check_flash_mha(k2)
+    check_other_shapes(k1, k2)
     check_batched_decode(k1, k3)
     k3_launches = read_launches()["decode_attention_pipelined"]["native"]
     done(t0, walls, "kernels")
@@ -728,11 +813,14 @@ def main() -> int:
         dict(name="decode_attention", route="cuda", **KERNELS["decode_attention"],
              launches=launches["decode_attention"]["int8"], body="int8", **k1[f"int8_B{LANES}"],
              other_bodies={"bfloat16": k1[f"bfloat16_B{LANES}"], "B2_checks": {
-                 c: k1[c] for c in ("int8", "bfloat16", "float32")},
+                 c: k1[c] for c in ("int8", "bfloat16", "float32")}, "slice_edge_checks": {
+                 c: k1[f"slice_edges_B{LANES}_{c}"] for c in ("int8", "bfloat16", "float32")},
+                 "other_shapes": {c: k1[f"other_shapes_{c}"] for c in ("int8", "bfloat16", "float32")},
                  "live_bf16_ms": k1["live_bf16_ms"]}),
         dict(name="flash_mha", route="cuda", **KERNELS["flash_mha"],
              launches=launches["flash_mha"]["float32"], body="float32", **k2["float32"],
-             other_bodies={"bfloat16": k2["bfloat16"]}),
+             other_bodies={"bfloat16": k2["bfloat16"], "other_head_dims": {
+                 c: k2[f"other_dh_{c}"] for c in ("float32", "bfloat16")}}),
         dict(name="decode_attention_pipelined", route="cuda",
              **KERNELS["decode_attention_pipelined"], launches=k3_launches, body="bfloat16",
              launches_from="phases 3 and 6 (no serving path calls it)", **k3_main,

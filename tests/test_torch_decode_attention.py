@@ -7,8 +7,10 @@ Mirrors the cases of tests/test_pallas_v3.py and tests/test_int8_kv.py:
 MHA and GQA, float and int8 caches, rows with start > 0, and garbage past
 pos that must not leak in. The port's cache is [B, Hk, S, Dh]; the JAX
 kernel reads the paired [B, Hk/2, S, 2·Dh] layout built from the same data.
-The CUDA kernels themselves are compared with the plain version on the card,
-by chip_smoke.py. Tolerance 2e-5 (float32, as tests/test_pallas_v3.py).
+An emulation of K1's CUDA decomposition (split-S partials and their combine)
+is held against both. The CUDA kernels themselves are compared with the plain
+version on the card, by chip_smoke.py. Tolerance 2e-5 (float32, as
+tests/test_pallas_v3.py).
 """
 import numpy as np
 import pytest
@@ -180,3 +182,120 @@ def test_pipelined_wrapper_rejects_other_devices():
     q = torch.zeros((1, 4, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         dap.decode_attention_pipelined(q, q, q, q, q, q, q)
+
+
+# --- K1's split-S decomposition (csrc/decode_attention.cu), emulated ---------
+
+SLICE_ROWS = 256   # cache rows per block of the CUDA kernel (kSlice)
+WARPS, LOADS = 4, 2  # warps per block; row loads per warp per tile
+
+
+def _partial(qg, k, v, ks, vs):
+    """(max, sum, acc) over the given rows, or the empty partial (sum 0)."""
+    Hk, G, Dh = qg.shape
+    if k.shape[1] == 0:
+        return (torch.full((Hk, G), -1e9), torch.zeros(Hk, G), torch.zeros(Hk, G, Dh))
+    s = torch.einsum("hgd,hnd->hgn", qg, k)
+    if ks is not None:
+        s = s * ks[:, None, :]
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    if vs is not None:
+        p = p * vs[:, None, :]
+    return m, l, torch.einsum("hgn,hnd->hgd", p, v)
+
+
+def _fold(parts):
+    """Fold partials, weighting each by exp(m - M) and skipping those with
+    sum 0 (their max is the mask value, never a weight of 1)."""
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    live = l > 0
+    M = torch.where(live, m, torch.tensor(-torch.inf)).amax(0)
+    w = torch.where(live, torch.exp(m - M), 0.0)
+    return M, (w * l).sum(0), (w[..., None] * acc).sum(0)
+
+
+def _split_s_emulation(q, k, v, kn, vn, start, pos, ks=None, vs=None, rows_per_load=8):
+    """Plain-torch emulation of the kernel's partials and combine: each block
+    (slice of SLICE_ROWS rows, lane) splits its rows among its warps as the
+    kernel does (tiles of WARPS x LOADS loads of ``rows_per_load`` rows),
+    folds the warps' partials into the slice's, and the combine folds the
+    slices' partials with the unquantised self-term."""
+    B, H, Dh = q.shape
+    Hk, S = k.shape[1], k.shape[2]
+    G = H // Hk
+    scale = 1.0 / Dh ** 0.5
+    tile = WARPS * LOADS * rows_per_load
+    out = torch.empty(B, Hk, G, Dh)
+    for b in range(B):
+        qg = q[b].reshape(Hk, G, Dh) * scale
+        slices = []
+        for s0 in range(0, S, SLICE_ROWS):
+            lo, hi = max(int(start[b]), s0), min(int(pos[b]), s0 + SLICE_ROWS)
+            warps = []
+            for w in range(WARPS):
+                rows = [r for t in range(0, SLICE_ROWS, tile) for st in range(LOADS)
+                        for sub in range(rows_per_load)
+                        if lo <= (r := s0 + t + (w * LOADS + st) * rows_per_load + sub) < hi]
+                idx = torch.tensor(rows, dtype=torch.long)
+                warps.append(_partial(qg, k[b][:, idx], v[b][:, idx],
+                                      None if ks is None else ks[b][:, idx],
+                                      None if vs is None else vs[b][:, idx]))
+            slices.append(_fold(warps))
+        m, l, acc = _fold(slices)
+        s_self = torch.einsum("hgd,hd->hg", qg, kn[b])
+        M = torch.maximum(m, s_self)
+        w, ps = torch.where(l > 0, torch.exp(m - M), 0.0), torch.exp(s_self - M)
+        out[b] = ((w[..., None] * acc + ps[..., None] * vn[b][:, None, :])
+                  / (w * l + ps)[..., None])
+    return out.reshape(B, H, Dh)
+
+
+_SPLIT_CASES = {   # (starts, ends) per lane; S = 768 gives three slices
+    "slice_edges": ([0, 255, 256, 257, 1, 511, 0, 255], [256, 513, 512, 511, 257, 512, 255, 768]),
+    "empty_slices": ([600, 0, 260, 512], [610, 5, 500, 768]),
+    "empty_window": ([7, 0, 256], [7, 0, 256]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("heads", [(4, 4), (8, 4)])  # (H, Hk): G = 1 and G = 2
+def test_split_s_decomposition_matches_plain_and_pallas(case, quantized, heads):
+    """The slices' partials and their combine give what the plain version and
+    the Pallas kernel give, with garbage outside every window."""
+    starts, ends = _SPLIT_CASES[case]
+    B = len(starts)
+    q, kc, vc, kn, vn, _, _ = _inputs(21, heads, B=B, S=768)
+    start, pos = np.array(starts, np.int32), np.array(ends, np.int32)
+    for b in range(B):   # garbage before start and past pos
+        kc[b, :starts[b]], vc[b, :starts[b]] = 1e4, -1e4
+        kc[b, ends[b]:], vc[b, ends[b]:] = -1e4, 1e4
+    jargs = [jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(start), jnp.asarray(pos)]
+    head_major = lambda a: to_t(np.ascontiguousarray(np.moveaxis(a, 1, 2)))  # noqa: E731
+    if quantized:
+        (kq, ks), (vq, vs) = _quantize(kc), _quantize(vc)
+        want_j = paired_decode_attention(
+            jnp.asarray(q), pack_cache_paired(jnp.asarray(kq)), pack_cache_paired(jnp.asarray(vq)),
+            *jargs, k_scale=pack_scales_paired(jnp.asarray(ks)),
+            v_scale=pack_scales_paired(jnp.asarray(vs)), interpret=True)
+        args = (to_t(q), head_major(kq).float(), head_major(vq).float(), to_t(kn), to_t(vn),
+                to_t(start), to_t(pos), head_major(ks), head_major(vs))
+        rows_per_load = 8    # int8 body, Dh = 64: 16 values per 16-byte load
+    else:
+        want_j = paired_decode_attention(
+            jnp.asarray(q), pack_cache_paired(jnp.asarray(kc)), pack_cache_paired(jnp.asarray(vc)),
+            *jargs, interpret=True)
+        args = (to_t(q), head_major(kc), head_major(vc), to_t(kn), to_t(vn),
+                to_t(start), to_t(pos))
+        rows_per_load = 2    # float32 body, Dh = 64: 4 values per load
+    got = _split_s_emulation(*args, rows_per_load=rows_per_load)
+    plain_args = args if not quantized else (args[0], args[1].to(torch.int8),
+                                             args[2].to(torch.int8), *args[3:])
+    np.testing.assert_allclose(to_np(got), to_np(da.decode_attention_plain(*plain_args)),
+                               atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(to_np(got), np.asarray(want_j), atol=TOL, rtol=TOL)
+    if case == "empty_window":
+        G = heads[0] // heads[1]
+        np.testing.assert_allclose(to_np(got), np.repeat(vn, G, axis=1), atol=1e-6)

@@ -1,9 +1,11 @@
 """K2 parity: the port's flash MHA (plain version, which its wrapper runs
 for CPU tensors) against the JAX package's Pallas ``flash_mha(...,
-interpret=True)``, including a ragged T and an all-masked row; and the
-port's estimator transformer block against JAX ``_tf_block`` on its flash
-branch. The CUDA kernel itself is compared with this plain version on the
-card, by chip_smoke.py. Tolerance 2e-5 (float32, as tests/test_pallas_mha.py).
+interpret=True)``, including a ragged T and an all-masked row; the port's
+estimator transformer block against JAX ``_tf_block`` on its flash branch;
+and the precision contract of the CUDA kernel's tensor-core products,
+emulated in plain torch. The CUDA kernel itself is compared with the plain
+version on the card, by chip_smoke.py. Tolerance 2e-5 (float32, as
+tests/test_pallas_mha.py).
 """
 import numpy as np
 import pytest
@@ -84,3 +86,106 @@ def test_wrapper_rejects_other_devices():
     q = torch.zeros((1, 1, 4, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fm.flash_mha(q, q, q, torch.ones((1, 4), dtype=torch.bool, device="meta"))
+
+
+# --- the precision contract of the kernel's tensor-core products, emulated ---
+#
+# csrc/flash_mha.cu multiplies on the tensor cores. Its float32 body splits
+# every operand x into hi = bf16(x) and lo = bf16(x - hi) and takes each
+# product as hi·hi + hi·lo + lo·hi with f32 sums ("bf16x3"). The contract:
+# at the batched path's shapes that stays within CONTRACT_TOL of the plain
+# float32 version. TF32x3 (the same split in TF32) qualifies too; one-pass
+# bf16 or TF32 does not.
+
+CONTRACT_TOL = 2e-5
+
+
+def _round_bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _round_tf32(x):
+    """TF32: float32 with the low 13 mantissa bits zeroed."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+_ROUNDING = {"bf16": _round_bf16, "tf32": _round_tf32}
+
+
+def _product(a, b, eq, rnd, passes):
+    if passes == 1:
+        return torch.einsum(eq, rnd(a), rnd(b))
+    a_hi, b_hi = rnd(a), rnd(b)
+    a_lo, b_lo = rnd(a - a_hi), rnd(b - b_hi)
+    return (torch.einsum(eq, a_hi, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_lo, b_hi))
+
+
+def _emulated_mha(q, k, v, valid, scale, rnd, passes=3):
+    """flash_mha_plain's arithmetic with Q·Kᵀ and P·V taken under a rounding
+    scheme of the tensor cores (``passes`` = 3: the hi/lo split)."""
+    s = _product(q, k, "bhid,bhjd->bhij", rnd, passes) * scale
+    kmask = valid[:, None, None, :]
+    s = s.masked_fill(~kmask, -1e9)
+    p = torch.where(kmask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    out = _product(p, v, "bhij,bhjd->bhid", rnd, passes)
+    return out / p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
+def _contract_error(B, H, T, dh, valid, rnd, passes, seed):
+    """max |emulated − plain| over randn inputs, 8 lanes at a time."""
+    q, k, v = (to_t(x) for x in _qkv(seed, B, H, T, dh))
+    valid = to_t(valid)
+    err = 0.0
+    for b0 in range(0, B, 8):
+        lanes = (q[b0:b0 + 8], k[b0:b0 + 8], v[b0:b0 + 8], valid[b0:b0 + 8])
+        got = _emulated_mha(*lanes, 0.125, rnd, passes)
+        err = max(err, (got - fm.flash_mha_plain(*lanes, scale=0.125)).abs().max().item())
+    return err
+
+
+@pytest.mark.parametrize("scheme", ["bf16", "tf32"])
+def test_split_contract_at_batched_shapes(scheme):
+    """B = 32 CFG lanes, H = 8, T = 628, dh = 64, scale 0.125, with the padded
+    tail and leading mask chip_smoke.py uses."""
+    B, T = 32, 628
+    valid = np.ones((B, T), bool)
+    valid[0, T - 37:] = False
+    valid[1, :100] = False
+    err = _contract_error(B, 8, T, 64, valid, _ROUNDING[scheme], 3, seed=9)
+    assert err <= CONTRACT_TOL, err
+
+
+def _ragged_valid(B, T):
+    valid = np.ones((B, T), bool)
+    valid[0, T - 37:] = False     # padded tail
+    valid[1, T - 300:] = False
+    valid[2] = False              # a lane whose keys are all masked
+    return valid
+
+
+@pytest.mark.parametrize("scheme", ["bf16", "tf32"])
+def test_split_contract_at_ragged_t_with_masked_tail(scheme):
+    B, T = 4, 1012
+    err = _contract_error(B, 8, T, 64, _ragged_valid(B, T), _ROUNDING[scheme], 3, seed=10)
+    assert err <= CONTRACT_TOL, err
+
+
+@pytest.mark.parametrize("scheme", ["bf16", "tf32"])
+def test_one_pass_rounding_breaks_the_contract(scheme):
+    """Why the float32 body splits: one pass of either type misses the bound."""
+    B, T = 4, 1012
+    err = _contract_error(B, 8, T, 64, _ragged_valid(B, T), _ROUNDING[scheme], 1, seed=10)
+    assert err > CONTRACT_TOL, err
+
+
+@pytest.mark.parametrize("T", [256, 100, 300])
+def test_split_contract_matches_pallas(T):
+    """The emulated bf16x3 products against the JAX kernel (interpret mode)."""
+    B, H, dh = 2, 3, 64
+    q, k, v = _qkv(0, B, H, T, dh)
+    valid = np.ones((B, T), bool)
+    valid[1, T - T // 3:] = False
+    want = jflash(*map(jnp.asarray, (q, k, v, valid)), scale=0.125, interpret=True)
+    got = _emulated_mha(*map(to_t, (q, k, v, valid)), 0.125, _round_bf16)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), atol=1e-4, rtol=1e-4)
