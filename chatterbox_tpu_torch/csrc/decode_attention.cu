@@ -31,7 +31,8 @@
 //   - the G query heads of a kv head share each read of its rows;
 //   - a second small kernel, one block per (lane, kv head), folds the partials
 //     and the self-term, weighting each partial by exp(m - M) and skipping
-//     those with l = 0, and writes the output.
+//     those with l = 0, and writes the output (decode_combine.cuh, shared
+//     with K3).
 //
 // Layouts: q/out [B, H, Dh]; k/v cache [B, Hk, S, Dh]; k_new/v_new [B, Hk, Dh];
 // scales [B, Hk, S] f32; start/pos [B] int32; scratch (f32) holds the partials
@@ -45,19 +46,14 @@
 
 #include <type_traits>
 
+#include "decode_combine.cuh"
+
 namespace {
 
 constexpr int kSlice = 256;        // cache rows per block
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSteps = 2;          // row loads per warp per tile (K and V each)
-constexpr float kNegInf = -1e9f;   // finite mask value, as the JAX package
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* dst) { *dst = __float2bfloat16(v); }
 
 // the 16 / sizeof(CT) cache values of one 16-byte chunk, as f32
 __device__ __forceinline__ void unpack(const uint4& u, float (&x)[4]) {
@@ -269,53 +265,6 @@ decode_slice_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
   }
 }
 
-// One block per (kv head, lane): the self-term and the fold of the slices'
-// partials into the output.
-template <typename QT, int DH, int G>
-__global__ void __launch_bounds__(kThreads)
-decode_combine_kernel(const QT* __restrict__ q, const QT* __restrict__ k_new,
-                      const QT* __restrict__ v_new, const float* __restrict__ part_acc,
-                      const float* __restrict__ part_ml, QT* __restrict__ out, int H, int Hk,
-                      int n_slice, float scale) {
-  __shared__ float s_self[G];
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t head = size_t(b) * Hk + hk;
-  const size_t qoff = (size_t(b) * H + size_t(hk) * G) * DH;
-  const QT* kn = k_new + head * DH;
-  const QT* vn = v_new + head * DH;
-  for (int g = warp; g < G; g += kWarps) {
-    float d = 0.f;
-    for (int i = lane; i < DH; i += 32) d = fmaf(to_f32(q[qoff + g * DH + i]), to_f32(kn[i]), d);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-    if (lane == 0) s_self[g] = d * (scale * kLog2e);
-  }
-  __syncthreads();
-  const size_t part0 = head * n_slice * G;
-  for (int i = threadIdx.x; i < G * DH; i += kThreads) {
-    const int g = i / DH, d = i - g * DH;
-    const float ss = s_self[g];
-    float mx = ss;
-    for (int sl = 0; sl < n_slice; ++sl) {
-      const float* ml = part_ml + (part0 + size_t(sl) * G + g) * 2;
-      if (ml[1] > 0.f) mx = fmaxf(mx, ml[0]);
-    }
-    const float ps = exp2f(ss - mx);
-    float num = ps * to_f32(vn[d]), den = ps;
-    for (int sl = 0; sl < n_slice; ++sl) {
-      const size_t p = part0 + size_t(sl) * G + g;
-      const float* ml = part_ml + p * 2;
-      if (ml[1] > 0.f) {
-        const float wt = exp2f(ml[0] - mx);
-        num = fmaf(wt, part_acc[p * DH + d], num);
-        den = fmaf(wt, ml[1], den);
-      }
-    }
-    from_f32(num / den, out + qoff + i);
-  }
-}
-
 template <typename QT, typename CT, int DH, int G>
 int launch(const void* q, const void* k, const void* v, const void* kn, const void* vn,
            const float* ks, const float* vs, const int* start, const int* pos, void* out,
@@ -329,10 +278,8 @@ int launch(const void* q, const void* k, const void* v, const void* kn, const vo
       start, pos, part_acc, part_ml, H, Hk, S, n_slice, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  decode_combine_kernel<QT, DH, G><<<dim3(Hk, B), kThreads, 0, stream>>>(
-      static_cast<const QT*>(q), static_cast<const QT*>(kn), static_cast<const QT*>(vn),
-      part_acc, part_ml, static_cast<QT*>(out), H, Hk, n_slice, scale);
-  return cudaGetLastError();
+  return launch_combine<QT, DH>(q, kn, vn, part_acc, part_ml, out, B, H, Hk, n_slice, scale,
+                                stream);
 }
 
 template <typename QT, typename CT, int DH>

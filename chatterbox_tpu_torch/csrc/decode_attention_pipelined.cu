@@ -1,5 +1,5 @@
-// K3: single-query decode attention with the cache streamed through a cp.async
-// ring, for Hopper (sm_90a).
+// K3: single-query decode attention with the cache streamed into shared
+// memory by the Tensor Memory Accelerator, for Hopper (sm_90a).
 //
 // Replaces chatterbox_tpu/ops/pallas_attention_v3.py::
 // paired_decode_attention_pipelined (kernel _pipelined_kernel). It computes
@@ -8,357 +8,409 @@
 // [start[b], pos[b]) plus the current token's k/v as a self-term, folded in
 // before normalising; the finite -1e9 mask value is kept.
 //
-// The TPU kernel was one program that walked the batch rows in a loop and kept
-// n_buf - 1 rows' K/V copies in flight in a VMEM ring, because one copy per
-// row serialised on issue latency. What stands for it here:
-//   - a persistent grid of at most one block per SM (fewer when B * Hk is
-//     smaller); each block walks the work items (lane, kv head) in a strided
-//     loop, which takes the place of the TPU kernel's row loop;
-//   - each item's [start, pos) rows of K and V stream through a shared-memory
-//     ring of kStages stages of kTile rows, filled with 16-byte cp.async.cg
-//     copies and drained with cp.async.wait_group. The producer cursor runs
-//     kStages - 1 tiles ahead of the consumer across item boundaries, so the
-//     next item's first tiles are in flight while the current item computes;
-//   - an online softmax in f32, with the self-term folded in at the end.
-//
 // What bounds it on the H100: bytes. G = 1 at the full config, so each cache
 // element is used in one multiply-add for the scores or one for the output:
 // far below the card's ~295 flop/byte balance point. The bound is the
-// [start, pos) windows of K and V over 3.35 TB/s. TMA, mbarriers and tensor
-// cores are left for a later change.
+// [start, pos) windows of K and V over 3.35 TB/s, and a stream reaches it
+// only with many bytes in flight on every SM.
 //
-// Work split (128 threads): a score (g, j) is two half dot products over Dh/2,
-// each read as 16-byte shared-memory loads from K rows padded by 16 bytes, so
-// every quarter-warp phase is conflict-free; an output (g, d) is accumulated in
-// registers by two threads, one per half of the tile's rows, and the halves are
-// summed once per item.
+// The TPU kernel's point was a copy engine that runs ahead of the math: it
+// kept n_buf - 1 rows' K/V copies in flight in a VMEM ring
+// (make_async_copy and DMA semaphores). The Tensor Memory Accelerator is
+// Hopper's counterpart, so this kernel keeps that shape inside K1's split-S
+// grid:
+//   - the grid is (slice, kv head x head chunk, lane), a slice being kSlice
+//     cache rows (ceil(S / kSlice) slices, from S alone: nothing is read on
+//     the host). A block reads only its slice's part [lo, hi) of
+//     [start, pos); a block whose part is empty writes an empty partial
+//     (l = 0) and exits;
+//   - [lo, hi) of K in [B, Hk, S, Dh] is one contiguous run of bytes, and so
+//     is its run of V. The block cuts them into tiles of kTileBytes of K
+//     (and as many of V) from lo on, and streams the tiles through a ring of
+//     kStages stages in shared memory. One thread arms the stage's "full"
+//     mbarrier with the tile's bytes (mbarrier.arrive.expect_tx) and issues
+//     one 1-D bulk copy (cp.async.bulk ... mbarrier::complete_tx::bytes) for
+//     K's rows and one for V's; no tensor map is needed. Every thread waits
+//     on the stage's phase (mbarrier.try_wait.parity), computes the tile,
+//     and one __syncthreads() per refill frees the stage before the thread
+//     copies the tile kStages ahead into it. The rows are unpadded, as a bulk
+//     copy cannot pad them;
+//   - the math is K1's: each lane reads 16-byte chunks of a row (a warp load
+//     is 512 contiguous bytes, conflict-free), a warp owns whole rows, scores
+//     are reduced with warp shuffles, and the online-softmax state and the
+//     accumulator stay in f32 registers. The GC query heads a block serves
+//     share each row it reads. G > 4 is split into chunks of GC heads, one
+//     block each, so the registers stay bounded; the chunks of a kv head
+//     read its rows from L2;
+//   - one barrier at the end folds the block's four warps into one partial
+//     (m, l, acc), and decode_combine.cuh's kernel folds the slices' partials
+//     and the self-term, as for K1.
+// K1 loads its rows straight into registers, one warp load ahead: its int8
+// rows are a quarter of the bytes, and a register double buffer keeps enough
+// in flight. Here whole tiles are in flight per block while the warps
+// compute, with no registers and no instructions spent on the copies.
 //
 // Layouts: q/out [B, H, Dh]; k/v cache [B, Hk, S, Dh]; k_new/v_new [B, Hk, Dh];
-// start/pos [B] int32; cache and q share one dtype (bf16 or f32). Launches on
-// the caller's stream, allocates nothing, does not synchronise; returns
+// start/pos [B] int32; cache and q share one dtype (bf16 or f32); scratch
+// (f32) holds the partials acc [B, Hk, n_slice, G, Dh] then (m, l)
+// [B, Hk, n_slice, G, 2]. The cache must start on 16 bytes. Launches on the
+// caller's stream, allocates nothing, does not synchronise; returns
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "decode_combine.cuh"
+
 namespace {
 
+constexpr int kSlice = 256;        // cache rows per block
+constexpr int kTileBytes = 8192;   // bytes of K (and of V) per ring stage
+constexpr int kStages = 2;         // ring stages per block
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;          // cache rows per ring stage
-constexpr int kHalf = kTile / 2;   // rows per accumulating half
-constexpr int kMaxOut = 8;         // outputs per thread: 2 * G * Dh <= kThreads * kMaxOut
-constexpr float kNegInf = -1e9f;   // finite mask value, as the JAX package
+constexpr int kSteps = 2;          // warp loads per softmax update
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* dst) { *dst = __float2bfloat16(v); }
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-// dot of q[0 : n] (f32, shared) with one cache half-row of n elements read as
-// 16-byte chunks from shared memory
-template <int N>
-__device__ __forceinline__ float dot_row(const float* q, const unsigned char* k, float) {
-  float dot = 0.f;
-#pragma unroll
-  for (int c = 0; c < N / 4; ++c) {
-    const float4 f = *reinterpret_cast<const float4*>(k + 16 * c);
-    dot = fmaf(q[4 * c], f.x, dot);
-    dot = fmaf(q[4 * c + 1], f.y, dot);
-    dot = fmaf(q[4 * c + 2], f.z, dot);
-    dot = fmaf(q[4 * c + 3], f.w, dot);
+// one arrival that also expects `bytes` more to land before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
-  return dot;
 }
-template <int N>
-__device__ __forceinline__ float dot_row(const float* q, const unsigned char* k, __nv_bfloat16) {
-  float dot = 0.f;
+
+// 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// global to shared memory; completion is counted on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the 16 / sizeof(T) values of one 16-byte chunk, as f32
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[4]) {
+  x[0] = __uint_as_float(u.x);
+  x[1] = __uint_as_float(u.y);
+  x[2] = __uint_as_float(u.z);
+  x[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int c = 0; c < N / 8; ++c) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(k + 16 * c);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h2[e]);
-      dot = fmaf(q[8 * c + 2 * e], f.x, dot);
-      dot = fmaf(q[8 * c + 2 * e + 1], f.y, dot);
-    }
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
-  return dot;
 }
 
 template <typename T, int DH>
-struct Ring {
-  static constexpr int kRowBytes = DH * int(sizeof(T));  // one cache row
-  static constexpr int kKRowBytes = kRowBytes + 16;      // padded K row in the ring
-  static constexpr int kChunks = kRowBytes / 16;         // 16-byte copies per row
-  static constexpr int kStageBytes = kTile * (kKRowBytes + kRowBytes);
-  static constexpr int kStages = 4 * kStageBytes <= 160 * 1024 ? 4 : 3;
-  static constexpr int kBytes = kStages * kStageBytes;
+struct Geometry {
+  static constexpr int kRowBytes = DH * int(sizeof(T));
+  static constexpr int kE = 16 / int(sizeof(T));     // values per 16-byte chunk
+  static constexpr int kR = DH / kE;                 // lanes per cache row
+  static constexpr int kRowsPerLoad = 32 / kR;       // rows per warp load
+  static constexpr int kTile = kTileBytes / kRowBytes;  // cache rows per stage
+  static constexpr int kLoads = kTile / kRowsPerLoad / kWarps;  // per warp per tile
+  static constexpr int kRingBytes = kStages * 2 * kTileBytes;   // K then V per stage
+  static_assert(kR >= 1 && kR <= 32 && kTile % (kRowsPerLoad * kWarps) == 0 &&
+                    kLoads % kSteps == 0,
+                "unsupported head dim");
 };
 
-// float scratch after the ring: q [G*DH] | s_part [2][G][kTile] |
-// p [G][kTile] | acc [2][G*DH] | m, l, alpha, pself [4*G]
-__host__ __device__ constexpr size_t scratch_floats(int G, int DH) {
-  return size_t(3 * G * DH + 3 * G * kTile + 4 * G);
-}
-
-template <typename T, int DH>
+template <typename T, int DH, int GC>
 __global__ void __launch_bounds__(kThreads)
-pipelined_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-                 const T* __restrict__ k_new, const T* __restrict__ v_new,
-                 const int* __restrict__ start, const int* __restrict__ pos,
-                 T* __restrict__ out, int B, int H, int Hk, int S, float scale) {
-  using R = Ring<T, DH>;
-  extern __shared__ __align__(16) unsigned char smem[];
+pipelined_slice_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                       const T* __restrict__ vc, const int* __restrict__ start,
+                       const int* __restrict__ pos, float* __restrict__ part_acc,
+                       float* __restrict__ part_ml, int H, int Hk, int S, int n_slice,
+                       int n_chunk, float scale) {
+  using Geo = Geometry<T, DH>;
+  constexpr int E = Geo::kE, R = Geo::kR, RPL = Geo::kRowsPerLoad;
+  extern __shared__ __align__(128) unsigned char ring[];   // [kStages][K tile | V tile]
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ float red_m[kWarps][GC], red_l[kWarps][GC], red_acc[kWarps][GC][DH];
+
+  const int sl = blockIdx.x, b = blockIdx.z;
+  const int hk = blockIdx.y / n_chunk, chunk = blockIdx.y - hk * n_chunk;
   const int G = H / Hk;
-  const int n_items = B * Hk;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int sub = lane / R;    // row of the warp load
+  const int c = lane % R;      // chunk of the row
+  const int s0 = sl * kSlice;
+  const int lo = max(max(start[b], 0), s0);
+  const int hi = min(min(pos[b], S), s0 + kSlice);
+  const size_t head = size_t(b) * Hk + hk;
+  // partial of query head chunk * GC + g: part + g
+  const size_t part = (head * n_slice + sl) * G + size_t(chunk) * GC;
 
-  unsigned char* ring = smem;
-  float* q_s = reinterpret_cast<float*>(smem + R::kBytes);  // [G][DH], pre-scaled
-  float* s_part = q_s + G * DH;                              // [2][G][kTile]
-  float* p_s = s_part + 2 * G * kTile;                       // [G][kTile]
-  float* acc_s = p_s + G * kTile;                            // [2][G*DH]
-  float* m_s = acc_s + 2 * G * DH;                           // [G]
-  float* l_s = m_s + G;                                      // [G]
-  float* alpha_s = l_s + G;                                  // [G]
-  float* pself_s = alpha_s + G;                              // [G]
-
-  // item = b * Hk + hk is also the [B, Hk] head index of the cache
-  auto window = [&](int item, int& lo, int& hi) {
-    const int b = item / Hk;
-    lo = max(start[b], 0);
-    hi = min(pos[b], S);
-  };
-
-  // producer cursor: the next tile to copy, in the order the consumer reads
-  // tiles (this block's items in turn, each item's rows in kTile steps)
-  int p_item = blockIdx.x, p_row = 0, p_hi = 0, stage_in = 0;
-  auto seek = [&]() {  // first item from p_item on with a non-empty window
-    for (; p_item < n_items; p_item += gridDim.x) {
-      int lo, hi;
-      window(p_item, lo, hi);
-      if (lo < hi) {
-        p_row = lo;
-        p_hi = hi;
-        return;
-      }
+  if (lo >= hi) {
+    for (int i = tid; i < GC * DH; i += kThreads) part_acc[part * DH + i] = 0.f;
+    if (tid < GC) {
+      part_ml[(part + tid) * 2] = kNegInf;
+      part_ml[(part + tid) * 2 + 1] = 0.f;
     }
-  };
-  // copy the next tile into stage stage_in and commit one group (an empty
-  // group once every tile is in flight, so the group count stays uniform)
-  auto issue = [&]() {
-    if (p_item < n_items) {
-      const size_t base = (size_t(p_item) * S + p_row) * R::kRowBytes;
-      const unsigned char* kg = reinterpret_cast<const unsigned char*>(kc) + base;
-      const unsigned char* vg = reinterpret_cast<const unsigned char*>(vc) + base;
-      unsigned char* ks = ring + stage_in * R::kStageBytes;
-      unsigned char* vs = ks + kTile * R::kKRowBytes;
-      const int n = min(kTile, p_hi - p_row);
-      for (int c = tid; c < n * R::kChunks; c += kThreads) {
-        const int r = c / R::kChunks, w = c - r * R::kChunks;
-        cp_async16(ks + r * R::kKRowBytes + 16 * w, kg + r * R::kRowBytes + 16 * w);
-        cp_async16(vs + r * R::kRowBytes + 16 * w, vg + r * R::kRowBytes + 16 * w);
-      }
-      p_row += kTile;
-      if (p_row >= p_hi) {
-        p_item += gridDim.x;
-        seek();
-      }
-    }
-    cp_async_commit();
-    stage_in = stage_in + 1 == R::kStages ? 0 : stage_in + 1;
-  };
-
-  seek();
-  for (int s = 0; s < R::kStages - 1; ++s) issue();
-
-  int stage_out = 0;
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int b = item / Hk;
-    const int hk = item - b * Hk;
-    int lo, hi;
-    window(item, lo, hi);
-    const size_t qoff = (size_t(b) * H + size_t(hk) * G) * DH;
-    for (int i = tid; i < G * DH; i += kThreads) q_s[i] = to_f32(q[qoff + i]) * scale;
-    for (int g = tid; g < G; g += kThreads) {
-      m_s[g] = kNegInf;
-      l_s[g] = 0.f;
-    }
-    float acc[kMaxOut];
-#pragma unroll
-    for (int k = 0; k < kMaxOut; ++k) acc[k] = 0.f;
-    __syncthreads();
-
-    for (int t0 = lo; t0 < hi; t0 += kTile) {
-      const int n = min(kTile, hi - t0);
-      issue();                            // refills the stage freed last step
-      cp_async_wait<R::kStages - 1>();    // this thread's copies of this tile
-      __syncthreads();                    // everyone's copies of this tile
-      const unsigned char* ks = ring + stage_out * R::kStageBytes;
-      const unsigned char* vs = ks + kTile * R::kKRowBytes;
-
-      // half scores: p -> (row j, head g, half h)
-      for (int p = tid; p < 2 * G * kTile; p += kThreads) {
-        const int j = p % kTile;
-        const int g = (p / kTile) % G;
-        const int h = p / (kTile * G);
-        float dot = 0.f;
-        if (j < n)
-          dot = dot_row<DH / 2>(q_s + g * DH + h * (DH / 2),
-                                ks + j * R::kKRowBytes + h * (R::kRowBytes / 2), T());
-        s_part[p] = dot;
-      }
-      __syncthreads();
-      // online-softmax update, one warp per query head
-      for (int g = warp; g < G; g += kWarps) {
-        float* pr = p_s + g * kTile;
-        float mx = kNegInf;
-        for (int j = lane; j < kTile; j += 32) {
-          const float s = j < n ? s_part[g * kTile + j] + s_part[(G + g) * kTile + j] : kNegInf;
-          pr[j] = s;
-          mx = fmaxf(mx, s);
-        }
-        mx = warp_max(mx);
-        const float m_old = m_s[g];
-        const float m_new = fmaxf(m_old, mx);
-        float sum = 0.f;
-        for (int j = lane; j < kTile; j += 32) {
-          const float e = j < n ? expf(pr[j] - m_new) : 0.f;
-          sum += e;
-          pr[j] = e;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          const float a = expf(m_old - m_new);
-          alpha_s[g] = a;
-          l_s[g] = l_s[g] * a + sum;
-          m_s[g] = m_new;
-        }
-      }
-      __syncthreads();
-      // acc = acc * alpha + p @ V over this thread's half of the rows
-#pragma unroll
-      for (int k = 0; k < kMaxOut; ++k) {
-        const int o = tid + k * kThreads;
-        if (o < 2 * G * DH) {
-          const int d = o % DH;
-          const int g = (o / DH) % G;
-          const int h = o / (G * DH);
-          const float* pr = p_s + g * kTile;
-          float a = acc[k] * alpha_s[g];
-          const int j1 = min(n, (h + 1) * kHalf);
-          for (int j = h * kHalf; j < j1; ++j)
-            a = fmaf(pr[j], to_f32(reinterpret_cast<const T*>(vs + j * R::kRowBytes)[d]), a);
-          acc[k] = a;
-        }
-      }
-      __syncthreads();                    // the stage may be refilled now
-      stage_out = stage_out + 1 == R::kStages ? 0 : stage_out + 1;
-    }
-
-    // both halves to shared memory; the self-term joins the max and the sum
-#pragma unroll
-    for (int k = 0; k < kMaxOut; ++k) {
-      const int o = tid + k * kThreads;
-      if (o < 2 * G * DH) acc_s[o] = acc[k];
-    }
-    const T* kn = k_new + size_t(item) * DH;
-    const T* vn = v_new + size_t(item) * DH;
-    for (int g = warp; g < G; g += kWarps) {
-      float dot = 0.f;
-      for (int d = lane; d < DH; d += 32) dot = fmaf(q_s[g * DH + d], to_f32(kn[d]), dot);
-      dot = warp_sum(dot);
-      if (lane == 0) {
-        const float m_fin = fmaxf(m_s[g], dot);
-        const float a = expf(m_s[g] - m_fin);
-        const float ps = expf(dot - m_fin);
-        alpha_s[g] = a;
-        pself_s[g] = ps;
-        l_s[g] = l_s[g] * a + ps;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < G * DH; i += kThreads) {
-      const int g = i / DH, d = i - g * DH;
-      const float a = acc_s[i] + acc_s[G * DH + i];
-      const float o = (a * alpha_s[g] + pself_s[g] * to_f32(vn[d])) / fmaxf(l_s[g], 1e-30f);
-      from_f32(o, out + qoff + i);
-    }
-    __syncthreads();                      // scratch is reused by the next item
+    return;
   }
-  cp_async_wait<0>();
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const unsigned char* kg = reinterpret_cast<const unsigned char*>(kc + head * size_t(S) * DH);
+  const unsigned char* vg = reinterpret_cast<const unsigned char*>(vc + head * size_t(S) * DH);
+  const int n_tiles = (hi - lo + Geo::kTile - 1) / Geo::kTile;
+  // thread 0: arm tile t's stage and copy its rows of K and V
+  auto issue = [&](int t) {
+    const int row0 = lo + t * Geo::kTile;
+    const uint32_t bytes = uint32_t(min(Geo::kTile, hi - row0)) * Geo::kRowBytes;
+    unsigned char* st = ring + (t % kStages) * 2 * kTileBytes;
+    uint64_t* bar = &full[t % kStages];
+    mbar_arrive_expect_tx(bar, 2 * bytes);
+    bulk_copy(st, kg + size_t(row0) * Geo::kRowBytes, bytes, bar);
+    bulk_copy(st + kTileBytes, vg + size_t(row0) * Geo::kRowBytes, bytes, bar);
+  };
+  if (tid == 0)
+    for (int t = 0; t < min(kStages, n_tiles); ++t) issue(t);
+
+  // this lane's chunk of each query head, pre-scaled into the log2 domain
+  float qr[GC][E];
+  const T* qh = q + (size_t(b) * H + size_t(hk) * G + size_t(chunk) * GC) * DH + c * E;
+#pragma unroll
+  for (int g = 0; g < GC; ++g)
+#pragma unroll
+    for (int e = 0; e < E; ++e) qr[g][e] = to_f32(qh[g * DH + e]) * (scale * kLog2e);
+
+  float m[GC], l[GC], acc[GC][E];
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int n = min(Geo::kTile, hi - lo - t * Geo::kTile);   // rows in this tile
+    mbar_wait(&full[t % kStages], (t / kStages) & 1);
+    const unsigned char* ks = ring + (t % kStages) * 2 * kTileBytes;
+    const unsigned char* vs = ks + kTileBytes;
+    // warp load i of this warp covers rows (i * kWarps + warp) * RPL + [0, RPL)
+#pragma unroll
+    for (int i = 0; i < Geo::kLoads; i += kSteps) {
+      if ((i * kWarps + warp) * RPL >= n) break;    // warp-uniform: later loads are further on
+      uint4 kx4[kSteps], vx4[kSteps];
+      bool in[kSteps];
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+        const int row = ((i + st) * kWarps + warp) * RPL + sub;
+        in[st] = row < n;   // rows past n hold an older tile (or nothing yet)
+        const size_t off = size_t(row) * Geo::kRowBytes + 16 * c;
+        kx4[st] = in[st] ? *reinterpret_cast<const uint4*>(ks + off) : make_uint4(0u, 0u, 0u, 0u);
+        vx4[st] = in[st] ? *reinterpret_cast<const uint4*>(vs + off) : make_uint4(0u, 0u, 0u, 0u);
+      }
+      float s[kSteps][GC];
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+        float kx[E];
+        unpack(kx4[st], kx);
+#pragma unroll
+        for (int g = 0; g < GC; ++g) {
+          float d = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) d = fmaf(qr[g][e], kx[e], d);
+#pragma unroll
+          for (int o = 1; o < R; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+          s[st][g] = in[st] ? d : kNegInf;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        float mx = s[0][g];
+#pragma unroll
+        for (int st = 1; st < kSteps; ++st) mx = fmaxf(mx, s[st][g]);
+#pragma unroll
+        for (int o = R; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m[g], mx);
+        const float alpha = exp2f(m[g] - m_new);
+        m[g] = m_new;
+        l[g] *= alpha;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+      }
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+        float vx[E];
+        unpack(vx4[st], vx);
+#pragma unroll
+        for (int g = 0; g < GC; ++g) {
+          const float p = in[st] ? exp2f(s[st][g] - m[g]) : 0.f;
+          l[g] += p;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vx[e], acc[g][e]);
+        }
+      }
+    }
+    if (t + kStages < n_tiles) {
+      __syncthreads();              // every warp is done with this stage
+      if (tid == 0) issue(t + kStages);
+    }
+  }
+
+  // fold the warp: lanes of one chunk (same c) hold partials over their rows
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+#pragma unroll
+    for (int o = R; o < 32; o <<= 1) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+    }
+    if (sub == 0) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) red_acc[warp][g][c * E + e] = acc[g][e];
+      if (c == 0) {
+        red_m[warp][g] = m[g];
+        red_l[warp][g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+
+  // fold the block's warps into the slice's partial; a warp without rows in
+  // the window has l = 0 and is skipped
+  for (int i = tid; i < GC * DH; i += kThreads) {
+    const int g = i / DH, d = i - g * DH;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      if (red_l[w][g] > 0.f) mx = fmaxf(mx, red_m[w][g]);
+    float a = 0.f, sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      if (red_l[w][g] > 0.f) {
+        const float wt = exp2f(red_m[w][g] - mx);
+        a = fmaf(wt, red_acc[w][g][d], a);
+        sum = fmaf(wt, red_l[w][g], sum);
+      }
+    }
+    part_acc[part * DH + i] = a;
+    if (d == 0) {
+      part_ml[(part + g) * 2] = mx;
+      part_ml[(part + g) * 2 + 1] = sum;
+    }
+  }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, int GC>
 int launch(const void* q, const void* k, const void* v, const void* kn, const void* vn,
-           const int* start, const int* pos, void* out, int B, int H, int Hk, int S,
-           int n_sm, float scale, cudaStream_t stream) {
+           const int* start, const int* pos, void* out, float* scratch, int B, int H, int Hk,
+           int S, float scale, cudaStream_t stream) {
   const int G = H / Hk;
-  if (2 * G * DH > kThreads * kMaxOut) return cudaErrorInvalidValue;
-  auto kernel = pipelined_kernel<T, DH>;
-  const size_t bytes = Ring<T, DH>::kBytes + scratch_floats(G, DH) * sizeof(float);
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+  const int n_chunk = G / GC;
+  const int n_slice = (S + kSlice - 1) / kSlice;
+  float* part_acc = scratch;
+  float* part_ml = scratch + size_t(B) * Hk * n_slice * G * DH;
+  auto kernel = pipelined_slice_kernel<T, DH, GC>;
+  constexpr int bytes = Geometry<T, DH>::kRingBytes;
+  constexpr int static_bytes = kStages * 8 + kWarps * GC * (DH + 2) * 4;   // barriers, fold
+  if (bytes + static_bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
   }
-  const int grid = B * Hk < n_sm ? B * Hk : n_sm;  // persistent: at most one block per SM
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(kn), static_cast<const T*>(vn), start, pos, static_cast<T*>(out),
-      B, H, Hk, S, scale);
-  return cudaGetLastError();
+  if (n_slice > 0) {   // S = 0 leaves the self-term alone
+    kernel<<<dim3(n_slice, Hk * n_chunk, B), kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), start,
+        pos, part_acc, part_ml, H, Hk, S, n_slice, n_chunk, scale);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return launch_combine<T, DH>(q, kn, vn, part_acc, part_ml, out, B, H, Hk, n_slice, scale,
+                               stream);
+}
+
+// query heads per block: the largest of 4, 2, 1 that divides G
+template <typename T, int DH>
+int dispatch_gc(const void* q, const void* k, const void* v, const void* kn, const void* vn,
+                const int* start, const int* pos, void* out, float* scratch, int B, int H,
+                int Hk, int S, float scale, cudaStream_t stream) {
+  const int G = H / Hk;
+  if (G % 4 == 0) return launch<T, DH, 4>(q, k, v, kn, vn, start, pos, out, scratch, B, H, Hk, S, scale, stream);
+  if (G % 2 == 0) return launch<T, DH, 2>(q, k, v, kn, vn, start, pos, out, scratch, B, H, Hk, S, scale, stream);
+  return launch<T, DH, 1>(q, k, v, kn, vn, start, pos, out, scratch, B, H, Hk, S, scale, stream);
 }
 
 template <typename T>
 int dispatch_dh(int Dh, const void* q, const void* k, const void* v, const void* kn,
-                const void* vn, const int* start, const int* pos, void* out, int B, int H,
-                int Hk, int S, int n_sm, float scale, cudaStream_t stream) {
+                const void* vn, const int* start, const int* pos, void* out, float* scratch,
+                int B, int H, int Hk, int S, float scale, cudaStream_t stream) {
   switch (Dh) {
-    case 32: return launch<T, 32>(q, k, v, kn, vn, start, pos, out, B, H, Hk, S, n_sm, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, kn, vn, start, pos, out, B, H, Hk, S, n_sm, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, kn, vn, start, pos, out, B, H, Hk, S, n_sm, scale, stream);
+    case 32: return dispatch_gc<T, 32>(q, k, v, kn, vn, start, pos, out, scratch, B, H, Hk, S, scale, stream);
+    case 64: return dispatch_gc<T, 64>(q, k, v, kn, vn, start, pos, out, scratch, B, H, Hk, S, scale, stream);
+    case 128: return dispatch_gc<T, 128>(q, k, v, kn, vn, start, pos, out, scratch, B, H, Hk, S, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// Cache rows per slice: the wrapper sizes the scratch as
+// B * Hk * ceil(S / rows) * G * (Dh + 2) floats.
+extern "C" int decode_attention_pipelined_slice_rows() { return kSlice; }
+
+// Stages of the ring.
+extern "C" int decode_attention_pipelined_stages() { return kStages; }
+
+// Cache rows per ring stage at head dim Dh and dtype code `dtype`.
+extern "C" int decode_attention_pipelined_tile_rows(int Dh, int dtype) {
+  const int elem = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  return elem > 0 && Dh > 0 ? kTileBytes / (Dh * elem) : 0;
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16 (q, cache, k_new, v_new and out alike)
 extern "C" int decode_attention_pipelined_launch(const void* q, const void* k, const void* v,
                                                  const void* k_new, const void* v_new,
                                                  const void* start, const void* pos, void* out,
-                                                 int B, int H, int Hk, int S, int Dh, int dtype,
-                                                 int n_sm, float scale, void* stream) {
-  if (B <= 0 || Hk <= 0 || H % Hk != 0 || n_sm <= 0) return cudaErrorInvalidValue;
+                                                 void* scratch, int B, int H, int Hk, int S,
+                                                 int Dh, int dtype, float scale, void* stream) {
+  if (B <= 0 || Hk <= 0 || S < 0 || H % Hk != 0 || H / Hk > kMaxGroup)
+    return cudaErrorInvalidValue;
   const int* st = static_cast<const int*>(start);
   const int* ps = static_cast<const int*>(pos);
+  float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_dh<float>(Dh, q, k, v, k_new, v_new, st, ps, out, B, H, Hk, S, n_sm, scale, s);
+    return dispatch_dh<float>(Dh, q, k, v, k_new, v_new, st, ps, out, sc, B, H, Hk, S, scale, s);
   if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(Dh, q, k, v, k_new, v_new, st, ps, out, B, H, Hk, S, n_sm, scale, s);
+    return dispatch_dh<__nv_bfloat16>(Dh, q, k, v, k_new, v_new, st, ps, out, sc, B, H, Hk, S, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -47,8 +47,14 @@ _SIGNATURES = {
     "decode_attention_slice_rows": [],
     # q, k, v, valid, out, B, H, T, Dh, dtype, scale, stream
     "flash_mha_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
-    # q, k, v, k_new, v_new, start, pos, out, B, H, Hk, S, Dh, dtype, n_sm, scale, stream
-    "decode_attention_pipelined_launch": [_P] * 8 + [_I] * 7 + [_F, _P],
+    # q, k, v, k_new, v_new, start, pos, out, scratch, B, H, Hk, S, Dh, dtype, scale, stream
+    "decode_attention_pipelined_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
+    # () → cache rows per slice of decode_attention_pipelined_launch
+    "decode_attention_pipelined_slice_rows": [],
+    # () → ring stages of decode_attention_pipelined_launch
+    "decode_attention_pipelined_stages": [],
+    # Dh, dtype → cache rows per ring stage
+    "decode_attention_pipelined_tile_rows": [_I, _I],
 }
 
 # dtype codes shared with csrc/*.cu

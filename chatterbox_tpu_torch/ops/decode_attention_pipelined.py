@@ -7,23 +7,30 @@ h // G), softmax over the cached keys in ``[start[b], pos[b])`` plus the
 current token's k/v as a self-term, on a bf16 or f32 cache (no int8 scales).
 Its plain version is K1's ``decode_attention_plain`` without scales.
 
-What the TPU design was for: one program walked the batch rows and kept
-``n_buf - 1`` rows' cache copies in flight, because one copy per row
-serialised on issue latency. On Hopper (``csrc/decode_attention_pipelined.cu``)
-a persistent grid of at most one block per SM walks the (lane, kv head) items,
-and each item's ``[start, pos)`` rows of K and V stream through a
-shared-memory ring filled with ``cp.async``, so the next tiles, including
-the next item's first ones, are in flight while the current tile computes.
+What the TPU design was for: a copy engine that runs ahead of the math.
+One program walked the batch rows and kept ``n_buf - 1`` rows' cache copies
+in flight in a VMEM ring. On Hopper (``csrc/decode_attention_pipelined.cu``)
+the Tensor Memory Accelerator plays that part inside K1's split-S grid: one
+block per (slice of ``slice_rows()`` cache rows, kv head, lane) reads only
+its slice's part of ``[start, pos)``. That part of K (and of V) is one
+contiguous run of bytes, so one thread streams it through a ring of
+shared-memory stages of ``tile_rows(Dh, dtype)`` rows with one 1-D bulk copy
+for K and one for V per stage, each stage completing on an mbarrier. Every
+block writes a partial (max, sum, accumulator) into float32 scratch that the
+wrapper allocates, and K1's combine kernel folds the partials and the
+self-term. Nothing is read back to the host.
 
 No serving path calls it (the JAX package's decode calls K1); ``chip_smoke.py``
-holds it against its plain version at the batched decoder's shapes and on a
-live decoder cache. On a CPU tensor the wrapper runs the plain version; on a
-CUDA tensor it launches the kernel or raises. ``launches`` counts kernel
-launches.
+holds it against its plain version at the batched decoder's shapes, on windows
+at and across its slice and tile edges, at the other head shapes and on a live
+decoder cache. On a CPU tensor the wrapper runs the plain version; on a CUDA
+tensor it launches the kernel or raises. ``launches`` counts wrapper calls
+that launched the kernel (one per call, whatever the CUDA launches inside).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -71,10 +78,28 @@ def _check_cuda_args(q, k_cache, v_cache, k_new, v_new, start, pos):
     for name, t in (("start", start), ("pos", pos)):
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32")
-    # cp.async moves 16-byte chunks: the cache rows must start on 16 bytes
+    # a bulk copy starts and ends on 16 bytes: so must the cache
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
+
+
+@functools.cache
+def slice_rows() -> int:
+    """Cache rows per block of the CUDA kernel (builds the library)."""
+    return _build.library().decode_attention_pipelined_slice_rows()
+
+
+@functools.cache
+def stages() -> int:
+    """Stages of the CUDA kernel's copy ring."""
+    return _build.library().decode_attention_pipelined_stages()
+
+
+@functools.cache
+def tile_rows(dh: int, dtype: torch.dtype) -> int:
+    """Cache rows per ring stage of the CUDA kernel at head dim ``dh``."""
+    return _build.library().decode_attention_pipelined_tile_rows(dh, _DTYPE_CODE[dtype])
 
 
 def decode_attention_pipelined(
@@ -100,13 +125,15 @@ def decode_attention_pipelined(
     _, Hk, S, _ = k_cache.shape
     out = torch.empty_like(q)
     lib = _build.library()
+    n_slice = -(-S // slice_rows())
+    scratch = torch.empty(B * Hk * n_slice * (H // Hk) * (Dh + 2), dtype=torch.float32,
+                          device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
         err = lib.decode_attention_pipelined_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
             v_new.data_ptr(), start.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            B, H, Hk, S, Dh, _DTYPE_CODE[q.dtype], n_sm,
+            scratch.data_ptr(), B, H, Hk, S, Dh, _DTYPE_CODE[q.dtype],
             ctypes.c_float(1.0 / Dh ** 0.5), ctypes.c_void_p(stream),
         )
     _build.check(err, "decode_attention_pipelined")

@@ -9,14 +9,17 @@ the script exits non-zero without printing the final line:
 1. the machine: GPU name and power limit (nvidia-smi), torch/CUDA versions,
    TF32 switched off for matmuls and cuDNN (float32 means float32 here);
 2. build: one nvcc per chatterbox_tpu_torch/csrc/*.cu, all started together,
-   for sm_90a, then one link;
+   for sm_90a, then one link; ptxas's report, and K3's registers and spills
+   per compiled instance;
 3. kernels against their plain PyTorch versions (max-abs error against a
    stated tolerance): K1 and K2 at two lanes, K1 (every body, at 2 and at
    32 lanes) on windows that start and end at, one row before and one row
-   past its slice length and twice it, the bodies no serving path runs (K2
-   at dh = 32 and 128; K1 at Dh = 32 and 128, G = 2 and 4), then K1 (int8
-   and bf16 bodies), K2 and K3 at the batched path's shapes (32 lanes; 16
-   CFG pairs). Each gets its device time (CUDA events around calls queued
+   past its slice length and twice it, K3 (bf16 and f32, at 2 and at 32
+   lanes) on such windows for its own slice length and on windows at and
+   across its ring's tile edges, the bodies no serving path runs (K2 at
+   dh = 32 and 128; K1 and K3 at Dh = 32 and 128, G = 2 and 4; K3 also at
+   G = 8 and 3), then K1 (int8 and bf16 bodies), K2 and K3 at the batched
+   path's shapes (32 lanes; 16 CFG pairs). Each gets its device time (CUDA events around calls queued
    behind a spin kernel), its time per call with the host's dispatch (CUDA
    events around one call on an idle GPU), its plain version's device time,
    one PyTorch library call's device time on the same inputs
@@ -50,6 +53,7 @@ import asyncio
 import gc
 import json
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -192,14 +196,16 @@ def bound(bytes_moved: float, ops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: float,
+            show: bool = True) -> float:
     torch.cuda.synchronize()
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite output")
     err = (got.float() - want.float()).abs().max().item()
-    print(f"  {name}: max_abs_err {err:.3e} (tol {tol:.1e})", flush=True)
+    if show:
+        print(f"  {name}: max_abs_err {err:.3e} (tol {tol:.1e})", flush=True)
     if not err <= tol:
         raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
     return err
@@ -231,9 +237,18 @@ def decode_inputs(g, B: int, H: int, Hk: int, S: int, Dh: int, q_dtype, cache: s
 
 def slice_edge_windows(L: int) -> list[tuple[int, int]]:
     """(start, pos) pairs that start and end at, one row before and one row
-    past K1's slice length L and twice it (starts also at 0)."""
+    past a kernel's slice length L and twice it (starts also at 0)."""
     edges = [L - 1, L, L + 1, 2 * L - 1, 2 * L, 2 * L + 1]
     return [(s, p) for s in [0, *edges] for p in edges if s <= p]
+
+
+def tile_edge_windows(L: int, T: int, stages: int) -> list[tuple[int, int]]:
+    """(start, pos) pairs whose part of a slice of L rows is one row, or at,
+    one row before and one row past 1, 2 and ``stages`` tiles of T rows and
+    one tile more (the ring's wrap); they start at 0, at 5 and 3 rows before
+    the slice edge."""
+    lens = sorted({1, *(n * T + d for n in (1, 2, stages, stages + 1) for d in (-1, 0, 1))})
+    return [(s, s + n) for s in (0, 5, L - 3) for n in lens]
 
 
 def check_decode_attention(results: dict) -> None:
@@ -385,9 +400,51 @@ def check_decode_slice_edges(k1: dict) -> None:
         k1[f"slice_edges_B{LANES}_{cache}"] = {"max_abs_err": err, "tol": TOL[q_dtype]}
 
 
-def check_other_shapes(k1: dict, k2: dict) -> None:
+def check_pipelined_edges(k3: dict) -> None:
+    """K3, bf16 and f32, on windows at and across its slice edges and its
+    ring's tile edges: two windows per call at 2 lanes, then all of them at
+    32 lanes."""
+    from chatterbox_tpu_torch.ops import decode_attention as da
+    from chatterbox_tpu_torch.ops import decode_attention_pipelined as dap
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    H = Hk = 16
+    S, Dh = 1300, 64
+    L = dap.slice_rows()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        T = dap.tile_rows(Dh, dtype)
+        wins = slice_edge_windows(L) + tile_edge_windows(L, T, dap.stages())
+        pairs = list(zip(wins[::2], wins[1::2] + wins[:1]))
+        lanes32 = [[wins[(i + j) % len(wins)] for j in range(LANES)]
+                   for i in range(0, len(wins), LANES)]
+        worst = {2: 0.0, LANES: 0.0}
+        for lane_wins in [list(p) for p in pairs] + lanes32:
+            B = len(lane_wins)
+            tensors, _ = decode_inputs(g, B, H, Hk, S, Dh, dtype, name)
+            start = torch.tensor([w[0] for w in lane_wins], dtype=torch.int32, device=dev)
+            pos = torch.tensor([w[1] for w in lane_wins], dtype=torch.int32, device=dev)
+            args = (*tensors, start, pos)
+            worst[B] = max(worst[B], compare(
+                f"decode_attention_pipelined[{name}] B={B} windows {lane_wins[:2]}…",
+                dap.decode_attention_pipelined(*args), da.decode_attention_plain(*args),
+                TOL[dtype], show=False))
+        print(f"  decode_attention_pipelined[{name}]: slice {L} rows, tile {T} rows, "
+              f"{dap.stages()} stages; {len(wins)} slice- and tile-edge windows in "
+              f"{len(pairs)} calls at 2 lanes (max_abs_err {worst[2]:.3e}) and "
+              f"{len(lanes32)} at {LANES} (max_abs_err {worst[LANES]:.3e}); tol "
+              f"{TOL[dtype]:.1e}", flush=True)
+        k3[f"edges_{name}"] = {"windows": len(wins), "slice_rows": L, "tile_rows": T,
+                               "max_abs_err_B2": worst[2], f"max_abs_err_B{LANES}": worst[LANES],
+                               "tol": TOL[dtype]}
+
+
+def check_other_shapes(k1: dict, k2: dict, k3: dict) -> None:
     """The compiled bodies no serving path runs, at 2 lanes: K2 at dh = 32
-    and 128, K1 at Dh = 32 and 128 and at G = 2 and 4."""
+    and 128, K1 at Dh = 32 and 128 and at G = 2 and 4, K3 at the same and
+    at G = 8 and 3 (query heads split across blocks)."""
+    from chatterbox_tpu_torch.ops import decode_attention_pipelined as dap
     from chatterbox_tpu_torch.ops import decode_attention as da
     from chatterbox_tpu_torch.ops import flash_mha as fm
 
@@ -417,6 +474,18 @@ def check_other_shapes(k1: dict, k2: dict) -> None:
                                        da.decode_attention(*args),
                                        da.decode_attention_plain(*args), TOL[q_dtype]))
         k1[f"other_shapes_{cache}"] = {"max_abs_err": worst, "tol": TOL[q_dtype]}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        worst = 0.0
+        for H, Hk, Dh in ((8, 8, 32), (8, 8, 128), (8, 4, 64), (8, 2, 64), (8, 1, 64),
+                          (12, 4, 32)):
+            tensors, _ = decode_inputs(g, 2, H, Hk, 600, Dh, dtype, name)
+            args = (*tensors, start, pos)
+            worst = max(worst, compare(
+                f"decode_attention_pipelined[{name}] H={H} Hk={Hk} Dh={Dh} B=2",
+                dap.decode_attention_pipelined(*args), da.decode_attention_plain(*args),
+                TOL[dtype]))
+        k3[f"other_shapes_{name}"] = {"max_abs_err": worst, "tol": TOL[dtype]}
 
 
 def check_batched_decode(k1: dict, k3: dict) -> None:
@@ -468,6 +537,25 @@ def check_batched_decode(k1: dict, k3: dict) -> None:
                 f"decode_attention[int8] B={LANES}", lambda: da.decode_attention(*qargs),
                 lambda: da.decode_attention_plain(*qargs), decode_library_fn(*lib_args),
                 bms8, bby8, err8, TOL[dtype])}
+
+
+def ptxas_report(log: str, kernel: str) -> list[dict]:
+    """Registers and spill bytes ptxas reported (``-Xptxas -v``) for each
+    compiled instance of the kernel template named ``kernel``."""
+    types = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+    found, name, spills = [], "", (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and kernel in name:
+            t = re.search(kernel + r"I(\w+?)Li(\d+)ELi(\d+)E", name)
+            what = (f"{kernel}<{types.get(t.group(1), t.group(1))}, Dh {t.group(2)}, "
+                    f"heads {t.group(3)}>" if t else name)
+            found.append({"function": what, "registers": int(m.group(1)),
+                          "spill_stores": spills[0], "spill_loads": spills[1]})
+    return found
 
 
 def write_conds(path: Path, seed: int = 7) -> None:
@@ -766,6 +854,10 @@ def main() -> int:
     print(f"  built in {info['seconds']:.2f} s (cached: {info['cached']})", flush=True)
     if info.get("log"):
         print("  " + info["log"].strip().replace("\n", "\n  "), flush=True)
+    k3_ptxas = ptxas_report(info.get("log", ""), "pipelined_slice_kernel")
+    for r in k3_ptxas:
+        print(f"  K3 {r['function']}: {r['registers']} registers, spill stores "
+              f"{r['spill_stores']} B, spill loads {r['spill_loads']} B", flush=True)
     done(t0, walls, "build")
 
     t0 = phase("3. kernels against their plain versions")
@@ -773,8 +865,9 @@ def main() -> int:
     reset_launches()
     check_decode_attention(k1)
     check_decode_slice_edges(k1)
+    check_pipelined_edges(k3)
     check_flash_mha(k2)
-    check_other_shapes(k1, k2)
+    check_other_shapes(k1, k2, k3)
     check_batched_decode(k1, k3)
     k3_launches = read_launches()["decode_attention_pipelined"]["native"]
     done(t0, walls, "kernels")
@@ -824,7 +917,11 @@ def main() -> int:
         dict(name="decode_attention_pipelined", route="cuda",
              **KERNELS["decode_attention_pipelined"], launches=k3_launches, body="bfloat16",
              launches_from="phases 3 and 6 (no serving path calls it)", **k3_main,
-             other_bodies={"float32": k3["float32"]}),
+             slice_rows=k3["edges_bfloat16"]["slice_rows"],
+             other_bodies={"float32": k3["float32"], "edge_checks": {
+                 c: k3[f"edges_{c}"] for c in ("bfloat16", "float32")},
+                 "other_shapes": {c: k3[f"other_shapes_{c}"] for c in ("bfloat16", "float32")},
+                 "ptxas": k3_ptxas}),
     ]}
     print(f"  serving: {json.dumps(serving)}", flush=True)
     print(gpu_line(), flush=True)

@@ -299,3 +299,141 @@ def test_split_s_decomposition_matches_plain_and_pallas(case, quantized, heads):
     if case == "empty_window":
         G = heads[0] // heads[1]
         np.testing.assert_allclose(to_np(got), np.repeat(vn, G, axis=1), atol=1e-6)
+
+
+# --- K3's split-S decomposition fed through a copy ring -----------------------
+# (csrc/decode_attention_pipelined.cu), emulated
+
+K3_SLICE_ROWS = 256   # cache rows per block (kSlice)
+K3_TILE_BYTES = 8192  # bytes of K (and of V) per ring stage (kTileBytes)
+K3_STAGES = 2         # ring stages (kStages)
+K3_WARPS, K3_STEPS = 4, 2   # warps per block; warp loads per softmax update
+
+
+def _k3_geometry(elem_bytes, Dh):
+    """(tile rows, rows per warp load) of the kernel's ring for a cache of
+    ``elem_bytes``-byte values: a warp load is 32 lanes x 16 bytes."""
+    row_bytes = Dh * elem_bytes
+    return K3_TILE_BYTES // row_bytes, 512 // row_bytes
+
+
+def _k3_emulation(q, k, v, kn, vn, start, pos, elem_bytes):
+    """Plain-torch emulation of the kernel: each block (slice, lane) copies
+    its part [lo, hi) of the window from lo on, a tile at a time, into a ring
+    of stages that start as NaN and keep an older tile's rows past the new
+    tile's end; each warp reads only the rows below the tile's row count
+    (zeros elsewhere, as the kernel's guarded reads), updates its online
+    softmax once per K3_STEPS warp loads, the warps' partials fold into the
+    slice's, and the combine folds the slices with the self-term."""
+    B, H, Dh = q.shape
+    Hk, S = k.shape[1], k.shape[2]
+    G = H // Hk
+    scale = 1.0 / Dh ** 0.5
+    tile, rpl = _k3_geometry(elem_bytes, Dh)
+    loads = tile // rpl // K3_WARPS
+    out = torch.empty(B, Hk, G, Dh)
+    for b in range(B):
+        qg = q[b].reshape(Hk, G, Dh) * scale
+        slices = []
+        for s0 in range(0, S, K3_SLICE_ROWS):
+            lo = max(int(start[b]), 0, s0)
+            hi = min(int(pos[b]), S, s0 + K3_SLICE_ROWS)
+            state = [[torch.full((Hk, G), -1e9), torch.zeros(Hk, G), torch.zeros(Hk, G, Dh)]
+                     for _ in range(K3_WARPS)]
+            ring_k = torch.full((K3_STAGES, Hk, tile, Dh), float("nan"))
+            ring_v = torch.full((K3_STAGES, Hk, tile, Dh), float("nan"))
+            for t in range(max(0, -(-(hi - lo) // tile))):
+                row0 = lo + t * tile
+                n = min(tile, hi - row0)
+                st = t % K3_STAGES
+                ring_k[st, :, :n] = k[b][:, row0:row0 + n]
+                ring_v[st, :, :n] = v[b][:, row0:row0 + n]
+                for w, ws in enumerate(state):
+                    for i in range(0, loads, K3_STEPS):
+                        rows = torch.tensor([((i + j) * K3_WARPS + w) * rpl + sub
+                                             for j in range(K3_STEPS) for sub in range(rpl)])
+                        if int(rows[0]) >= n:
+                            break
+                        live = rows < n
+                        kx = torch.where(live[None, :, None], ring_k[st][:, rows], 0.0)
+                        vx = torch.where(live[None, :, None], ring_v[st][:, rows], 0.0)
+                        s = torch.where(live, torch.einsum("hgd,hnd->hgn", qg, kx), -1e9)
+                        m_new = torch.maximum(ws[0], s.amax(-1))
+                        alpha = torch.exp(ws[0] - m_new)
+                        p = torch.where(live, torch.exp(s - m_new[..., None]), 0.0)
+                        ws[0] = m_new
+                        ws[1] = ws[1] * alpha + p.sum(-1)
+                        ws[2] = ws[2] * alpha[..., None] + torch.einsum("hgn,hnd->hgd", p, vx)
+            slices.append(_fold([tuple(ws) for ws in state]))
+        m, l, acc = _fold(slices) if slices else (torch.full((Hk, G), -1e9),
+                                                  torch.zeros(Hk, G), torch.zeros(Hk, G, Dh))
+        s_self = torch.einsum("hgd,hd->hg", qg, kn[b])
+        M = torch.where(l > 0, torch.maximum(m, s_self), s_self)
+        w, ps = torch.where(l > 0, torch.exp(m - M), 0.0), torch.exp(s_self - M)
+        out[b] = ((w[..., None] * acc + ps[..., None] * vn[b][:, None, :])
+                  / (w * l + ps)[..., None])
+    return out.reshape(B, H, Dh)
+
+
+def _k3_cases():
+    """(starts, ends) per lane; S = 768 gives three slices of 256 rows. Tile
+    rows: 32 (f32 geometry) and 64 (bf16 geometry) at Dh = 64."""
+    L = K3_SLICE_ROWS
+    return {
+        "slice_length": [(0, L - 1), (0, L), (0, L + 1), (L - 1, 2 * L), (L, 2 * L + 1),
+                         (L + 1, 2 * L - 1)],
+        "twice_slice_length": [(0, 2 * L - 1), (0, 2 * L), (0, 2 * L + 1), (1, 2 * L + 1),
+                               (L - 1, 3 * L)],
+        "tile_edges": [(0, 31), (0, 32), (0, 33), (5, 5 + 63), (5, 5 + 64), (5, 5 + 65),
+                       (9, 9 + 3 * 64 + 1), (L - 40, L + 90)],
+        "shorter_than_a_tile": [(3, 30), (L - 2, L + 3), (100, 101), (2 * L + 7, 2 * L + 20)],
+        "empty_window": [(7, 7), (0, 0), (L, L), (2 * L + 1, 2 * L + 1)],
+    }
+
+
+_K3_CASES = _k3_cases()
+
+
+@pytest.fixture(scope="module")
+def k3_pallas_reference():
+    """JAX's pipelined Pallas kernel (interpret mode) per (heads, case), run
+    once for both geometries."""
+    cache = {}
+
+    def get(heads, case, inputs):
+        if (heads, case) not in cache:
+            q, kc, vc, kn, vn, start, pos = inputs
+            cache[heads, case] = np.asarray(paired_decode_attention_pipelined(
+                jnp.asarray(q), pack_cache_paired(jnp.asarray(kc)),
+                pack_cache_paired(jnp.asarray(vc)), jnp.asarray(kn), jnp.asarray(vn),
+                jnp.asarray(start), jnp.asarray(pos), n_buf=3, interpret=True))
+        return cache[heads, case]
+
+    return get
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2])   # the kernel's f32 and bf16 geometries
+@pytest.mark.parametrize("case", sorted(_K3_CASES))
+@pytest.mark.parametrize("heads", [(4, 4), (8, 2)])  # (H, Hk): MHA and GQA (G = 4)
+def test_k3_decomposition_matches_plain_and_pallas(heads, case, elem_bytes,
+                                                   k3_pallas_reference):
+    """K3's slices, ring tiles, per-warp partials and combine give what the
+    plain version and the pipelined Pallas kernel give, with garbage before
+    every start and past every pos."""
+    starts, ends = map(list, zip(*_K3_CASES[case]))
+    B = len(starts)
+    q, kc, vc, kn, vn, _, _ = _inputs(31, heads, B=B, S=768)
+    start, pos = np.array(starts, np.int32), np.array(ends, np.int32)
+    for b in range(B):
+        kc[b, :starts[b]], vc[b, :starts[b]] = 1e4, -1e4
+        kc[b, ends[b]:], vc[b, ends[b]:] = -1e4, 1e4
+    head_major = lambda a: to_t(np.ascontiguousarray(np.moveaxis(a, 1, 2)))  # noqa: E731
+    args = (to_t(q), head_major(kc), head_major(vc), to_t(kn), to_t(vn), to_t(start), to_t(pos))
+    got = _k3_emulation(*args, elem_bytes=elem_bytes)
+    np.testing.assert_allclose(to_np(got), to_np(dap.decode_attention_pipelined(*args)),
+                               atol=TOL, rtol=TOL)
+    want = k3_pallas_reference(heads, case, (q, kc, vc, kn, vn, start, pos))
+    np.testing.assert_allclose(to_np(got), want, atol=TOL, rtol=TOL)
+    if case == "empty_window":
+        np.testing.assert_allclose(to_np(got), np.repeat(vn, heads[0] // heads[1], axis=1),
+                                   atol=1e-6)
