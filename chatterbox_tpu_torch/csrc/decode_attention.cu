@@ -55,28 +55,6 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSteps = 2;          // row loads per warp per tile (K and V each)
 
-// the 16 / sizeof(CT) cache values of one 16-byte chunk, as f32
-__device__ __forceinline__ void unpack(const uint4& u, float (&x)[4]) {
-  x[0] = __uint_as_float(u.x);
-  x[1] = __uint_as_float(u.y);
-  x[2] = __uint_as_float(u.z);
-  x[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void unpack(const uint4& u, float (&x)[16]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    x[i] = static_cast<float>(static_cast<int8_t>((w[i >> 2] >> (8 * (i & 3))) & 0xffu));
-}
-
 template <typename CT>
 struct Tile {   // one lane's share of a tile: kSteps rows of K and V (+ int8 scales)
   uint4 k[kSteps], v[kSteps];
@@ -98,7 +76,6 @@ decode_slice_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
   constexpr int RPL = 32 / R;              // rows per warp load
   constexpr int kTileRows = kWarps * kSteps * RPL;
   static_assert(R >= 1 && R <= 32 && kSlice % kTileRows == 0, "unsupported head dim");
-  __shared__ float red_m[kWarps][G], red_l[kWarps][G], red_acc[kWarps][G][DH];
 
   const int sl = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -111,11 +88,7 @@ decode_slice_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
   const size_t part = (head * n_slice + sl) * G;   // partial of query head g: part + g
 
   if (lo >= hi) {
-    for (int i = threadIdx.x; i < G * DH; i += kThreads) part_acc[part * DH + i] = 0.f;
-    if (threadIdx.x < G) {
-      part_ml[(part + threadIdx.x) * 2] = kNegInf;
-      part_ml[(part + threadIdx.x) * 2 + 1] = 0.f;
-    }
+    store_empty_partial<G, DH, kThreads>(part_acc, part_ml, part);
     return;
   }
 
@@ -220,49 +193,7 @@ decode_slice_kernel(const QT* __restrict__ q, const CT* __restrict__ kc,
     if (++ti >= t_end) break;
   }
 
-  // fold the warp: lanes of one chunk (same c) hold partials over their rows
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int o = R; o < 32; o <<= 1) {
-      l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
-    }
-    if (sub == 0) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) red_acc[warp][g][c * E + e] = acc[g][e];
-      if (c == 0) {
-        red_m[warp][g] = m[g];
-        red_l[warp][g] = l[g];
-      }
-    }
-  }
-  __syncthreads();
-
-  // fold the block's warps into the slice's partial; a warp without rows in
-  // the window has l = 0 and is skipped
-  for (int i = threadIdx.x; i < G * DH; i += kThreads) {
-    const int g = i / DH, d = i - g * DH;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      if (red_l[w][g] > 0.f) mx = fmaxf(mx, red_m[w][g]);
-    float a = 0.f, sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (red_l[w][g] > 0.f) {
-        const float wt = exp2f(red_m[w][g] - mx);
-        a = fmaf(wt, red_acc[w][g][d], a);
-        sum = fmaf(wt, red_l[w][g], sum);
-      }
-    }
-    part_acc[part * DH + i] = a;
-    if (d == 0) {
-      part_ml[(part + g) * 2] = mx;
-      part_ml[(part + g) * 2 + 1] = sum;
-    }
-  }
+  store_partial<G, DH, E, R, kWarps>(m, l, acc, part_acc, part_ml, part);
 }
 
 template <typename QT, typename CT, int DH, int G>
@@ -278,8 +209,8 @@ int launch(const void* q, const void* k, const void* v, const void* kn, const vo
       start, pos, part_acc, part_ml, H, Hk, S, n_slice, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_combine<QT, DH>(q, kn, vn, part_acc, part_ml, out, B, H, Hk, n_slice, scale,
-                                stream);
+  return launch_combine<QT, DH, G>(q, kn, vn, part_acc, part_ml, out, B, H, Hk, n_slice, scale,
+                                   stream);
 }
 
 template <typename QT, typename CT, int DH>

@@ -20,10 +20,10 @@
 // Hopper's counterpart, so this kernel keeps that shape inside K1's split-S
 // grid:
 //   - the grid is (slice, kv head x head chunk, lane), a slice being kSlice
-//     cache rows (ceil(S / kSlice) slices, from S alone: nothing is read on
-//     the host). A block reads only its slice's part [lo, hi) of
-//     [start, pos); a block whose part is empty writes an empty partial
-//     (l = 0) and exits;
+//     = 512 cache rows (ceil(S / kSlice) slices, from S alone: nothing is
+//     read on the host; 1,536 blocks at S = 1280). A block reads only its
+//     slice's part [lo, hi) of [start, pos); a block whose part is empty
+//     writes an empty partial (l = 0) and exits;
 //   - [lo, hi) of K in [B, Hk, S, Dh] is one contiguous run of bytes, and so
 //     is its run of V. The block cuts them into tiles of kTileBytes of K
 //     (and as many of V) from lo on, and streams the tiles through a ring of
@@ -34,7 +34,11 @@
 //     on the stage's phase (mbarrier.try_wait.parity), computes the tile,
 //     and one __syncthreads() per refill frees the stage before the thread
 //     copies the tile kStages ahead into it. The rows are unpadded, as a bulk
-//     copy cannot pad them;
+//     copy cannot pad them. Of slices of 128, 256 and 512 rows, tiles of 8
+//     and 16 KB and 2, 3 and 4 stages (chip_k3_sweep.py), 512 / 8 KB / 2
+//     was the fastest or level with the fastest on an H100, at the batched
+//     decoder's windows and at windows of 111-202 rows; 256-row slices came
+//     within 1 %, and deeper rings and larger tiles gained nothing or lost;
 //   - the math is K1's: each lane reads 16-byte chunks of a row (a warp load
 //     is 512 contiguous bytes, conflict-free), a warp owns whole rows, scores
 //     are reduced with warp shuffles, and the online-softmax state and the
@@ -43,8 +47,8 @@
 //     block each, so the registers stay bounded; the chunks of a kv head
 //     read its rows from L2;
 //   - one barrier at the end folds the block's four warps into one partial
-//     (m, l, acc), and decode_combine.cuh's kernel folds the slices' partials
-//     and the self-term, as for K1.
+//     (m, l, acc), and the slices' partials and the self-term are folded by
+//     the combine kernel, both from decode_combine.cuh, as for K1.
 // K1 loads its rows straight into registers, one warp load ahead: its int8
 // rows are a quarter of the bytes, and a register double buffer keeps enough
 // in flight. Here whole tiles are in flight per block while the warps
@@ -65,7 +69,7 @@
 
 namespace {
 
-constexpr int kSlice = 256;        // cache rows per block
+constexpr int kSlice = 512;        // cache rows per block
 constexpr int kTileBytes = 8192;   // bytes of K (and of V) per ring stage
 constexpr int kStages = 2;         // ring stages per block
 constexpr int kThreads = 128;
@@ -114,22 +118,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// the 16 / sizeof(T) values of one 16-byte chunk, as f32
-__device__ __forceinline__ void unpack(const uint4& u, float (&x)[4]) {
-  x[0] = __uint_as_float(u.x);
-  x[1] = __uint_as_float(u.y);
-  x[2] = __uint_as_float(u.z);
-  x[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 template <typename T, int DH>
 struct Geometry {
   static constexpr int kRowBytes = DH * int(sizeof(T));
@@ -155,7 +143,6 @@ pipelined_slice_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   constexpr int E = Geo::kE, R = Geo::kR, RPL = Geo::kRowsPerLoad;
   extern __shared__ __align__(128) unsigned char ring[];   // [kStages][K tile | V tile]
   __shared__ __align__(8) uint64_t full[kStages];
-  __shared__ float red_m[kWarps][GC], red_l[kWarps][GC], red_acc[kWarps][GC][DH];
 
   const int sl = blockIdx.x, b = blockIdx.z;
   const int hk = blockIdx.y / n_chunk, chunk = blockIdx.y - hk * n_chunk;
@@ -171,11 +158,7 @@ pipelined_slice_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const size_t part = (head * n_slice + sl) * G + size_t(chunk) * GC;
 
   if (lo >= hi) {
-    for (int i = tid; i < GC * DH; i += kThreads) part_acc[part * DH + i] = 0.f;
-    if (tid < GC) {
-      part_ml[(part + tid) * 2] = kNegInf;
-      part_ml[(part + tid) * 2 + 1] = 0.f;
-    }
+    store_empty_partial<GC, DH, kThreads>(part_acc, part_ml, part);
     return;
   }
 
@@ -286,49 +269,7 @@ pipelined_slice_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     }
   }
 
-  // fold the warp: lanes of one chunk (same c) hold partials over their rows
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-#pragma unroll
-    for (int o = R; o < 32; o <<= 1) {
-      l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
-    }
-    if (sub == 0) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) red_acc[warp][g][c * E + e] = acc[g][e];
-      if (c == 0) {
-        red_m[warp][g] = m[g];
-        red_l[warp][g] = l[g];
-      }
-    }
-  }
-  __syncthreads();
-
-  // fold the block's warps into the slice's partial; a warp without rows in
-  // the window has l = 0 and is skipped
-  for (int i = tid; i < GC * DH; i += kThreads) {
-    const int g = i / DH, d = i - g * DH;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      if (red_l[w][g] > 0.f) mx = fmaxf(mx, red_m[w][g]);
-    float a = 0.f, sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (red_l[w][g] > 0.f) {
-        const float wt = exp2f(red_m[w][g] - mx);
-        a = fmaf(wt, red_acc[w][g][d], a);
-        sum = fmaf(wt, red_l[w][g], sum);
-      }
-    }
-    part_acc[part * DH + i] = a;
-    if (d == 0) {
-      part_ml[(part + g) * 2] = mx;
-      part_ml[(part + g) * 2 + 1] = sum;
-    }
-  }
+  store_partial<GC, DH, E, R, kWarps>(m, l, acc, part_acc, part_ml, part);
 }
 
 template <typename T, int DH, int GC>
@@ -354,8 +295,11 @@ int launch(const void* q, const void* k, const void* v, const void* kn, const vo
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  return launch_combine<T, DH>(q, kn, vn, part_acc, part_ml, out, B, H, Hk, n_slice, scale,
-                               stream);
+  if (n_chunk == 1)
+    return launch_combine<T, DH, GC>(q, kn, vn, part_acc, part_ml, out, B, H, Hk, n_slice, scale,
+                                     stream);
+  return launch_combine<T, DH, 0>(q, kn, vn, part_acc, part_ml, out, B, H, Hk, n_slice, scale,
+                                  stream);
 }
 
 // query heads per block: the largest of 4, 2, 1 that divides G

@@ -304,7 +304,7 @@ def test_split_s_decomposition_matches_plain_and_pallas(case, quantized, heads):
 # --- K3's split-S decomposition fed through a copy ring -----------------------
 # (csrc/decode_attention_pipelined.cu), emulated
 
-K3_SLICE_ROWS = 256   # cache rows per block (kSlice)
+K3_SLICE_ROWS = 512   # cache rows per block (kSlice)
 K3_TILE_BYTES = 8192  # bytes of K (and of V) per ring stage (kTileBytes)
 K3_STAGES = 2         # ring stages (kStages)
 K3_WARPS, K3_STEPS = 4, 2   # warps per block; warp loads per softmax update
@@ -376,7 +376,7 @@ def _k3_emulation(q, k, v, kn, vn, start, pos, elem_bytes):
 
 
 def _k3_cases():
-    """(starts, ends) per lane; S = 768 gives three slices of 256 rows. Tile
+    """(starts, ends) per lane over three slices of K3_SLICE_ROWS rows. Tile
     rows: 32 (f32 geometry) and 64 (bf16 geometry) at Dh = 64."""
     L = K3_SLICE_ROWS
     return {
@@ -422,7 +422,7 @@ def test_k3_decomposition_matches_plain_and_pallas(heads, case, elem_bytes,
     every start and past every pos."""
     starts, ends = map(list, zip(*_K3_CASES[case]))
     B = len(starts)
-    q, kc, vc, kn, vn, _, _ = _inputs(31, heads, B=B, S=768)
+    q, kc, vc, kn, vn, _, _ = _inputs(31, heads, B=B, S=3 * K3_SLICE_ROWS)
     start, pos = np.array(starts, np.int32), np.array(ends, np.int32)
     for b in range(B):
         kc[b, :starts[b]], vc[b, :starts[b]] = 1e4, -1e4
