@@ -36,9 +36,10 @@
 //     copies the tile kStages ahead into it. The rows are unpadded, as a bulk
 //     copy cannot pad them. Of slices of 128, 256 and 512 rows, tiles of 8
 //     and 16 KB and 2, 3 and 4 stages (chip_k3_sweep.py), 512 / 8 KB / 2
-//     was the fastest or level with the fastest on an H100, at the batched
-//     decoder's windows and at windows of 111-202 rows; 256-row slices came
-//     within 1 %, and deeper rings and larger tiles gained nothing or lost;
+//     came within 1 % of the fastest on an H100, in bf16 and f32, at the
+//     batched decoder's windows and at windows of 111-202 rows; 256-row
+//     slices did as well, and deeper rings and larger tiles gained nothing
+//     or lost;
 //   - the math is K1's: each lane reads 16-byte chunks of a row (a warp load
 //     is 512 contiguous bytes, conflict-free), a warp owns whole rows, scores
 //     are reduced with warp shuffles, and the online-softmax state and the
