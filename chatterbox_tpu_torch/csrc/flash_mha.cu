@@ -3,10 +3,12 @@
 //
 // Replaces chatterbox_tpu/ops/pallas_mha.py::flash_mha (kernel _mha_kernel),
 // which carries every transformer block of every CFM estimator evaluation on
-// the uncached S3Gen path. It computes what that kernel computes: softmax over
-// the valid keys of q·kᵀ·scale with float32 accumulation, a row whose keys are
-// all masked returning 0. Unlike the Pallas kernel it pads nothing outside:
-// the ragged T edge is masked inside the kernel.
+// the uncached S3Gen path and in the per-voice prompt prefill; in its context
+// form (below) it also carries every cached and streaming evaluation, which
+// the JAX package computes as a plain einsum. It computes softmax over the
+// valid keys of q·kᵀ·scale with float32 accumulation, a row whose keys are all
+// masked returning 0. Unlike the Pallas kernel it pads nothing outside: the
+// ragged Tq and Tk edges are masked inside the kernel.
 //
 // What bounds it on the H100: operations. At the serving shapes (T ≈ 600-2,500
 // frames, dh = 64) a (lane, head) does 4·T²·dh flops on 4·T·dh elements, far
@@ -26,7 +28,10 @@
 //     reads, not the tensor cores, are what one m-tile per warp ran into;
 //   - rows are padded by 16 bytes in shared memory, so ldmatrix is free of
 //     bank conflicts; the key mask is read once per block into a bit mask in
-//     shared memory, and exponentials are ex2.approx in the log2 domain.
+//     shared memory, and exponentials are ex2.approx in the log2 domain;
+//   - a key tile whose keys are all masked adds p = 0 exactly, so the block
+//     lists the tiles holding a valid key and loads and computes only those
+//     (a streaming call's empty ring, a batch's padded tail).
 //
 // Precision contract. The bfloat16 body multiplies bf16 inputs, rounds P to
 // bf16 for P·V, and accumulates in f32. The float32 body ("bf16x3") splits
@@ -39,9 +44,16 @@
 // float32 version, under the 2e-5 the contract allows
 // (tests/test_torch_flash_mha.py).
 //
-// Layouts: q/k/v/out [B, H, T, dh] contiguous; valid [B, T] bool (one byte).
-// Launches on the caller's stream, allocates nothing, does not synchronise;
-// returns cudaGetLastError().
+// Two forms share the kernel. The self form attends T queries over the same
+// T keys (the per-voice prompt prefill, the uncached path). The context form
+// attends Tq queries over Tk ≥ Tq keys: a cached or streaming estimator call
+// prepends the frozen [prompt | ring] keys and values to its own, so its Tq
+// new frames see Tk = prompt + ring + Tq keys with a key mask of their own.
+// The grid runs over Tq tiles, the key loop over Tk.
+//
+// Layouts: q/out [B, H, Tq, dh], k/v [B, H, Tk, dh], all contiguous; valid
+// [B, Tk] bool (one byte). Launches on the caller's stream, allocates
+// nothing, does not synchronise; returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -124,7 +136,7 @@ __host__ __device__ constexpr int stages() { return std::is_same<T, float>::valu
 // themselves, [stages][K, V][kBK][DH + kPad] bf16. float32 body: the ring
 // holds raw f32 tiles [stages][K, V][kBK][DH], split once per tile into
 // operand tiles [K hi, K lo, V hi, V lo][kBK][DH + kPad] bf16. The key mask
-// follows, one bit per key.
+// follows, one bit per key, then the list of live key tiles.
 template <typename T, int DH>
 __host__ __device__ constexpr size_t ring_bytes() {
   return std::is_same<T, float>::value ? size_t(stages<T>()) * 2 * kBK * DH * sizeof(float)
@@ -153,8 +165,8 @@ __device__ __forceinline__ float fast_exp2(float x) {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const uint8_t* __restrict__ valid, T* __restrict__ out, int H, int Tn,
-                 float scale) {
+                 const uint8_t* __restrict__ valid, T* __restrict__ out, int H, int Tq,
+                 int Tk, float scale) {
   static_assert(DH % 16 == 0, "head dim must be a multiple of 16");
   constexpr bool kSplit = std::is_same<T, float>::value;
   constexpr int kMT = m_tiles<T, DH>();   // 16-row m-tiles per warp
@@ -178,17 +190,18 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int lane = tid & 31;
   const int gr = lane >> 2;    // fragment row (and B-fragment column)
   const int tig = lane & 3;    // thread in the quad
-  const size_t base = (size_t(b) * H + h) * size_t(Tn) * DH;
-  const T* kh = k + base;
-  const T* vh = v + base;
+  const size_t q_base = (size_t(b) * H + h) * size_t(Tq) * DH;   // q and out
+  const size_t k_base = (size_t(b) * H + h) * size_t(Tk) * DH;   // k and v
+  const T* kh = k + k_base;
+  const T* vh = v + k_base;
 
-  // K and V rows [k0, k0 + kBK) → ring stage; rows past T arrive as zeros
+  // K and V rows [k0, k0 + kBK) → ring stage; rows past Tk arrive as zeros
   auto load_tile = [&](int k0, int stage) {
     T* ks = ring + (stage * 2) * kRaw;
     T* vs = ks + kRaw;
     for (int i = tid; i < kChunks; i += kThreads) {
       const int r = i / (DH / kEl), c = (i % (DH / kEl)) * kEl;
-      const bool in = k0 + r < Tn;
+      const bool in = k0 + r < Tk;
       const size_t src = in ? size_t(k0 + r) * DH + c : 0;
       const int dst = kSplit ? r * DH + c : r * kLd + c;
       cp_async16(ks + dst, kh + src, in);
@@ -196,18 +209,34 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   };
 
-  const int nt = (Tn + kBK - 1) / kBK;
-  constexpr int kStages = stages<T>();
-  for (int st = 0; st < kStages - 1; ++st) {   // one commit group per tile
-    if (st < nt) load_tile(st * kBK, st);
-    cp_async_commit();
-  }
-
-  // the keys' validity as bits, one word per 32 keys (zero past T)
+  const int nt = (Tk + kBK - 1) / kBK;
+  // the keys' validity as bits, one word per 32 keys (zero past Tk)
   for (int w = warp; w < 2 * nt; w += kThreads / 32) {
     const int t = w * 32 + lane;
-    const unsigned word = __ballot_sync(0xffffffffu, t < Tn && valid[size_t(b) * Tn + t] != 0);
+    const unsigned word = __ballot_sync(0xffffffffu, t < Tk && valid[size_t(b) * Tk + t] != 0);
     if (lane == 0) vbits[w] = word;
+  }
+  __syncthreads();
+  // live[0, n_live): the key tiles holding a valid key, in order
+  int* live = reinterpret_cast<int*>(vbits + 2 * nt);
+  if (warp == 0) {
+    int n = 0;
+    for (int t0 = 0; t0 < nt; t0 += 32) {
+      const int t = t0 + lane;
+      const bool any = t < nt && (vbits[2 * t] | vbits[2 * t + 1]) != 0;
+      const unsigned m = __ballot_sync(0xffffffffu, any);
+      if (any) live[n + __popc(m & ((1u << lane) - 1))] = t;
+      n += __popc(m);
+    }
+    if (lane == 0) live[nt] = n;
+  }
+  __syncthreads();
+  const int n_live = live[nt];
+
+  constexpr int kStages = stages<T>();
+  for (int st = 0; st < kStages - 1; ++st) {   // one commit group per tile
+    if (st < n_live) load_tile(live[st] * kBK, st);
+    cp_async_commit();
   }
 
   // Q fragments (A operand, 16 rows x 16 dims per k-step), once per block
@@ -222,8 +251,8 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int cols[4] = {c, c, c + 8, c + 8};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const bool in = rows[i] < Tn;
-        const size_t off = base + size_t(rows[i]) * DH + cols[i];
+        const bool in = rows[i] < Tq;
+        const size_t off = q_base + size_t(rows[i]) * DH + cols[i];
         if constexpr (kSplit) {
           const float2 x = in ? *reinterpret_cast<const float2*>(q + off) : make_float2(0.f, 0.f);
           split_bf16(x.x, x.y, qa[mt][ks][i], ql[mt][ks][i]);
@@ -249,10 +278,11 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const float sl2 = scale * kLog2e;
   const int mi = lane >> 3, mr = lane & 7;   // ldmatrix: this lane's matrix and row
 
-  for (int j = 0; j < nt; ++j) {
-    cp_async_wait<kStages - 2>();   // tile j has landed
+  for (int j = 0; j < n_live; ++j) {
+    cp_async_wait<kStages - 2>();   // live tile j has landed
     __syncthreads();   // ... for every thread; tile j-1's stage and operands are free
-    if (j + kStages - 1 < nt) load_tile((j + kStages - 1) * kBK, (j + kStages - 1) % kStages);
+    if (j + kStages - 1 < n_live)
+      load_tile(live[j + kStages - 1] * kBK, (j + kStages - 1) % kStages);
     cp_async_commit();
 
     const __nv_bfloat16 *k_hi, *k_lo, *v_hi, *v_lo;
@@ -313,8 +343,9 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
     // online softmax in the log2 domain; masked keys get p = 0 exactly (a
     // tile whose keys are all masked would otherwise give exp(0) = 1)
-    const uint32_t w0 = vbits[2 * j] >> (tig * 2), w1 = vbits[2 * j + 1] >> (tig * 2);
-    auto key_ok = [&](int n, int e) {   // key j*kBK + n*8 + tig*2 + e
+    const int kt = live[j];
+    const uint32_t w0 = vbits[2 * kt] >> (tig * 2), w1 = vbits[2 * kt + 1] >> (tig * 2);
+    auto key_ok = [&](int n, int e) {   // key kt*kBK + n*8 + tig*2 + e
       return (((n < 4 ? w0 : w1) >> ((n & 3) * 8 + e)) & 1u) != 0;
     };
 #pragma unroll
@@ -402,9 +433,9 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const int t = q0 + (warp * kMT + mt) * 16 + gr + 8 * r;
-      if (t >= Tn) continue;
+      if (t >= Tq) continue;
       const float inv = 1.f / fmaxf(l, 1e-30f);
-      T* dst = out + base + size_t(t) * DH + tig * 2;
+      T* dst = out + q_base + size_t(t) * DH + tig * 2;
 #pragma unroll
       for (int n = 0; n < kND; ++n)
         store2(dst + n * 8, o[mt][n][2 * r] * inv, o[mt][n][2 * r + 1] * inv);
@@ -413,29 +444,30 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out,
-           int B, int H, int Tn, float scale, cudaStream_t stream) {
+           int B, int H, int Tq, int Tk, float scale, cudaStream_t stream) {
   auto kernel = flash_mha_kernel<T, DH>;
-  const int nt = (Tn + kBK - 1) / kBK;
-  const size_t bytes = smem_bytes<T, DH>() + size_t(2 * nt) * sizeof(uint32_t);
+  const int nt = (Tk + kBK - 1) / kBK;
+  // + the key mask (2 words per tile) and the live-tile list (nt + 1 ints)
+  const size_t bytes = smem_bytes<T, DH>() + size_t(3 * nt + 1) * sizeof(uint32_t);
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((Tn + block_rows<T, DH>() - 1) / block_rows<T, DH>(), H, B);
+  const dim3 grid((Tq + block_rows<T, DH>() - 1) / block_rows<T, DH>(), H, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(out), H, Tn, scale);
+      static_cast<const uint8_t*>(valid), static_cast<T*>(out), H, Tq, Tk, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_dh(int Dh, const void* q, const void* k, const void* v, const void* valid,
-                void* out, int B, int H, int Tn, float scale, cudaStream_t stream) {
+                void* out, int B, int H, int Tq, int Tk, float scale, cudaStream_t stream) {
   switch (Dh) {
-    case 32: return launch<T, 32>(q, k, v, valid, out, B, H, Tn, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, valid, out, B, H, Tn, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, valid, out, B, H, Tn, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, valid, out, B, H, Tq, Tk, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, valid, out, B, H, Tq, Tk, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, valid, out, B, H, Tq, Tk, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -444,11 +476,12 @@ int dispatch_dh(int Dh, const void* q, const void* k, const void* v, const void*
 
 // dtype codes: 0 = float32, 1 = bfloat16
 extern "C" int flash_mha_launch(const void* q, const void* k, const void* v,
-                                const void* valid, void* out, int B, int H, int Tn,
-                                int Dh, int dtype, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Tn <= 0) return cudaErrorInvalidValue;
+                                const void* valid, void* out, int B, int H, int Tq,
+                                int Tk, int Dh, int dtype, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_dh<float>(Dh, q, k, v, valid, out, B, H, Tn, scale, s);
-  if (dtype == 1) return dispatch_dh<__nv_bfloat16>(Dh, q, k, v, valid, out, B, H, Tn, scale, s);
+  if (dtype == 0) return dispatch_dh<float>(Dh, q, k, v, valid, out, B, H, Tq, Tk, scale, s);
+  if (dtype == 1)
+    return dispatch_dh<__nv_bfloat16>(Dh, q, k, v, valid, out, B, H, Tq, Tk, scale, s);
   return cudaErrorInvalidValue;
 }

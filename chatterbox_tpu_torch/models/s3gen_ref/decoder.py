@@ -1,16 +1,26 @@
-"""CFM estimator (causal-UNet ConditionalDecoder, matcha layout) and the
-Euler/CFG solver — torch counterpart of the uncached path of
+"""CFM estimator (causal-UNet ConditionalDecoder, matcha layout) and its
+Euler/CFG solvers — torch counterpart of
 ``chatterbox_tpu/models/s3gen_ref/decoder.py``.
 
 Sinusoidal time embedding (scale 1000) → MLP; one down level [resnet →
 transformer×n → conv k3], N mid levels, one up level with the skip concat;
 final block + 1×1 projection. The transformer blocks' attention is the
-flash-MHA kernel K2 (``ops/flash_mha.py``). The prompt cache and the
-streaming solver (``pc``/``rc``/``cap`` in the JAX package) are not ported
-yet (ROADMAP.md Queue 1 item 6).
+flash-MHA kernel K2 (``ops/flash_mha.py``): its self form on the uncached
+path and in the per-voice prompt prefill, its context form in every cached
+and streaming evaluation.
+
+Three solvers: ``cfm_generate`` (uncached: [prompt | generated] frames
+together), ``cfm_generate_cached`` (generated frames only, against the
+per-voice prompt context of ``cfm_prompt_prefill``) and
+``cfm_generate_streaming`` (a slice's new frames only, against the prompt
+and the request's own earlier frames). Frozen contexts are flat tensors
+with a block axis (``_Walk``), so a batch stacks or splits a state in a few
+ops; ``context_to_tree`` and ``context_from_tree`` convert them to and from
+the JAX package's capture trees. Every random draw enters as a tensor.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -79,10 +89,34 @@ def init_estimator_params(init, cfg: FlowRefConfig) -> Dict:
 
 
 def _group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int = 8,
-                eps: float = 1e-5, valid: torch.Tensor | None = None) -> torch.Tensor:
-    """torch GroupNorm over [B, T, C], statistics over the valid frames only."""
+                eps: float = 1e-5, valid: torch.Tensor | None = None,
+                extra: Dict | None = None, cap: bool = False):
+    """torch GroupNorm over [B, T, C], statistics over the valid frames only.
+
+    Prompt-cache and streaming support, as in the JAX package: ``cap`` also
+    returns this region's sufficient statistics ``{"s": [B, 2, G] (Σx, Σx²),
+    "n": [B] frame count}``; ``extra`` (the same form) merges frozen-context
+    statistics into this call's own. The capture holds the OWN region only:
+    streaming accumulates it into a running total, so a merged capture would
+    count the frozen context twice."""
     B, T, C = x.shape
     g = x.float().reshape(B, T, groups, C // groups)
+    if cap or extra is not None:
+        vm = valid[:, :, None, None].float()
+        s1 = (g * vm).sum(dim=(1, 3))                      # [B, G]
+        s2 = (g.square() * vm).sum(dim=(1, 3))
+        n = valid.float().sum(1)                           # [B]
+        own = {"s": torch.stack([s1, s2], 1), "n": n}
+        if extra is not None:
+            s1 = s1 + extra["s"][:, 0]
+            s2 = s2 + extra["s"][:, 1]
+            n = n + extra["n"]
+        denom = (n[:, None] * (C // groups)).clamp_min(1.0)
+        mean = s1 / denom
+        var = (s2 / denom - mean.square()).clamp_min(0.0)
+        gn = (g - mean[:, None, :, None]) * torch.rsqrt(var[:, None, :, None] + eps)
+        out = gn.reshape(B, T, C).to(x.dtype) * w + b
+        return (out, own) if cap else out
     if valid is None:
         mean = g.mean(dim=(1, 3), keepdim=True)
         var = (g - mean).square().mean(dim=(1, 3), keepdim=True)
@@ -93,6 +127,49 @@ def _group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int =
         var = ((g - mean).square() * vm).sum(dim=(1, 3), keepdim=True) / denom
     g = (g - mean) * torch.rsqrt(var + eps)
     return g.reshape(B, T, C).to(x.dtype) * w + b
+
+
+def _gn_extra(a: Dict | None, b: Dict | None) -> Dict | None:
+    """Merge two frozen-context GroupNorm statistic dicts (the statistics
+    are additive)."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return {k: a[k] + b[k] for k in a}
+
+
+def _conv_h(x: torch.Tensor, p: Dict, pc: torch.Tensor | None = None, cap: bool = False,
+            pos: torch.Tensor | None = None):
+    """SAME_TORCH conv1d with an optional frozen left context (halo).
+
+    ``pc`` ([B, (K−1)//2, C]): frozen frames that replace the zero left pad,
+    so the region's first frames convolve over the real left context; the
+    right edge keeps its zero pad. ``pos`` ([B], right-packed streaming
+    blocks, k = 3 only): each row's first valid frame; the halo goes right
+    before it instead of before the block. ``cap`` also returns this
+    region's own last (K−1)//2 frames in the weights' dtype."""
+    w, b = p["w"], p["b"]
+    hw = (w.shape[-1] - 1) // 2
+    B, T, C = x.shape
+    if pc is not None and hw and pos is not None:
+        assert hw == 1, "pos-injected halo supports k=3 convs only"
+        ext = F.pad(x, (0, 0, hw, hw))                     # [B, T+2, C]
+        jj = torch.arange(T + 2 * hw, device=x.device)[None, :, None]
+        # ext row `pos` is original row pos-1: the pad row right before the
+        # first valid frame (or the prepended zero when pos == 0)
+        ext = torch.where(jj == pos[:, None, None], pc.to(x.dtype), ext)
+        out = conv1d(ext, w, b, padding="VALID")
+    elif pc is not None and hw:
+        ext = torch.cat([pc.to(x.dtype), x, x.new_zeros((B, hw, C))], dim=1)
+        out = conv1d(ext, w, b, padding="VALID")
+    else:
+        out = conv1d(x, w, b, padding="SAME_TORCH")
+    if cap:
+        # stored in the weights' dtype: the frozen context is read every
+        # slice, and bf16 halves the per-voice cache
+        return out, x[:, T - hw:].to(w.dtype)
+    return out
 
 
 def _mish(x: torch.Tensor) -> torch.Tensor:
@@ -110,31 +187,187 @@ def _time_embedding(p: Dict, cfg: FlowRefConfig, t: torch.Tensor) -> torch.Tenso
     return linear(h, p["lin2"]["w"], p["lin2"]["b"])
 
 
+@functools.lru_cache(maxsize=None)
+def _layout(cfg: FlowRefConfig):
+    """Where each context node of the estimator sits in the port's flat
+    layout, in the order an evaluation visits them: the k = 3 conv halos
+    (``(path, channels)``; packed side by side along the last axis), the
+    GroupNorms and the transformer blocks. A path names the node in the JAX
+    package's capture tree."""
+    ch = cfg.dec_channels[0]
+    halos, gns, tfs = [], [], []
+
+    def level(name, cin, conv):
+        halos.extend([((*name, "resnet", "h1"), cin), ((*name, "resnet", "h2"), ch)])
+        gns.extend([(*name, "resnet", "g1"), (*name, "resnet", "g2")])
+        tfs.extend((*name, "tf", i) for i in range(cfg.dec_n_blocks))
+        if conv:
+            halos.append(((*name, "conv"), ch))
+
+    level(("down",), cfg.dec_in_channels, True)
+    for j in range(cfg.dec_num_mid_blocks):
+        level(("mid", j), ch, False)
+    level(("up",), 2 * ch, True)
+    halos.append((("final", "conv"), ch))
+    gns.append(("final", "gn"))
+    offsets = np.cumsum([0] + [c for _, c in halos]).tolist()
+    return halos, offsets, gns, tfs
+
+
+def _put(buf: torch.Tensor, off: int, piece: torch.Tensor) -> None:
+    """Copy context keys (or values) ``piece`` [..., Bx, H, n, dh] into key
+    positions [off, off + n) of ``buf`` [..., B2, H, L, dh], converting to
+    the buffer's dtype. A piece with 2 lanes where B2 > 2 is a per-voice
+    context captured at batch 1 ([cond, uncond]); the copy broadcasts it
+    over the batch ([c×B, u×B])."""
+    dst = buf[..., off:off + piece.shape[-2], :]
+    B2 = buf.shape[-4]
+    if piece.shape[-4] != B2:
+        dst = dst.unflatten(-4, (2, B2 // 2))
+        piece = piece.unsqueeze(-4)
+    dst.copy_(piece)
+
+
+def _context_buffer(pieces, B2: int, T: int, dtype: torch.dtype) -> torch.Tensor:
+    """One solve's attention keys (or values): the context ``pieces``
+    ([..., Bx, H, L_i, dh] each, e.g. [prompt, ring]) side by side, then room
+    for an evaluation's T own keys, which ``_tf_block`` writes per block →
+    [..., B2, H, ΣL_i + T, dh]. Built once per solve, so an evaluation
+    copies only what changed (the prompt's step, its own keys)."""
+    ref = pieces[0]
+    L = sum(p.shape[-2] for p in pieces)
+    buf = ref.new_empty((*ref.shape[:-4], B2, ref.shape[-3], L + T, ref.shape[-1]), dtype=dtype)
+    off = 0
+    for p in pieces:
+        _put(buf, off, p)
+        off += p.shape[-2]
+    return buf
+
+
+class _Walk:
+    """One estimator evaluation's frozen context and captures, in the flat
+    layout (see ``_layout``). A context ("est") is a dict of
+
+    * ``halo`` [B2, ΣC]: one frame per k = 3 conv, side by side;
+    * ``gs`` [B2, NG, 2, G] and ``gn`` [B2, NG]: per GroupNorm, Σx, Σx² per
+      group and the frame count;
+    * ``k``, ``v`` [NB, Bx, H, L, dh]: per transformer block, head-major
+      (the kernel's layout), Bx = B2 or 2 (a batch-1 voice context).
+
+    The request's halos replace the prompt's and the GroupNorm statistics
+    add. The keys and values reach the walk as ``kv`` = (keys, values, key
+    mask): [NB, B2, H, L + T, dh] buffers from ``_context_buffer`` holding
+    [prompt | ring | room for own], and the mask [B2, L + T]. With no
+    context, every node is the plain one (zero conv pad, own statistics,
+    self-attention)."""
+
+    def __init__(self, cfg: FlowRefConfig, pc: Dict | None, rc: Dict | None, kv,
+                 cap_cv: bool, cap_kv: bool):
+        self.offsets = _layout(cfg)[1]
+        pest = pc["est"] if pc is not None else None
+        rest = rc["est"] if rc is not None else None
+        self.pos = rc.get("pos") if rc is not None else None
+        src = rest if rest is not None else pest
+        self.halo = src["halo"] if src is not None else None
+        stats = lambda e: None if e is None else {"s": e["gs"], "n": e["gn"]}  # noqa: E731
+        self.gn = _gn_extra(stats(pest), stats(rest))
+        self.kv = kv
+        self.cap_cv, self.cap_kv = cap_cv, cap_kv
+        self.hi = self.gi = self.ti = 0
+        self.out = {"halo": [], "gs": [], "gn": [], "k": [], "v": []}
+
+    def conv(self, x: torch.Tensor, p: Dict) -> torch.Tensor:
+        """The next k = 3 conv, with its halo; captures the input's last frame."""
+        i = self.hi
+        self.hi += 1
+        pc = None
+        if self.halo is not None:
+            o0, o1 = self.offsets[i], self.offsets[i + 1]
+            pc = self.halo[:, None, o0:o1]
+        r = _conv_h(x, p, pc, self.cap_cv, pos=self.pos)
+        if not self.cap_cv:
+            return r
+        self.out["halo"].append(r[1][:, 0])
+        return r[0]
+
+    def group_norm(self, x: torch.Tensor, p: Dict, valid: torch.Tensor) -> torch.Tensor:
+        i = self.gi
+        self.gi += 1
+        extra = None if self.gn is None else {"s": self.gn["s"][:, i], "n": self.gn["n"][:, i]}
+        r = _group_norm(x, p["w"], p["b"], valid=valid, extra=extra, cap=self.cap_cv)
+        if not self.cap_cv:
+            return r
+        self.out["gs"].append(r[1]["s"])
+        self.out["gn"].append(r[1]["n"])
+        return r[0]
+
+    def tf(self, p: Dict, cfg: FlowRefConfig, x: torch.Tensor, valid: torch.Tensor):
+        i = self.ti
+        self.ti += 1
+        ctx = None if self.kv is None else (self.kv[0][i], self.kv[1][i], self.kv[2])
+        r = _tf_block(p, cfg, x, valid, cap=self.cap_kv, ctx=ctx)
+        if not self.cap_kv:
+            return r
+        self.out["k"].append(r[1]["k"])
+        self.out["v"].append(r[1]["v"])
+        return r[0]
+
+    def captured(self) -> Dict:
+        """The evaluation's captures in the flat layout."""
+        o, rec = self.out, {}
+        if self.cap_cv:
+            rec.update(halo=torch.cat(o["halo"], dim=1), gs=torch.stack(o["gs"], 1),
+                       gn=torch.stack(o["gn"], 1))
+        if self.cap_kv:
+            rec.update(k=torch.stack(o["k"]), v=torch.stack(o["v"]))
+        return rec
+
+
 def _resnet(p: Dict, x: torch.Tensor, mask: torch.Tensor, valid: torch.Tensor,
-            temb: torch.Tensor) -> torch.Tensor:
+            temb: torch.Tensor, walk: _Walk) -> torch.Tensor:
+    """``walk`` supplies the frozen context (halos, GroupNorm statistics) and
+    takes the captures."""
     xm = x * mask
-    h = conv1d(xm, p["block1"]["conv"]["w"], p["block1"]["conv"]["b"], padding="SAME_TORCH")
-    h = _mish(_group_norm(h, p["block1"]["gn"]["w"], p["block1"]["gn"]["b"], valid=valid))
+    h = _mish(walk.group_norm(walk.conv(xm, p["block1"]["conv"]), p["block1"]["gn"], valid))
     h = h + linear(_mish(temb), p["mlp"]["w"], p["mlp"]["b"])[:, None]
-    h = conv1d(h * mask, p["block2"]["conv"]["w"], p["block2"]["conv"]["b"], padding="SAME_TORCH")
-    h = _mish(_group_norm(h, p["block2"]["gn"]["w"], p["block2"]["gn"]["b"], valid=valid))
+    h = _mish(walk.group_norm(walk.conv(h * mask, p["block2"]["conv"]), p["block2"]["gn"],
+                              valid))
     return h + conv1d(xm, p["res"]["w"], p["res"]["b"])
 
 
-def _tf_block(p: Dict, cfg: FlowRefConfig, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """DiT-style block without positional encoding; its attention is K2."""
+def _tf_block(p: Dict, cfg: FlowRefConfig, x: torch.Tensor, valid: torch.Tensor,
+              cap: bool = False, ctx=None):
+    """DiT-style block without positional encoding; its attention is K2.
+
+    ``ctx`` = (keys, values, key mask [B, L + T]): [B, H, L + T, dh]
+    buffers (``_context_buffer``) whose first L keys are the frozen context
+    (the prompt's, a streaming ring's); this call writes its own K/V into the
+    last T, so its attention is K2's context form over [context | own] (no
+    positional encoding: frozen keys need no index bookkeeping). ``cap``
+    also returns this call's K/V in the weights' dtype, head-major."""
     B, T, C = x.shape
     H, dh = cfg.dec_num_heads, cfg.dec_attention_head_dim
     h = layer_norm(x, p["norm1"]["w"], p["norm1"]["b"])
-    heads = lambda w: linear(h, w).reshape(B, T, H, dh).transpose(1, 2).contiguous()  # noqa: E731
-    o = flash_mha(heads(p["to_q"]["w"]), heads(p["to_k"]["w"]), heads(p["to_v"]["w"]),
-                  valid.contiguous(), scale=float(1.0 / np.sqrt(dh)))
+    heads = lambda w: linear(h, w).reshape(B, T, H, dh).transpose(1, 2)  # noqa: E731
+    q, k, v = heads(p["to_q"]["w"]).contiguous(), heads(p["to_k"]["w"]), heads(p["to_v"]["w"])
+    scale = float(1.0 / np.sqrt(dh))
+    if ctx is not None:
+        kb, vb, kv_valid = ctx
+        kb[:, :, kb.shape[2] - T:].copy_(k)
+        vb[:, :, vb.shape[2] - T:].copy_(v)
+        o = flash_mha(q, kb, vb, kv_valid, scale=scale)
+    else:
+        o = flash_mha(q, k.contiguous(), v.contiguous(), valid.contiguous(), scale=scale)
     out = o.transpose(1, 2).reshape(B, T, H * dh)
     x = x + linear(out.to(x.dtype), p["to_out"]["w"], p["to_out"]["b"])
     h = layer_norm(x, p["norm3"]["w"], p["norm3"]["b"])
     h = linear(F.gelu(linear(h, p["ff1"]["w"], p["ff1"]["b"]), approximate="tanh"),
                p["ff2"]["w"], p["ff2"]["b"])
-    return x + h
+    out = x + h
+    if cap:
+        wdt = p["to_k"]["w"].dtype
+        return out, {"k": k.to(wdt), "v": v.to(wdt)}
+    return out
 
 
 def estimator_forward(
@@ -146,9 +379,32 @@ def estimator_forward(
     cond: torch.Tensor,   # [B, T, M] prompt-mel conditioning track
     t: torch.Tensor,      # [B] flow time
     valid: torch.Tensor,  # [B, T] bool
-) -> torch.Tensor:
-    """One vector-field evaluation → [B, T, M]."""
+    pc: Dict | None = None,
+    cap: bool = False,
+    rc: Dict | None = None,
+    cap_mode: str | None = None,
+    kv=None,
+):
+    """One vector-field evaluation → [B, T, M].
+
+    ``pc`` ({"est": one Euler step's prompt halos and GroupNorm
+    statistics}): the frames convolve and normalise against the frozen voice
+    prompt instead of carrying it in ``x``. ``rc`` ({"est": one step's
+    request halos and GroupNorm running statistics, "pos": [B] first valid
+    row of a right-packed block}): a streaming request's own frozen frames.
+    ``kv`` (keys, values, key mask): the frozen K/V the frames attend to,
+    [prompt | ring | room for own] per transformer block. Context layout: see
+    ``_Walk``.
+
+    ``cap`` / ``cap_mode`` → (out, captured context): "full" (``cap``)
+    captures everything (the prompt prefill), "light" the halos and
+    GroupNorm statistics (every streaming Euler step), "kv" the K/V only
+    (the clean-context pass at the end of a streaming slice)."""
     B, T, _ = x.shape
+    mode = "full" if cap else cap_mode
+    cap_cv = mode in ("full", "light")
+    cap_kv = mode in ("full", "kv")
+    walk = _Walk(cfg, pc, rc, kv, cap_cv, cap_kv)
     mask = valid[:, :, None].to(x.dtype)
     temb = _time_embedding(params["time_mlp"], cfg, t)
     spk_track = spk[:, None, :].expand(B, T, spk.shape[-1]).to(x.dtype)
@@ -156,12 +412,11 @@ def estimator_forward(
 
     def level(h, p_level, with_conv: bool, skip_in=None):
         rn_in = h if skip_in is None else torch.cat([h, skip_in], dim=-1)
-        h = _resnet(p_level["resnet"], rn_in, mask, valid, temb)
+        h = _resnet(p_level["resnet"], rn_in, mask, valid, temb, walk)
         for tf in p_level["tf"]:
-            h = _tf_block(tf, cfg, h * mask, valid)
+            h = walk.tf(tf, cfg, h * mask, valid)
         if with_conv:
-            out = conv1d(h * mask, p_level["conv"]["w"], p_level["conv"]["b"], padding="SAME_TORCH")
-            return out, h
+            return walk.conv(h * mask, p_level["conv"]), h
         return h, h
 
     h, skip = level(h, params["down"], True)
@@ -169,9 +424,11 @@ def estimator_forward(
         h, _ = level(h, m, False)
     h, _ = level(h, params["up"], True, skip_in=skip)
     f = params["final"]
-    h = conv1d(h * mask, f["conv"]["w"], f["conv"]["b"], padding="SAME_TORCH")
-    h = _mish(_group_norm(h, f["gn"]["w"], f["gn"]["b"], valid=valid))
-    return conv1d(h * mask, params["proj"]["w"], params["proj"]["b"]) * mask
+    h = walk.group_norm(walk.conv(h * mask, f["conv"]), f["gn"], valid)
+    out = conv1d(_mish(h) * mask, params["proj"]["w"], params["proj"]["b"]) * mask
+    if mode is not None:
+        return out, walk.captured()
+    return out
 
 
 def _t_span(cfg: FlowRefConfig) -> np.ndarray:
@@ -197,16 +454,347 @@ def cfm_generate(
     cond and uncond lanes ride one estimator call per step."""
     B, T, _ = mu.shape
     x = noise[:, :T].float()
-    t_span = _t_span(cfg)
     w = cfg.inference_cfg_rate
-    mu2 = torch.cat([mu, torch.zeros_like(mu)])
-    spk2 = torch.cat([spk, torch.zeros_like(spk)])
-    cond2 = torch.cat([cond, torch.zeros_like(cond)])
-    valid2 = torch.cat([valid, valid])
+    mu2, spk2, cond2, valid2 = _cfg_lanes(mu, spk, valid, cond)
+    t_span = _t_span(cfg)
     for t_i, dt in zip(t_span[:-1], t_span[1:] - t_span[:-1]):
         t = torch.full((2 * B,), float(t_i), dtype=torch.float32, device=mu.device)
-        x2 = torch.cat([x, x]).to(mu.dtype)
-        v = estimator_forward(params, cfg, x2, mu2, spk2, cond2, t, valid2).float()
-        vc, vu = v[:B], v[B:]
-        x = x + np.float32(dt) * ((1.0 + w) * vc - w * vu)
+        v = estimator_forward(params, cfg, torch.cat([x, x]).to(mu.dtype), mu2, spk2, cond2, t,
+                              valid2)
+        x = _euler(x, v.float(), dt, w)
     return x.to(mu.dtype)
+
+
+def _cfg_lanes(mu: torch.Tensor, spk: torch.Tensor, valid: torch.Tensor, cond=None):
+    """The [cond | uncond] CFG lanes of one solve: the uncond lane zeroes
+    mu, spk and cond (no cond → zeros for both)."""
+    mu2 = torch.cat([mu, torch.zeros_like(mu)])
+    spk2 = torch.cat([spk, torch.zeros_like(spk)])
+    cond2 = (torch.zeros_like(mu2) if cond is None
+             else torch.cat([cond, torch.zeros_like(cond)]))
+    return mu2, spk2, cond2, torch.cat([valid, valid])
+
+
+def _euler(x: torch.Tensor, v: torch.Tensor, dt, w: float) -> torch.Tensor:
+    B = x.shape[0]
+    vc, vu = v[:B], v[B:]
+    return x + np.float32(dt) * ((1.0 + w) * vc - w * vu)
+
+
+def cfm_prompt_prefill(
+    params: Dict,
+    cfg: FlowRefConfig,
+    noise: torch.Tensor,    # [B, ≥P, M] float32: the FIXED (voice-stable) prompt noise
+    mu_p: torch.Tensor,     # [B, P, M] encoder output over the prompt region
+    spk: torch.Tensor,      # [B, 80]
+    cond_p: torch.Tensor,   # [B, P, M] packed prompt-mel conditioning
+    valid_p: torch.Tensor,  # [B, P]
+) -> Dict:
+    """Solve the CFM over the voice-prompt region once, capturing its frozen
+    context at every Euler step → a per-voice cache for
+    ``cfm_generate_cached`` and ``cfm_generate_streaming``.
+
+    Per step it keeps the prompt's K/V of every transformer block, the
+    prompt's last frame before every k = 3 conv, and the prompt's GroupNorm
+    statistics. The deviation is the JAX package's (its
+    ``cfm_prompt_prefill``): prompt frames no longer see generated frames;
+    with an empty prompt the cached path is exact.
+
+    → {"est": the flat context with a leading step axis S = n_timesteps
+    (``_Walk`` lists the leaves), "pv": [2B, P] prompt key mask}. Both CFG
+    lanes are captured."""
+    P = mu_p.shape[1]
+    x = noise[:, :P].float()
+    w = cfg.inference_cfg_rate
+    mu2, spk2, cond2, valid2 = _cfg_lanes(mu_p, spk, valid_p, cond_p)
+    t_span = _t_span(cfg)
+    recs = []
+    for t_i, dt in zip(t_span[:-1], t_span[1:] - t_span[:-1]):
+        t = torch.full((mu2.shape[0],), float(t_i), dtype=torch.float32, device=mu_p.device)
+        v, rec = estimator_forward(params, cfg, torch.cat([x, x]).to(mu_p.dtype), mu2, spk2,
+                                   cond2, t, valid2, cap=True)
+        x = _euler(x, v.float(), dt, w)
+        recs.append(rec)
+    return {"est": {k: torch.stack([r[k] for r in recs]) for k in recs[0]}, "pv": valid2}
+
+
+def static_prompt_cache(cache: Dict) -> Dict:
+    """The "static" cache: the last Euler step's context, reused at every
+    step (S = 1; a further deviation, 10x smaller)."""
+    return {"est": {k: a[-1:] for k, a in cache["est"].items()}, "pv": cache["pv"]}
+
+
+def _voice_lanes(cache: Dict, B: int):
+    """A voice context (captured at batch 1: lanes [cond, uncond]) for a
+    batch of B → (pv [2B, P], est): the small leaves repeated to
+    [c×B, u×B] as the JAX package repeats them; K/V stay at 2 lanes and are
+    broadcast by the copy into the attention's buffer (``_put``)."""
+    pv, est = cache["pv"], cache["est"]
+    if pv.shape[0] == 2 * B:
+        return pv, est
+    assert pv.shape[0] == 2, "prompt cache lane layout must be [cond, uncond]"
+    est = {k: a if k in ("k", "v") else a.repeat_interleave(B, 1) for k, a in est.items()}
+    return pv.repeat_interleave(B, 0), est
+
+
+def _step(est: Dict, s: int) -> Dict:
+    """One Euler step's halos and GroupNorm statistics (the K/V go through
+    the attention's buffer)."""
+    return {k: est[k][s] for k in ("halo", "gs", "gn")}
+
+
+def cfm_generate_cached(
+    params: Dict,
+    cfg: FlowRefConfig,
+    noise: torch.Tensor,    # [B, ≥P+Tg, M] float32 frame-stable noise buffer
+    mu_g: torch.Tensor,     # [B, Tg, M] encoder output, generated frames only
+    spk: torch.Tensor,      # [B, 80]
+    valid_g: torch.Tensor,  # [B, Tg]
+    cache: Dict,            # from cfm_prompt_prefill (or static_prompt_cache)
+) -> torch.Tensor:
+    """Euler CFM over the generated frames only, against the frozen prompt
+    context. Their initial noise is the buffer's positions [P, P+Tg), the
+    ones the uncached path gives them, so cached and uncached solves share
+    noise exactly. The cache's step axis is n_timesteps ("step") or 1
+    ("static")."""
+    B, Tg, M = mu_g.shape
+    P = cache["pv"].shape[-1]
+    x = noise[:, P:P + Tg].float()
+    w = cfg.inference_cfg_rate
+    mu2, spk2, cond2, valid2 = _cfg_lanes(mu_g, spk, valid_g)
+    pv, est = _voice_lanes(cache, B)
+    per_step = est["k"].shape[0] == cfg.n_timesteps
+    kv = (_context_buffer([est["k"][0]], 2 * B, Tg, mu_g.dtype),
+          _context_buffer([est["v"][0]], 2 * B, Tg, mu_g.dtype), torch.cat([pv, valid2], 1))
+    t_span = _t_span(cfg)
+    for i, (t_i, dt) in enumerate(zip(t_span[:-1], t_span[1:] - t_span[:-1])):
+        t = torch.full((2 * B,), float(t_i), dtype=torch.float32, device=mu_g.device)
+        if i and per_step:
+            _put(kv[0], 0, est["k"][i])
+            _put(kv[1], 0, est["v"][i])
+        pc = {"est": _step(est, i if per_step else 0)}
+        v = estimator_forward(params, cfg, torch.cat([x, x]).to(mu_g.dtype), mu2, spk2, cond2,
+                              t, valid2, pc=pc, kv=kv)
+        x = _euler(x, v.float(), dt, w)
+    return x.to(mu_g.dtype)
+
+
+# --------------------------------------------------------------------------
+# Streaming full overlap: a request's own frozen generated-frame context
+# --------------------------------------------------------------------------
+# As in the JAX package (decoder.py:613-639): slice k solves only its new
+# frames against [voice prompt | earlier generated frames]. The request's
+# context holds, per transformer block, a K/V ring of its last ≤ W frames
+# (captured by one extra evaluation at t = 1 on the slice's solved mel: the
+# "clean context"); per k = 3 conv and Euler step, the previous slice's last
+# frame; per GroupNorm and Euler step, the running statistics of all earlier
+# frames, added to the prompt's. The state is flat (``_Walk``'s layout with
+# a step axis in front of the halos and statistics):
+#   halo [S, 2B, ΣC], gs [S, 2B, NG, 2, G], gn [S, 2B, NG],
+#   k, v [NB, 2B, H, W, dh], klen [B], frames [B].
+# Lanes are [cond × B, uncond × B].
+
+# the axis of each state leaf that runs over CFG lanes (klen and frames run
+# over requests, axis 0)
+STATE_LANE_AXIS = {"halo": 1, "gs": 1, "gn": 1, "k": 1, "v": 1}
+
+
+def init_stream_state(cfg: FlowRefConfig, vcache: Dict, window: int, batch: int = 1) -> Dict:
+    """A fresh streaming context: halos start as the voice cache's (slice
+    1's left context is the prompt's edge, as in ``cfm_generate_cached``),
+    running GroupNorm statistics at zero, an empty K/V ring of ``window``
+    frames."""
+    _, est = _voice_lanes(vcache, batch)
+    B2 = 2 * batch
+    H, dh = cfg.dec_num_heads, cfg.dec_attention_head_dim
+    k = est["k"]
+    ring = lambda: k.new_zeros((k.shape[1], B2, H, window, dh))  # noqa: E731
+    counts = lambda: torch.zeros((batch,), dtype=torch.int32, device=k.device)  # noqa: E731
+    return {"halo": est["halo"].clone(), "gs": torch.zeros_like(est["gs"]),
+            "gn": torch.zeros_like(est["gn"]), "k": ring(), "v": ring(),
+            "klen": counts(), "frames": counts()}
+
+
+def _ring_append(ring_k: torch.Tensor, ring_v: torch.Tensor, cap_k: torch.Tensor,
+                 cap_v: torch.Tensor, klen: torch.Tensor, tg: torch.Tensor, Tg: int):
+    """Append a slice's K/V (right-packed: each lane's valid entries are its
+    last ``tg`` of ``Tg``) after the ring's ``klen`` valid frames, evicting
+    the oldest when the window would overflow; ``klen``/``tg`` per lane.
+    Only the mask matters (no positional encoding), so eviction is a roll.
+    Gathers and one select per tensor, no scatter. → (k, v, new klen)."""
+    NB, B2, H, W, dh = ring_k.shape
+    shift = (klen + tg - W).clamp_min(0)
+    base = klen - shift
+    wpos = torch.arange(W, device=klen.device)[None, :]
+    roll = (wpos + shift[:, None]) % W
+    src = (wpos - base[:, None] + (Tg - tg[:, None])).clamp(0, Tg - 1)
+    is_new = ((wpos >= base[:, None]) & (wpos < (base + tg)[:, None]))[None, :, None, :, None]
+
+    def g(a, idx):
+        return torch.gather(a, 3, idx[None, :, None, :, None].expand(NB, B2, H, W, dh))
+
+    return (torch.where(is_new, g(cap_k, src), g(ring_k, roll)),
+            torch.where(is_new, g(cap_v, src), g(ring_v, roll)), base + tg)
+
+
+def cfm_generate_streaming(
+    params: Dict,
+    cfg: FlowRefConfig,
+    noise: torch.Tensor,    # [B, ≥2048, M] float32: the chunk's noise buffer
+    mu_g: torch.Tensor,     # [B, Tg, M] encoder output, NEW frames right-packed
+    spk: torch.Tensor,      # [B, 80]
+    tg: torch.Tensor,       # [B] valid new frames (each row's last tg)
+    vcache: Dict,           # per-voice cache from cfm_prompt_prefill (per step)
+    rstate: Dict,           # from init_stream_state or the previous slice
+):
+    """Solve only this slice's new frames against [frozen voice prompt |
+    frozen earlier frames], then capture this slice's context → (mel block
+    [B, Tg, M] right-packed, next state).
+
+    A row's new frames take their initial noise from buffer positions
+    [P + frames, P + frames + tg), clipped to the buffer's 2048 frames as in
+    the JAX package: the positions the uncached and cached paths give them,
+    so a chunk's first slice is the cached solve. Rows with tg == 0 (batch
+    padding) pass their state through unchanged."""
+    B, Tg, M = mu_g.shape
+    pv, est = _voice_lanes(vcache, B)
+    S = cfg.n_timesteps
+    assert est["k"].shape[0] == S, "streaming needs the per-step ('step') prompt cache"
+    P = pv.shape[-1]
+    dev = mu_g.device
+    j = torch.arange(Tg, device=dev)[None, :]
+    tg = tg.to(dev).long()
+    valid_g = j >= (Tg - tg[:, None])
+    abs_pos = P + rstate["frames"].long()[:, None] + (j - (Tg - tg[:, None]))
+    idx = abs_pos.clamp(0, _NOISE_FRAMES - 1)
+    x = torch.gather(noise[:, :_NOISE_FRAMES].float(), 1, idx[:, :, None].expand(B, Tg, M))
+    w = cfg.inference_cfg_rate
+    mu2, spk2, cond2, valid2 = _cfg_lanes(mu_g, spk, valid_g)
+    tg2 = torch.cat([tg, tg])
+    pos2 = Tg - tg2
+    W = rstate["k"].shape[3]
+    klen2 = torch.cat([rstate["klen"], rstate["klen"]]).long()
+    rmask = torch.arange(W, device=dev)[None, :] < klen2[:, None]
+    # [prompt | ring | own] keys and values, built once: an evaluation
+    # copies in its step's prompt K/V, a block its own
+    kv = (_context_buffer([est["k"][0], rstate["k"]], 2 * B, Tg, mu_g.dtype),
+          _context_buffer([est["v"][0], rstate["v"]], 2 * B, Tg, mu_g.dtype),
+          torch.cat([pv, rmask, valid2], 1))
+
+    def ctx(s):
+        if s:
+            _put(kv[0], 0, est["k"][s])
+            _put(kv[1], 0, est["v"][s])
+        return {"est": _step(est, s)}, {"est": _step(rstate, s), "pos": pos2}
+
+    t_span = _t_span(cfg)
+    caps = []
+    for s, (t_i, dt) in enumerate(zip(t_span[:-1], t_span[1:] - t_span[:-1])):
+        t = torch.full((2 * B,), float(t_i), dtype=torch.float32, device=dev)
+        pc, rc = ctx(s)
+        v, cap = estimator_forward(params, cfg, torch.cat([x, x]).to(mu_g.dtype), mu2, spk2,
+                                   cond2, t, valid2, pc=pc, rc=rc, cap_mode="light", kv=kv)
+        x = _euler(x, v.float(), dt, w)
+        caps.append(cap)
+    mel = x.to(mu_g.dtype)
+
+    # clean context: one evaluation at t = 1 on the solved mel, against the
+    # last step's context (already in the buffer); later slices attend to
+    # keys computed from (near-)clean frames
+    _, clean = estimator_forward(params, cfg, torch.cat([mel, mel]), mu2, spk2, cond2,
+                                 torch.ones((2 * B,), dtype=torch.float32, device=dev), valid2,
+                                 pc={"est": _step(est, S - 1)},
+                                 rc={"est": _step(rstate, S - 1), "pos": pos2},
+                                 cap_mode="kv", kv=kv)
+    k, v, klen_new = _ring_append(rstate["k"], rstate["v"], clean["k"], clean["v"], klen2, tg2,
+                                  Tg)
+    # halos ← this slice's last frames, except on lanes without new frames;
+    # GroupNorm running statistics ← old + this slice's (zero on such lanes)
+    keep = (tg2 > 0)[None, :, None]
+    new_state = {
+        "halo": torch.where(keep, torch.stack([c["halo"] for c in caps]), rstate["halo"]),
+        "gs": rstate["gs"] + torch.stack([c["gs"] for c in caps]),
+        "gn": rstate["gn"] + torch.stack([c["gn"] for c in caps]),
+        "k": k, "v": v,
+        "klen": klen_new[:B].to(rstate["klen"].dtype),
+        "frames": rstate["frames"] + tg.to(rstate["frames"].dtype),
+    }
+    return mel, new_state
+
+
+# --------------------------------------------------------------------------
+# The JAX package's capture-tree layout, for holding the two packages'
+# caches and states against each other
+# --------------------------------------------------------------------------
+def _set_path(tree: Dict, path, value) -> None:
+    node = tree
+    for key in path[:-1]:
+        node = node[key]
+    node[path[-1]] = value
+
+
+def _get_path(tree: Dict, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _skeleton(cfg: FlowRefConfig) -> Dict:
+    def level(conv):
+        d = {"resnet": None, "tf": [None] * cfg.dec_n_blocks}
+        if conv:
+            d["conv"] = None
+        return d
+
+    return {"down": level(True), "mid": [level(False) for _ in range(cfg.dec_num_mid_blocks)],
+            "up": level(True), "final": {"conv": None, "gn": None}}
+
+
+def context_to_tree(cfg: FlowRefConfig, est: Dict) -> Dict:
+    """A flat context (leading axes, e.g. the step axis, kept) → the JAX
+    package's capture tree: halos [..., B, 1, C], GroupNorm nodes {"s1",
+    "s2": [..., B, G], "n": [..., B]}, K/V [..., B, T, H, dh]; nodes the
+    context lacks are None, as there."""
+    halos, offsets, gns, tfs = _layout(cfg)
+    tree = _skeleton(cfg)
+    if "halo" in est or "gs" in est:
+        for path in {p[:-1] for p, _ in halos if p[-2] == "resnet"}:
+            _set_path(tree, path, {})
+    if "halo" in est:
+        for i, (path, _) in enumerate(halos):
+            _set_path(tree, path, est["halo"][..., None, offsets[i]:offsets[i + 1]])
+    if "gs" in est:
+        for i, path in enumerate(gns):
+            s = est["gs"][..., i, :, :]
+            _set_path(tree, path, {"s1": s[..., 0, :], "s2": s[..., 1, :], "n": est["gn"][..., i]})
+    if "k" in est:
+        nd = est["k"].dim()
+        for i, path in enumerate(tfs):
+            kv = {n: est[n].select(nd - 5, i).transpose(-3, -2) for n in ("k", "v")}
+            _set_path(tree, path, kv)
+    return tree
+
+
+def context_from_tree(cfg: FlowRefConfig, tree: Dict) -> Dict:
+    """``context_to_tree``'s inverse (leaves are torch tensors)."""
+    halos, _, gns, tfs = _layout(cfg)
+    est = {}
+    first = _get_path(tree, halos[0][0][:-1])
+    if first is not None and first.get("h1") is not None:
+        est["halo"] = torch.cat([_get_path(tree, p)[..., 0, :] for p, _ in halos], dim=-1)
+        nodes = [_get_path(tree, p) for p in gns]
+        est["gs"] = torch.stack([torch.stack([n["s1"], n["s2"]], -2) for n in nodes], -3)
+        est["gn"] = torch.stack([n["n"] for n in nodes], -1)
+    if _get_path(tree, tfs[0]) is not None:
+        for n in ("k", "v"):
+            leaves = [_get_path(tree, p)[n].transpose(-3, -2) for p in tfs]
+            est[n] = torch.stack(leaves, dim=leaves[0].dim() - 4)
+    return est
+
+
+def stream_state_to_tree(cfg: FlowRefConfig, state: Dict) -> Dict:
+    """A streaming state → the JAX package's {"hg", "ring", "klen",
+    "frames"} tree."""
+    hg = context_to_tree(cfg, {k: state[k] for k in ("halo", "gs", "gn")})
+    ring = context_to_tree(cfg, {k: state[k] for k in ("k", "v")})
+    return {"hg": hg, "ring": ring, "klen": state["klen"], "frames": state["frames"]}

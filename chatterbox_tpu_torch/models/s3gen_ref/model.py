@@ -1,5 +1,5 @@
-"""S3Gen (reference architecture) chunk inference — torch counterpart of the
-uncached path of ``chatterbox_tpu/models/s3gen_ref/model.py``.
+"""S3Gen (reference architecture) chunk inference — torch counterpart of
+``chatterbox_tpu/models/s3gen_ref/model.py``.
 
 ``s3gen_ref_inference(tokens, ref, cache_source, noise) → (wav, source)``:
 the left-packed [pad | prompt | generated] token track through the
@@ -8,14 +8,20 @@ vocoder with the excitation-prefix continuity contract (the cached source
 overrides the new one over ``cache_len`` samples). Every random draw enters
 through ``noise`` (``draw_noise`` makes one from a torch.Generator).
 ``s3gen_ref_inference_tail`` is the same chunk with the vocoder run only on
-a receptive-field window around each row's emitted tail (exact).
+a receptive-field window around each row's emitted tail (exact). Both take
+an optional per-voice CFM prompt cache (``s3gen_ref_prompt_prefill``), with
+which the CFM solves the generated frames only.
+``s3gen_ref_inference_streaming`` solves only a slice's new frames against
+the prompt cache and the request's frozen earlier frames
+(``init_s3gen_stream_state``); ``stack_stream_states`` and
+``split_stream_state`` batch and unbatch those states.
 Voice embedding (tokenizer, CAMPPlus, mel frontends) is not ported yet
 (ROADMAP.md Queue 1 item 9): the conditioning ``ref`` dict comes from
 ``conds.pt``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -23,7 +29,16 @@ from ...convert import convert_params
 from ...ops.initializers import DenseInit
 from ...ops.nn import linear
 from .config import S3GenRefConfig
-from .decoder import cfm_generate, cfm_noise_frames, init_estimator_params
+from .decoder import (
+    STATE_LANE_AXIS,
+    cfm_generate,
+    cfm_generate_cached,
+    cfm_generate_streaming,
+    cfm_noise_frames,
+    cfm_prompt_prefill,
+    init_estimator_params,
+    init_stream_state,
+)
 from .hift import (
     _upsample_total,
     hift_decode,
@@ -57,13 +72,15 @@ def init_s3gen_ref_params(cfg: S3GenRefConfig, generator: torch.Generator, devic
 
 
 def draw_noise(cfg: S3GenRefConfig, batch: int, n_tokens: int, generator: torch.Generator,
-               device) -> Dict[str, torch.Tensor]:
+               device, stream: bool = False) -> Dict[str, torch.Tensor]:
     """The random inputs of one ``s3gen_ref_inference`` call. Drawn in a
     fixed order with the CFM buffer first at a length independent of the
     chunk (for chunks up to its 2048 frames), so a generator seeded the same
-    way gives frame t the same initial noise on every slice of a chunk."""
+    way gives frame t the same initial noise on every slice of a chunk.
+    ``stream``: the buffer of a streaming slice, always 2048 frames (later
+    positions clip to its last frame, as in the JAX package)."""
     fpt = cfg.flow.up_stride
-    frames = (cfg.max_prompt_tokens + n_tokens) * fpt
+    frames = 0 if stream else (cfg.max_prompt_tokens + n_tokens) * fpt
     H = cfg.hift.nb_harmonics + 1
     L = n_tokens * fpt * _upsample_total(cfg.hift)
     g = dict(generator=generator, device=device)
@@ -136,18 +153,26 @@ def _source_with_cache(params: Dict, cfg: S3GenRefConfig, mel_gen: torch.Tensor,
 
 def _mel_and_source(params: Dict, cfg: S3GenRefConfig, tokens: torch.Tensor,
                     token_len: torch.Tensor, ref: Dict, source_cache: torch.Tensor,
-                    cache_len: torch.Tensor, noise: Dict[str, torch.Tensor]):
+                    cache_len: torch.Tensor, noise: Dict[str, torch.Tensor],
+                    cfm_cache: Dict | None = None):
     """Encoder → CFM mel → NSF excitation → (mel_gen [B, T·fpt, 80] f32,
-    source [B, T·spt])."""
+    source [B, T·spt]). With ``cfm_cache`` the CFM solves only the generated
+    frames against the frozen prompt context; the encoder still sees
+    [prompt | generated], so ``mu`` is unchanged."""
     B, T = tokens.shape
     fl = cfg.flow
     Pm = cfg.max_prompt_tokens * fl.up_stride
     mu, valid_f, spk = _encode_mu(params, cfg, tokens, token_len, ref)
-    packed_mel = _packed_prompt_mel(cfg, ref, mu.dtype)
-    cond = torch.cat([packed_mel, packed_mel.new_zeros((B, T * fl.up_stride, packed_mel.shape[2]))],
-                     dim=1)
-    mel_full = cfm_generate(params["flow"]["estimator"], fl, noise["cfm"], mu, spk, cond, valid_f)
-    mel_gen = torch.where(valid_f[:, Pm:, None], mel_full[:, Pm:], 0.0)
+    est = params["flow"]["estimator"]
+    if cfm_cache is not None:
+        mel_gen = cfm_generate_cached(est, fl, noise["cfm"], mu[:, Pm:], spk, valid_f[:, Pm:],
+                                      cfm_cache)
+    else:
+        packed_mel = _packed_prompt_mel(cfg, ref, mu.dtype)
+        cond = torch.cat([packed_mel, packed_mel.new_zeros(
+            (B, T * fl.up_stride, packed_mel.shape[2]))], dim=1)
+        mel_gen = cfm_generate(est, fl, noise["cfm"], mu, spk, cond, valid_f)[:, Pm:]
+    mel_gen = torch.where(valid_f[:, Pm:, None], mel_gen, 0.0)
     # the mel→wav stack runs in float32 whatever the flow's activation dtype
     mel_gen = mel_gen.float()
     source = _source_with_cache(params, cfg, mel_gen, source_cache, cache_len,
@@ -164,10 +189,11 @@ def s3gen_ref_inference(
     source_cache: torch.Tensor,  # [B, T*samples_per_token] excitation prefix
     cache_len: torch.Tensor,     # [B] valid samples in source_cache
     noise: Dict[str, torch.Tensor],  # draw_noise(...)
+    cfm_cache: Dict | None = None,   # s3gen_ref_prompt_prefill(...)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One streaming chunk → (wav [B, T·spt], new_source_cache [B, T·spt])."""
     mel_gen, source = _mel_and_source(params, cfg, tokens, token_len, ref, source_cache,
-                                      cache_len, noise)
+                                      cache_len, noise, cfm_cache)
     return hift_decode(params["mel2wav"], cfg.hift, mel_gen, source), source
 
 
@@ -182,6 +208,7 @@ def s3gen_ref_inference_tail(
     noise: Dict[str, torch.Tensor],
     start: torch.Tensor,         # [B] first wanted output sample (0 ≤ · ≤ T·spt − tail_len)
     tail_len: int,               # samples returned per row
+    cfm_cache: Dict | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunk inference that vocodes only a window around the emitted tail →
     (wav_tail [B, tail_len] == full wav[:, start:start+tail_len],
@@ -194,7 +221,7 @@ def s3gen_ref_inference_tail(
     (margin = ``hift_receptive_margin``) at a vocoder cost that stays constant
     per slice."""
     mel_gen, source = _mel_and_source(params, cfg, tokens, token_len, ref, source_cache,
-                                      cache_len, noise)
+                                      cache_len, noise, cfm_cache)
     return _vocode_tail_window(params, cfg, mel_gen, source, start, tail_len), source
 
 
@@ -225,3 +252,117 @@ def _vocode_tail_window(params: Dict, cfg: S3GenRefConfig, mel_gen: torch.Tensor
     # the JAX slice clamps its start into the window; so does this one
     off = (start - w0_tok * spt).clamp(0, win_tok * spt - tail_len)
     return _rows(wav_w, off, tail_len)
+
+
+def s3gen_ref_prompt_prefill(params: Dict, cfg: S3GenRefConfig, ref: Dict,
+                             noise: torch.Tensor) -> Dict:
+    """The per-voice CFM prompt cache: the prompt-only encoder, then the
+    capturing CFM solve (``decoder.cfm_prompt_prefill``), once per voice.
+    ``noise`` ([B, ≥Pm, 80] float32) is the prompt's initial noise, drawn
+    from a FIXED seed, so the cache serves every request of the voice."""
+    fl = cfg.flow
+    P = cfg.max_prompt_tokens
+    packed_prompt, prompt_mask = _left_pack(ref["prompt_tokens"], ref["prompt_len"].clamp_max(P))
+    emb = params["flow"]["input_emb"][packed_prompt.long().clamp(0, fl.vocab_size - 1)]
+    emb = torch.where(prompt_mask[:, :, None], emb, 0.0)
+    h, valid_f = upsample_encode(params["flow"]["encoder"], fl, emb, prompt_mask)
+    mu_p = linear(h, params["flow"]["encoder_proj"]["w"], params["flow"]["encoder_proj"]["b"])
+    return cfm_prompt_prefill(params["flow"]["estimator"], fl, noise, mu_p, _spk_track(params, ref),
+                              _packed_prompt_mel(cfg, ref, mu_p.dtype), valid_f)
+
+
+def init_s3gen_stream_state(cfg: S3GenRefConfig, cfm_cache: Dict, window: int,
+                            cap_tokens: int) -> Dict:
+    """A fresh per-chunk streaming state (batch 1): the CFM context
+    (``decoder.init_stream_state``) and the frozen mel buffer of
+    ``cap_tokens`` tokens the vocoder reads. Nothing updates a state in
+    place, so one template serves every request of a voice."""
+    mel = torch.zeros((1, cap_tokens * cfg.flow.up_stride, cfg.flow.output_size),
+                      dtype=torch.float32, device=cfm_cache["pv"].device)
+    return {"cfm": init_stream_state(cfg.flow, cfm_cache, window, batch=1), "mel": mel}
+
+
+def stack_stream_states(states: List[Dict]) -> Dict:
+    """Batch-1 streaming states → one state of batch len(states): CFG lanes
+    [c×B, u×B], a few copies for the whole tree."""
+    if len(states) == 1:
+        return states[0]
+    cfm = {}
+    for key, first in states[0]["cfm"].items():
+        parts = [s["cfm"][key] for s in states]
+        ax = STATE_LANE_AXIS.get(key)
+        cfm[key] = torch.cat(parts) if ax is None else torch.stack(parts, ax + 1).flatten(ax, ax + 1)
+    return {"cfm": cfm, "mel": torch.cat([s["mel"] for s in states])}
+
+
+def split_stream_state(state: Dict, B: int) -> List[Dict]:
+    """``stack_stream_states``' inverse (views, no copies)."""
+    if B == 1:
+        return [state]
+    out = []
+    for i in range(B):
+        cfm = {}
+        for key, a in state["cfm"].items():
+            ax = STATE_LANE_AXIS.get(key)
+            cfm[key] = a[i:i + 1] if ax is None else a.unflatten(ax, (2, B)).select(ax + 1, i)
+        out.append({"cfm": cfm, "mel": state["mel"][i:i + 1]})
+    return out
+
+
+def s3gen_ref_inference_streaming(
+    params: Dict,
+    cfg: S3GenRefConfig,
+    tokens: torch.Tensor,        # [B, T] ACCUMULATED chunk tokens, right-padded
+    token_len: torch.Tensor,     # [B] valid tokens (old + new)
+    new_len: torch.Tensor,       # [B] NEW tokens this slice (suffix of the valid ones)
+    ref: Dict,
+    source_cache: torch.Tensor,  # [B, T·spt] excitation prefix
+    cache_len: torch.Tensor,     # [B] valid samples in source_cache
+    noise: Dict[str, torch.Tensor],  # draw_noise(...) from the chunk's seed, every slice
+    start: torch.Tensor,         # [B] first wanted output sample
+    tail_len: int,               # samples returned per row
+    rstate: Dict,                # init_s3gen_stream_state / the previous slice
+    new_block_tokens: int,       # upper bound on new_len
+    cfm_cache: Dict,             # the per-voice prompt cache ("step" mode)
+) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """Streaming full-overlap slice → (wav_tail [B, tail_len], new source
+    cache [B, T·spt], new state).
+
+    The CFM solves only the slice's new frames, right-packed in a block of
+    ``new_block_tokens`` tokens, against the frozen prompt and earlier
+    frames (``cfm_generate_streaming``); earlier frames' mel comes from the
+    state's frozen buffer. The encoder still re-encodes the accumulated
+    track (exact ``mu``), and excitation and tail vocoding keep their
+    contracts. A chunk's first slice equals ``s3gen_ref_inference_tail`` with
+    the same cache and noise up to float32 summation order; later slices are
+    the JAX package's one-way deviation."""
+    B, T = tokens.shape
+    fl = cfg.flow
+    fpt = fl.up_stride
+    Pm = cfg.max_prompt_tokens * fpt
+    TgF = new_block_tokens * fpt
+    mu, _, spk = _encode_mu(params, cfg, tokens, token_len, ref)
+    M = mu.shape[2]
+    dev = mu.device
+    # the NEW frames' mu, right-packed into the block
+    total = token_len.to(dev).long() * fpt
+    new = new_len.to(dev).long() * fpt
+    old = total - new
+    j = torch.arange(TgF, device=dev)[None, :]
+    idx = (Pm + old[:, None] + (j - (TgF - new[:, None]))).clamp(0, mu.shape[1] - 1)
+    mu_new = torch.gather(mu, 1, idx[:, :, None].expand(B, TgF, M))
+    mel_new, new_cfm = cfm_generate_streaming(params["flow"]["estimator"], fl, noise["cfm"],
+                                              mu_new, spk, new, cfm_cache, rstate["cfm"])
+    # write the new frames into the frozen-mel buffer: only rows [old, total)
+    # change, by a gather and a select
+    buf = rstate["mel"]
+    jj = torch.arange(buf.shape[1], device=dev)[None, :]
+    is_new = (jj >= old[:, None]) & (jj < total[:, None])
+    bsrc = (jj - old[:, None] + (TgF - new[:, None])).clamp(0, TgF - 1)
+    gathered = torch.gather(mel_new.to(buf.dtype), 1, bsrc[:, :, None].expand(B, buf.shape[1], M))
+    buf = torch.where(is_new[:, :, None], gathered, buf)
+    mel_gen = buf[:, : T * fpt]
+    source = _source_with_cache(params, cfg, mel_gen, source_cache, cache_len,
+                                noise["rand_ini"], noise["nsf"])
+    wav_tail = _vocode_tail_window(params, cfg, mel_gen, source, start, tail_len)
+    return wav_tail, source, {"cfm": new_cfm, "mel": buf}

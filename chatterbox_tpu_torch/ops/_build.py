@@ -45,8 +45,8 @@ _SIGNATURES = {
     "decode_attention_launch": [_P] * 11 + [_I] * 7 + [_F, _P],
     # () → cache rows per slice of decode_attention_launch
     "decode_attention_slice_rows": [],
-    # q, k, v, valid, out, B, H, T, Dh, dtype, scale, stream
-    "flash_mha_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
+    # q, k, v, valid, out, B, H, Tq, Tk, Dh, dtype, scale, stream
+    "flash_mha_launch": [_P] * 5 + [_I] * 6 + [_F, _P],
     # q, k, v, k_new, v_new, start, pos, out, scratch, B, H, Hk, S, Dh, dtype, scale, stream
     "decode_attention_pipelined_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
     # () → cache rows per slice of decode_attention_pipelined_launch

@@ -2,13 +2,20 @@
 
 Replaces ``chatterbox_tpu/ops/pallas_mha.py::flash_mha`` (kernel
 ``_mha_kernel``), which runs every transformer block of every CFM estimator
-evaluation on the uncached path. Semantics: softmax(q·kᵀ·scale) over the
-valid keys, float32 accumulation; a query row whose keys are all masked
-returns 0 (not the uniform average a plain masked softmax gives).
+evaluation on the uncached path and in the per-voice prompt prefill.
+Semantics: softmax(q·kᵀ·scale) over the valid keys, float32 accumulation; a
+query row whose keys are all masked returns 0 (not the uniform average a
+plain masked softmax gives).
+
+Two forms: the self form (q, k, v share one length T) and the context form
+(Tq queries over Tk keys), which every cached and streaming estimator
+evaluation runs over its [prompt | ring | own] keys (the JAX package computes
+that one as a plain einsum, ``decoder.py:280-298``).
 
 ``flash_mha`` is the wrapper the model calls: on a CPU tensor it runs
 ``flash_mha_plain``; on a CUDA tensor it launches ``csrc/flash_mha.cu`` or
-raises. ``launches`` counts kernel launches per input dtype.
+raises. ``launches`` counts kernel launches per input dtype, the context
+form under ``<dtype>_ctx``.
 
 The kernel multiplies on the tensor cores (``mma.sync`` m16n8k16, bf16 in,
 float32 accumulation), under this precision contract:
@@ -31,7 +38,7 @@ import torch
 from . import _build
 from .nn import NEG_INF
 
-launches = {"float32": 0, "bfloat16": 0}
+launches = {"float32": 0, "bfloat16": 0, "float32_ctx": 0, "bfloat16_ctx": 0}
 
 _DTYPE_CODE = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
 _HEAD_DIMS = (32, 64, 128)
@@ -43,13 +50,13 @@ def reset_launches() -> None:
 
 
 def flash_mha_plain(
-    q: torch.Tensor,      # [B, H, T, dh]
-    k: torch.Tensor,
+    q: torch.Tensor,      # [B, H, Tq, dh]
+    k: torch.Tensor,      # [B, H, Tk, dh]
     v: torch.Tensor,
-    valid: torch.Tensor,  # [B, T] bool key validity
+    valid: torch.Tensor,  # [B, Tk] bool key validity
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version (float32 math) → [B, H, T, dh] in q's dtype."""
+    """Plain PyTorch version (float32 math) → [B, H, Tq, dh] in q's dtype."""
     if scale is None:
         scale = 1.0 / q.shape[-1] ** 0.5
     s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * scale
@@ -68,24 +75,27 @@ def flash_mha(
     valid: torch.Tensor,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """→ [B, H, T, dh]. CPU tensors take the plain version; CUDA tensors
-    launch the kernel, which masks the ragged T edge itself (no padding)."""
+    """→ [B, H, Tq, dh]. CPU tensors take the plain version; CUDA tensors
+    launch the kernel, which masks the ragged Tq and Tk edges itself (no
+    padding)."""
     if q.device.type == "cpu":
         return flash_mha_plain(q, k, v, valid, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: unsupported device {q.device}")
     if q.dim() != 4:
-        raise ValueError(f"q must be [B,H,T,dh], got {tuple(q.shape)}")
-    B, H, T, dh = q.shape
+        raise ValueError(f"q must be [B,H,Tq,dh], got {tuple(q.shape)}")
+    B, H, Tq, dh = q.shape
+    Tk = k.shape[2] if k.dim() == 4 else -1
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
     if dh not in _HEAD_DIMS:
         raise ValueError(f"head dim {dh} not supported {_HEAD_DIMS}")
     for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype:
-            raise ValueError(f"{name} {tuple(t.shape)}/{t.dtype} != q {tuple(q.shape)}/{q.dtype}")
-    if tuple(valid.shape) != (B, T) or valid.dtype != torch.bool:
-        raise ValueError(f"valid must be bool [B, T], got {tuple(valid.shape)}/{valid.dtype}")
+        if tuple(t.shape) != (B, H, Tk, dh) or Tk < 1 or t.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)}/{t.dtype} does not fit q "
+                             f"{tuple(q.shape)}/{q.dtype} (want [B, H, Tk, dh])")
+    if tuple(valid.shape) != (B, Tk) or valid.dtype != torch.bool:
+        raise ValueError(f"valid must be bool [B, Tk], got {tuple(valid.shape)}/{valid.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v), ("valid", valid)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -99,8 +109,9 @@ def flash_mha(
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_mha_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            B, H, T, dh, _DTYPE_CODE[q.dtype], ctypes.c_float(scale), ctypes.c_void_p(stream),
+            B, H, Tq, Tk, dh, _DTYPE_CODE[q.dtype], ctypes.c_float(scale),
+            ctypes.c_void_p(stream),
         )
     _build.check(err, "flash_mha")
-    launches[str(q.dtype).removeprefix("torch.")] += 1
+    launches[str(q.dtype).removeprefix("torch.") + ("_ctx" if Tk != Tq else "")] += 1
     return out

@@ -15,11 +15,19 @@ synthesises through one ``S3GenScheduler`` micro-batcher (device-resident
 source state, tail-windowed vocoder); with ``MAX_DECODE_SLOTS=1`` each request
 prefills its own cache and calls S3Gen itself.
 
+S3Gen serves the JAX package's defaults: the per-voice CFM prompt cache in
+"step" mode (``CHATTERBOX_CFM_PROMPT_CACHE``: "step", "static" or "0" for the
+uncached re-solve) and, on the batched path with full overlap, streaming CFM
+(``CHATTERBOX_CFM_STREAM``, default "1"): each slice solves only its new
+tokens against the voice's prompt context and the request's frozen earlier
+frames. The per-request path uses the prompt cache without streaming, as in
+the JAX package.
+
 What this port serves today (the rest raises NotImplementedError naming its
-ROADMAP.md item): the default voice from ``MODEL_PATH/conds.pt``, random
-weights made on the device from a seeded generator, no CFM prompt cache, no
-streaming CFM. The device is explicit: with no CUDA device and no
-``device="cpu"``, construction raises.
+ROADMAP.md item): the default voice from ``MODEL_PATH/conds.pt`` and random
+weights made on the device from a seeded generator. The device is explicit:
+with no CUDA device and no ``device="cpu"``, construction raises. The engine
+records the JAX engine's serving metrics (``runtime.metrics``).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import dataclasses
 import functools
 import math
 import os
+import threading
 import time
 import zlib
 from enum import Enum
@@ -47,9 +56,12 @@ from ..models.s3gen_ref import (
     S3GenRefConfig,
     draw_noise,
     init_s3gen_ref_params,
+    init_s3gen_stream_state,
     s3gen_ref_inference,
     s3gen_ref_inference_tail,
+    s3gen_ref_prompt_prefill,
 )
+from ..models.s3gen_ref.decoder import cfm_noise_frames, static_prompt_cache
 from ..models.t3 import T3Config, cond_embeddings, init_t3_params, make_decode_state, t3_decode_slice, t3_prefill
 from ..models.tokenizer import TextTokenizer
 from ..ops import _build
@@ -58,6 +70,7 @@ from ..settings import check_supported, get_settings, get_tts_config
 from ..text import split_text_into_chunks
 from .cancellation import CancellationToken, race_cancellation
 from .loader import load_default_conds
+from .metrics import metrics
 from .s3gen_scheduler import MAX_TAIL_TOKENS, S3GenScheduler
 from .scheduler import BatchedT3Decoder
 
@@ -183,6 +196,11 @@ def _token_bucket_sizes(slice_size: int, cap: int):
     return sizes
 
 
+# the prompt noise of every voice's CFM prompt cache: a fixed seed keeps the
+# cache voice-stable (the JAX engine's fixed PRNGKey(777))
+PROMPT_NOISE_SEED = 777
+
+
 def _resolve_device(device) -> torch.device:
     if device is not None:
         return torch.device(device)
@@ -221,6 +239,13 @@ class TTSEngine:
         self.decoder: Optional[BatchedT3Decoder] = None         # MAX_DECODE_SLOTS > 1
         self.s3gen_scheduler: Optional[S3GenScheduler] = None   # same gate
         self._request_errors: Dict[str, str] = {}
+        # per-voice CFM prompt caches (LRU, CHATTERBOX_CFM_CACHE_VOICES) and
+        # each voice's fresh streaming state: voice → (its cache, the state)
+        self._cfm_cache_lru: "collections.OrderedDict[str, Dict]" = collections.OrderedDict()
+        self._stream0: Dict[str, tuple] = {}
+        self._cfm_lock = threading.Lock()
+        # bounded re-synthesis window in tokens (0: the whole chunk)
+        self.overlap_window = int(os.environ.get("CHATTERBOX_OVERLAP_WINDOW_TOKENS", "0") or 0)
         # per-request record (tokens per chunk, samples, TTFA, wall), newest last
         self.request_stats: "collections.OrderedDict[str, Dict]" = collections.OrderedDict()
 
@@ -237,6 +262,8 @@ class TTSEngine:
         self.s3gen_scheduler = None
         self.params = None
         self.voice_cache.clear()
+        self._cfm_cache_lru.clear()
+        self._stream0.clear()
 
     async def ainit(self) -> None:
         try:
@@ -246,7 +273,10 @@ class TTSEngine:
             self._progress = "Initializing models..."
             await asyncio.to_thread(self._init_models)
             self._progress = "Loading the default voice..."
-            await asyncio.to_thread(self._default_conditionals)
+            conds = await asyncio.to_thread(self._default_conditionals)
+            if self._cfm_cache_mode() != "0":
+                self._progress = "Building the default voice's CFM prompt cache..."
+                await asyncio.to_thread(self._cfm_cache_for, "default", conds)
             if get_settings().MAX_DECODE_SLOTS > 1:
                 self._init_schedulers()
                 self._progress = "Warming up the batched decoder..."
@@ -295,8 +325,9 @@ class TTSEngine:
         rc = self.cfg.s3gen_ref
         tail_infer = None
         if os.environ.get("CHATTERBOX_TAIL_VOCODE", "1") == "1":
-            def tail_infer(p, tk, tl, rf, sr, cl, nz, start, tail_len):
-                return s3gen_ref_inference_tail(p, rc, tk, tl, rf, sr, cl, nz, start, tail_len)
+            def tail_infer(p, tk, tl, rf, sr, cl, nz, start, tail_len, cache=None):
+                return s3gen_ref_inference_tail(p, rc, tk, tl, rf, sr, cl, nz, start, tail_len,
+                                                cfm_cache=cache)
         # the source row holds the largest bucket plus the largest per-slice
         # window shift (≤ slice + EOS ≤ MAX_TAIL_TOKENS)
         self.s3gen_scheduler = S3GenScheduler(
@@ -324,6 +355,68 @@ class TTSEngine:
         """Largest accumulated-token count one text chunk can feed S3Gen:
         per-chunk decode stops at ``max_new_tokens`` (+1 appended EOS code)."""
         return min(self.cfg.t3.max_speech_tokens + 8, self.cfg.max_new_tokens + 2)
+
+    # ------------------------------------------------------ CFM prompt cache
+    @staticmethod
+    def _cfm_cache_mode() -> str:
+        """CHATTERBOX_CFM_PROMPT_CACHE: "step" (the default: the frozen prompt
+        context of every Euler step), "static" (the last step's, reused at
+        every step: 10x smaller) or "0" (off: the uncached re-solve)."""
+        v = os.environ.get("CHATTERBOX_CFM_PROMPT_CACHE", "step").lower()
+        if v in ("1", "step"):
+            return "step"
+        return "static" if v == "static" else "0"
+
+    def _streaming(self) -> bool:
+        """Streaming CFM serves the batched path when the cache is per step
+        and CHATTERBOX_CFM_STREAM is "1" (the default)."""
+        return (self.s3gen_scheduler is not None and self._cfm_cache_mode() == "step"
+                and os.environ.get("CHATTERBOX_CFM_STREAM", "1") == "1")
+
+    @torch.inference_mode()
+    def _cfm_cache_for(self, voice_id: str, conds: Conditionals) -> Optional[Dict]:
+        """The voice's frozen CFM prompt context, built at its first request
+        from the fixed prompt noise and kept in an LRU of
+        CHATTERBOX_CFM_CACHE_VOICES voices (default 4: a full-size "step"
+        context is about 1.1 GB in bf16). Evicting a voice drops its
+        streaming template too."""
+        mode = self._cfm_cache_mode()
+        if mode == "0":
+            return None
+        with self._cfm_lock:
+            hit = self._cfm_cache_lru.pop(voice_id, None)
+            if hit is not None:
+                self._cfm_cache_lru[voice_id] = hit  # most recently used
+                return hit
+            rc = self.cfg.s3gen_ref
+            gen = torch.Generator(device=self.device).manual_seed(PROMPT_NOISE_SEED)
+            pm = rc.max_prompt_tokens * rc.flow.up_stride
+            noise = torch.randn((1, cfm_noise_frames(pm), rc.flow.output_size), generator=gen,
+                                device=self.device)
+            cache = s3gen_ref_prompt_prefill(self.params["s3gen"], rc, conds.gen_ref, noise)
+            if mode == "static":
+                cache = static_prompt_cache(cache)
+            cap = max(1, int(os.environ.get("CHATTERBOX_CFM_CACHE_VOICES", "4")))
+            while len(self._cfm_cache_lru) >= cap:
+                evicted, _ = self._cfm_cache_lru.popitem(last=False)
+                self._stream0.pop(evicted, None)
+                log.info("CFM prompt cache: evicted voice '%s' (cap %d)", evicted, cap)
+            self._cfm_cache_lru[voice_id] = cache
+            return cache
+
+    @torch.inference_mode()
+    def _stream_state0(self, voice_id: str, cfm_cache: Dict) -> Dict:
+        """The voice's fresh streaming state (nothing updates a state in
+        place, so every chunk of every request of the voice starts from it);
+        the K/V ring holds CHATTERBOX_STREAM_WINDOW frames (default 512)."""
+        hit = self._stream0.get(voice_id)
+        if hit is not None and hit[0] is cfm_cache:
+            return hit[1]
+        window = int(os.environ.get("CHATTERBOX_STREAM_WINDOW", "512"))
+        state = init_s3gen_stream_state(self.cfg.s3gen_ref, cfm_cache, window,
+                                        self._reachable_token_cap())
+        self._stream0[voice_id] = (cfm_cache, state)
+        return state
 
     def _decode_seed(self, request_id: str, chunk_idx: int) -> int:
         """The sampling seed of one text chunk: stable across processes and
@@ -390,6 +483,8 @@ class TTSEngine:
             "the feature frontends) is ROADMAP.md Queue 1 item 9")
 
     def clear_voice_cache(self, voice_id: str) -> None:
+        self._cfm_cache_lru.pop(voice_id, None)
+        self._stream0.pop(voice_id, None)
         if voice_id in self.voice_cache:
             del self.voice_cache[voice_id]
             log.info("Removed voice '%s' from cache.", voice_id)
@@ -426,6 +521,13 @@ class TTSEngine:
                 raise RuntimeError(f"TTS Engine is not ready. Status: {self._state.value}")
             start_time = time.time()
             conds = await self._get_conds(voice_id)
+            cfm_cache = stream0 = None
+            if self._cfm_cache_mode() != "0":
+                cfm_cache = await asyncio.to_thread(self._cfm_cache_for, voice_id or "default",
+                                                    conds)
+            if cfm_cache is not None and chunk_overlap_strategy == "full" and self._streaming():
+                stream0 = await asyncio.to_thread(self._stream_state0, voice_id or "default",
+                                                  cfm_cache)
             text_chunks = await asyncio.to_thread(
                 split_text_into_chunks, text, text_processing_chunk_size)
             if not text_chunks:
@@ -434,9 +536,13 @@ class TTSEngine:
             # synth_samples: audio into the crossfade; samples: audio out of it
             # (each faded seam merges fade_len samples of two slices into one)
             # t3_s / s3gen_s: host wall of the device calls (they overlap)
+            # streamed / fallbacks: S3Gen calls that ran streaming CFM, and
+            # chunks that fell back from it to the re-solve; window_drops:
+            # re-solves that dropped left context (CHATTERBOX_OVERLAP_WINDOW_TOKENS)
             stats = {"chunks": len(text_chunks), "t3_tokens": [], "synth_samples": 0,
                      "samples": 0, "slices": 0, "ttfa_s": None, "wall_s": None,
-                     "t3_s": 0.0, "t3_steps": 0, "s3gen_s": 0.0}
+                     "t3_s": 0.0, "t3_steps": 0, "s3gen_s": 0.0, "streamed": 0,
+                     "fallbacks": 0, "window_drops": 0}
             self.request_stats[request_id] = stats
             while len(self.request_stats) > 64:
                 self.request_stats.popitem(last=False)
@@ -451,7 +557,7 @@ class TTSEngine:
                 token_q, pcm_q, conds, chunk_overlap_strategy, slice_size,
                 crossfade_duration_milliseconds, remove_leading_milliseconds,
                 remove_trailing_milliseconds, len(text_chunks), request_id,
-                cancellation_token, stats))
+                cancellation_token, stats, cfm_cache, stream0))
             first_pcm_at = [None]  # TTFA anchor: first audio, not the container header
 
             async def pcm_generator():
@@ -464,6 +570,7 @@ class TTSEngine:
                     yield item
 
             encoder = AudioEncoder(output_format, self.sr, log_prefix=f"[{request_id}] ")
+            failed = False
             try:
                 async for out in encoder.encode(pcm_generator()):
                     if stats["ttfa_s"] is None and first_pcm_at[0] is not None:
@@ -472,9 +579,12 @@ class TTSEngine:
                     yield out
                 err = self._request_errors.pop(request_id, None)
                 if err is not None:
+                    failed = True
                     raise RuntimeError(f"synthesis pipeline failed: {err}")
             finally:
                 stats["wall_s"] = time.time() - start_time
+                metrics.record_request(stats["ttfa_s"], stats["wall_s"], failed,
+                                       cancellation_token.is_cancelled())
                 self._request_errors.pop(request_id, None)
                 for task in (t3_task, s3_task):
                     task.cancel()
@@ -644,22 +754,32 @@ class TTSEngine:
                               conds: Conditionals, overlap: str, slice_size: int,
                               crossfade_ms: int, lead_trim_ms: int, trail_trim_ms: int,
                               n_chunks: int, request_id: str, token: CancellationToken,
-                              stats: Dict) -> None:
+                              stats: Dict, cfm_cache: Optional[Dict] = None,
+                              stream0: Optional[Dict] = None) -> None:
+        """``cfm_cache``: the voice's CFM prompt cache (None: uncached).
+        ``stream0``: the voice's fresh streaming state; with it and full
+        overlap each slice solves only its new tokens (streaming CFM), and
+        the overlap window does not apply (nothing is dropped)."""
         s3p = self.params["s3gen"]
         s3c = self.gen_cfg
         spt = s3c.samples_per_token
         dev = self.device
         stitcher = CrossfadeStitcher(int(self.sr * crossfade_ms / 1000.0))
         buckets = _token_bucket_sizes(slice_size, self._reachable_token_cap())
+        full = overlap == "full"
+        streaming = stream0 is not None and full
         # request-stable noise: every slice of a chunk reseeds the same
         # generator, so frame t gets the same CFM noise on every re-synthesis
         noise_gen = torch.Generator(device=dev)
         base_seed = (1234 * 1_000_003 + _stable_seed(request_id)) & 0x7FFFFFFF
         acc_tokens = np.zeros((0,), np.int64)
-        prev_samples = 0  # samples of the chunk already emitted (full overlap)
+        prev_samples = 0  # absolute samples of the chunk already emitted (full overlap)
+        src_drop = 0      # window drop (tokens) the source cache is aligned to
+        src_valid = 0     # valid samples in the batched path's source row
         last_chunk_idx = -1
         source_cache = np.zeros((0,), np.float32)  # per-request path: on the host
         source_state = None                        # batched path: a device row
+        rstate = None                              # streaming: the chunk's state
 
         async def emit(audio: np.ndarray) -> bool:
             if audio.size == 0:
@@ -674,11 +794,14 @@ class TTSEngine:
                 if cancelled or item is None:
                     break
                 t_start = time.time()
+                metrics.record_tokens(len(item["tokens"]))
+                t_prep0 = time.perf_counter()
                 if item["chunk_idx"] != last_chunk_idx:
                     acc_tokens = np.zeros((0,), np.int64)
-                    prev_samples = 0
+                    prev_samples = src_drop = src_valid = 0
                     source_cache = np.zeros((0,), np.float32)
                     source_state = None
+                    rstate = stream0 if streaming else None
                     last_chunk_idx = item["chunk_idx"]
                     chunk_seed = base_seed + item["chunk_idx"]
                 new_toks = item["tokens"]
@@ -687,10 +810,28 @@ class TTSEngine:
                     # (=0, a valid code)
                     new_toks = np.concatenate([new_toks, [self.cfg.t3.stop_text_token]])
                 new_toks = new_toks[new_toks < s3c.vocab_size]
-                if overlap == "full":
-                    # re-synthesise the chunk's accumulated tokens; emit the new tail
+                drop = new_count = 0
+                if full:
+                    prev_acc = acc_tokens.size
                     acc_tokens = np.concatenate([acc_tokens, new_toks])
-                    infer_tokens = acc_tokens
+                    if rstate is not None:
+                        if acc_tokens.size == 0:
+                            continue
+                        if acc_tokens.size < 3:
+                            # keep the min-conv pad IN the accumulated stream,
+                            # so the next slice's old/new split matches the
+                            # frozen state (token 0 is a valid code)
+                            acc_tokens = np.pad(acc_tokens, (0, 3 - acc_tokens.size))
+                        new_count = acc_tokens.size - prev_acc
+                        if new_count == 0:
+                            continue
+                    elif self.overlap_window:
+                        # bounded re-synthesis: keep the last W tokens of left
+                        # context, never dropping past the emitted prefix
+                        drop = max(0, min(acc_tokens.size - self.overlap_window,
+                                          prev_samples // spt))
+                        stats["window_drops"] += drop > 0
+                    infer_tokens = acc_tokens[drop:]
                 else:
                     infer_tokens = new_toks
                 if infer_tokens.size == 0:
@@ -701,25 +842,50 @@ class TTSEngine:
                 padded = np.full((1, T), s3c.vocab_size, np.int64)
                 padded[0, : infer_tokens.size] = infer_tokens
                 valid = infer_tokens.size * spt
-                full = overlap == "full"
+                prev_rel = prev_samples - drop * spt if full else 0
                 if self.s3gen_scheduler is not None:
                     # batched: the source row stays on the device and only
                     # the new tail comes back
-                    prev_rel = prev_samples if full else 0
+                    if rstate is not None and new_count > min(MAX_TAIL_TOKENS, T):
+                        # the decoder never emits more than slice + EOS tokens;
+                        # were it to, the streaming block would truncate them:
+                        # re-solve the rest of this chunk instead
+                        log.error("[%s][S3GEN] %d new tokens exceed the streaming block; "
+                                  "falling back to re-solve", request_id, new_count)
+                        stats["fallbacks"] += 1
+                        rstate = None
+                    shift = (drop - src_drop) * spt if full else 0
+                    clen = max(0, min(src_valid - shift, T * spt)) if full else 0
+                    metrics.record_stage("s3gen_prep_host", time.perf_counter() - t_prep0)
                     t0 = time.perf_counter()
-                    tail, start_used, new_state = await self.s3gen_scheduler.synthesize(
-                        padded[0], infer_tokens.size, conds.gen_ref, source_state,
-                        min(prev_samples, T * spt) if full else 0, chunk_seed,
-                        prev_rel=prev_rel, keep_state=full)
+                    if rstate is not None:
+                        tail, start_used, new_state, rstate = await self.s3gen_scheduler.synthesize(
+                            padded[0], infer_tokens.size, conds.gen_ref, source_state, clen,
+                            chunk_seed, prev_rel=prev_rel, cache=cfm_cache, new_len=new_count,
+                            rstate=rstate)
+                        stats["streamed"] += 1
+                    else:
+                        tail, start_used, new_state = await self.s3gen_scheduler.synthesize(
+                            padded[0], infer_tokens.size, conds.gen_ref, source_state, clen,
+                            chunk_seed, shift=shift, prev_rel=prev_rel, keep_state=full,
+                            cache=cfm_cache)
                     stats["s3gen_s"] += time.perf_counter() - t0
+                    t_host0 = time.perf_counter()
                     audio = tail[prev_rel - start_used: valid - start_used]
                     if full:
                         source_state = new_state
+                        src_valid = valid
                 else:
-                    # the previous slice's excitation overrides the new one's prefix
+                    # the previous slice's excitation overrides the new one's
+                    # prefix, aligned to this slice's window
                     src = np.zeros((1, T * spt), np.float32)
-                    cache_len = min(source_cache.size, T * spt) if full else 0
-                    src[0, :cache_len] = source_cache[:cache_len]
+                    cache_len = 0
+                    if full:
+                        off = (drop - src_drop) * spt
+                        sc = source_cache[off:]
+                        cache_len = min(sc.size, T * spt)
+                        src[0, :cache_len] = sc[:cache_len]
+                    metrics.record_stage("s3gen_prep_host", time.perf_counter() - t_prep0)
 
                     def run(tokens=padded, n_valid=infer_tokens.size, src=src,
                             cache_len=cache_len, seed=chunk_seed, T=T):
@@ -730,17 +896,21 @@ class TTSEngine:
                                 s3p, s3c, torch.as_tensor(tokens, device=dev),
                                 torch.tensor([n_valid], device=dev), conds.gen_ref,
                                 torch.as_tensor(src, device=dev),
-                                torch.tensor([cache_len], device=dev), noise)
+                                torch.tensor([cache_len], device=dev), noise, cfm_cache)
                             return w[0].float().cpu().numpy(), ns[0].float().cpu().numpy()
 
                     t0 = time.perf_counter()
                     wav, new_src = await asyncio.to_thread(run)
-                    stats["s3gen_s"] += time.perf_counter() - t0
-                    audio = wav[prev_samples if full else 0: valid]
+                    dt = time.perf_counter() - t0
+                    metrics.record_stage("s3gen_single_device", dt)
+                    stats["s3gen_s"] += dt
+                    t_host0 = time.perf_counter()
+                    audio = wav[prev_rel: valid]
                     if full:
                         source_cache = new_src[:valid]
                 if full:
-                    prev_samples = valid
+                    src_drop = drop
+                    prev_samples = drop * spt + valid
                 if item["is_first_chunk"] and item["is_first_slice"]:
                     audio = trim_leading(audio, lead_trim_ms, self.sr)
                 if item["is_last_chunk"] and item["is_last_slice"]:
@@ -750,7 +920,9 @@ class TTSEngine:
                          infer_tokens.size, len(audio) / self.sr, time.time() - t_start)
                 stats["synth_samples"] += int(audio.size)
                 stats["slices"] += 1
-                if not await emit(stitcher.push(audio)):
+                stitched = stitcher.push(audio)
+                metrics.record_stage("s3gen_stitch_host", time.perf_counter() - t_host0)
+                if not await emit(stitched):
                     return
         except Exception as exc:
             log.exception("[%s][S3GEN] producer error", request_id)

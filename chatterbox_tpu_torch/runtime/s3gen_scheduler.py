@@ -1,12 +1,18 @@
 """S3Gen micro-batcher with device-resident source state (torch counterpart
-of ``chatterbox_tpu/runtime/s3gen_scheduler.py``, without its streaming-CFM
-branch).
+of ``chatterbox_tpu/runtime/s3gen_scheduler.py``).
 
 Concurrent chunk syntheses that share a token bucket go out as ONE batched
 call: their token rows, conditioning dicts, source windows and noise stack
 along the batch axis. Batches form greedily, with no artificial wait: what is
 queued for a bucket when the previous batch returns goes out together, up to
-the token-product budget (``CHATTERBOX_S3GEN_BATCH_TOKENS``).
+the token-product budget (``CHATTERBOX_S3GEN_BATCH_TOKENS``). Queues key on
+(bucket, CFM prompt cache identity, streaming): a batch shares one per-voice
+prompt cache, and streaming jobs run another model call than re-solve jobs.
+
+Streaming jobs (``rstate``) solve only their new tokens, right-packed into a
+block from ``STREAM_BLOCK_SNAP`` picked for the batch's largest ``new_len``;
+their per-request states stack into one batched state for the call, and
+each job's future returns its own new state.
 
 Each request's excitation source cache stays on the device as a fixed-size
 ``[state_len]`` row; a batch gathers the window each job needs (``shift``)
@@ -26,8 +32,6 @@ Two deliberate differences from the JAX scheduler:
   loudly, as the JAX scheduler's batch-of-one failure does; a retry would hide
   a kernel fault that shows only at some batch size.
 
-Jobs for the unported CFM prompt cache or streaming CFM raise
-``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -41,13 +45,31 @@ import numpy as np
 import torch
 
 from ..logging_config import log
-from ..models.s3gen_ref import draw_noise, s3gen_ref_inference
+from ..models.s3gen_ref import (
+    draw_noise,
+    s3gen_ref_inference,
+    s3gen_ref_inference_streaming,
+    split_stream_state,
+    stack_stream_states,
+)
 from .metrics import metrics
 
 # Upper bound on NEW tokens per synthesis call: the largest snapped
 # audio_tokens_per_slice (100, engine.SLICE_SIZE_SNAP) + the appended EOS
 # code. The returned tail is min(MAX_TAIL_TOKENS, bucket)·spt samples.
 MAX_TAIL_TOKENS = 101
+
+# Streaming-block ladder (tokens): a streaming call solves a right-packed
+# block of new_block·up_stride frames, so the block follows the slice, not
+# MAX_TAIL_TOKENS. Every snapped slice size + the EOS code fits one of these.
+STREAM_BLOCK_SNAP = (36, 71, 101)
+
+
+def stream_block_tokens(max_new: int, bucket: int) -> int:
+    """Smallest streaming block that holds ``max_new`` new tokens, clamped
+    to the bucket (accumulated ≥ new) and MAX_TAIL_TOKENS."""
+    nb = next((s for s in STREAM_BLOCK_SNAP if s >= max_new), MAX_TAIL_TOKENS)
+    return max(1, min(nb, MAX_TAIL_TOKENS, bucket))
 
 
 @dataclasses.dataclass
@@ -62,6 +84,9 @@ class _Job:
     prev_rel: int                   # first NEW sample (window-relative)
     future: asyncio.Future
     keep_state: bool = True         # the caller wants the updated row back
+    cache: Optional[Dict] = None    # per-voice CFM prompt cache, shared by the batch
+    new_len: int = 0                # streaming: NEW tokens this slice
+    rstate: Optional[Dict] = None   # streaming: the request's state (batch 1)
 
 
 class S3GenScheduler:
@@ -74,7 +99,8 @@ class S3GenScheduler:
         ``tail_infer``: optional windowed-vocoder variant (… same args …,
         start [B], tail_len) → (tail [B, tail_len], new_src), which vocodes
         only a receptive-field window around the tail (exact; see
-        ``s3gen_ref_inference_tail``).
+        ``s3gen_ref_inference_tail``). Both take ``cache=`` for jobs with a
+        CFM prompt cache. Streaming jobs run ``s3gen_ref_inference_streaming``.
 
         ``state_tokens``: source-row capacity in tokens (≥ the largest bucket
         plus the largest per-slice shift)."""
@@ -86,18 +112,21 @@ class S3GenScheduler:
         self.state_len = state_tokens * cfg.samples_per_token
         self.device = params["flow"]["input_emb"].device
         self._infer = infer or (
-            lambda p, tk, tl, rf, sr, cl, nz: s3gen_ref_inference(p, cfg, tk, tl, rf, sr, cl, nz))
+            lambda p, tk, tl, rf, sr, cl, nz, cache=None: s3gen_ref_inference(
+                p, cfg, tk, tl, rf, sr, cl, nz, cfm_cache=cache))
         self._tail_infer = tail_infer
         self._noise_gen = torch.Generator(device=self.device)
-        self._queues: Dict[int, List[_Job]] = {}
+        self._queues: Dict[tuple, List[_Job]] = {}
         self._wake = asyncio.Event()
         self._task: Optional[asyncio.Task] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         # first-audio gate: bumped when a batch has been issued on the device
         self._dispatch_seq = 0
         self._dispatch_evt: Optional[asyncio.Event] = None
-        # high-watermark of jobs in one batch (shows that micro-batching batches)
+        # high-watermarks of jobs in one batch, and in one streaming batch
+        # (they show that micro-batching batches)
         self.max_batch_seen = 0
+        self.max_stream_batch_seen = 0
 
     def _tail_len(self, T: int) -> int:
         return min(MAX_TAIL_TOKENS, T) * self.cfg.samples_per_token
@@ -158,18 +187,23 @@ class S3GenScheduler:
         shift: int = 0,                  # window drop in samples
         prev_rel: int = 0,               # first new sample (window-relative)
         keep_state: bool = True,         # False: the caller discards the new row
-        cache: Optional[Dict] = None,    # CFM prompt cache (not ported)
-        rstate: Optional[Dict] = None,   # streaming CFM state (not ported)
-    ) -> Tuple[np.ndarray, int, Optional[torch.Tensor]]:
+        cache: Optional[Dict] = None,    # per-voice CFM prompt cache
+        new_len: int = 0,                # streaming: NEW tokens this slice
+        rstate: Optional[Dict] = None,   # streaming: the request's state
+    ):
         """→ (audio tail [tail_len] on the host, tail start offset, new device
-        source row, or None when ``keep_state`` is False). The caller's new
-        audio is ``tail[prev_rel - start :]`` up to its valid length."""
+        source row, or None when ``keep_state`` is False), and for a
+        streaming job (``rstate``) a fourth element, the request's new
+        state. The caller's new audio is ``tail[prev_rel - start :]`` up to
+        its valid length."""
         if rstate is not None:
-            raise NotImplementedError(
-                "streaming S3Gen jobs (rstate): streaming CFM is ROADMAP.md Queue 1 item 6")
-        if cache is not None:
-            raise NotImplementedError(
-                "S3Gen jobs with a CFM prompt cache: ROADMAP.md Queue 1 item 6")
+            if cache is None:
+                raise ValueError("a streaming job needs the CFM prompt cache")
+            if not 0 < new_len <= min(MAX_TAIL_TOKENS, len(tokens)):
+                raise ValueError(f"streaming job with {new_len} new tokens "
+                                 f"(bucket {len(tokens)}, block ≤ {MAX_TAIL_TOKENS})")
+            if shift:
+                raise ValueError("streaming jobs never drop a window (shift must be 0)")
         n = len(tokens) * self.cfg.samples_per_token
         if not 0 <= shift <= self.state_len - n:
             # a clamped window would misalign the excitation cache
@@ -177,16 +211,21 @@ class S3GenScheduler:
                              f"(state_len {self.state_len}, bucket {len(tokens)})")
         self.start()
         fut = asyncio.get_running_loop().create_future()
-        self._queues.setdefault(len(tokens), []).append(
-            _Job(tokens, token_len, ref, state, cache_len, seed, shift, prev_rel, fut, keep_state))
+        qkey = (len(tokens), id(cache) if cache is not None else 0, rstate is not None)
+        self._queues.setdefault(qkey, []).append(
+            _Job(tokens, token_len, ref, state, cache_len, seed, shift, prev_rel, fut, keep_state,
+                 cache, new_len, rstate))
         self._wake.set()
         return await fut
 
     @torch.inference_mode()
     def _run_batch(self, jobs: List[_Job]):
-        """One batched call for jobs of one bucket → (tails [B, tail_len] on
-        the host, start offsets, new source rows [B, state_len])."""
+        """One batched call for jobs of one queue → (tails [B, tail_len] on
+        the host, start offsets, new source rows [B, state_len], the
+        streaming jobs' new states or None)."""
+        t_stack = _time.perf_counter()
         T = len(jobs[0].tokens)
+        cache, streaming = jobs[0].cache, jobs[0].rstate is not None
         spt = self.cfg.samples_per_token
         n, tail = T * spt, self._tail_len(T)
         dev = self.device
@@ -204,15 +243,27 @@ class S3GenScheduler:
         draws = []
         for j in jobs:
             self._noise_gen.manual_seed(j.seed)
-            draws.append(draw_noise(self.cfg, 1, T, self._noise_gen, dev))
+            draws.append(draw_noise(self.cfg, 1, T, self._noise_gen, dev, stream=streaming))
         noise = {k: torch.cat([d[k] for d in draws]) for k in draws[0]}
         starts_host = [min(max(j.prev_rel, 0), max(0, n - tail)) for j in jobs]
         starts = torch.as_tensor(starts_host, device=dev)
-        if self._tail_infer is not None:
+        kw = {} if cache is None else {"cache": cache}
+        new_rstates = None
+        if streaming:
+            rstate = stack_stream_states([j.rstate for j in jobs])
+            nlen = torch.as_tensor([j.new_len for j in jobs], device=dev)
+        metrics.record_stage("s3gen_stack_host", _time.perf_counter() - t_stack)
+        if streaming:
+            nb = stream_block_tokens(max(j.new_len for j in jobs), T)
+            tails, new_src, new_r = s3gen_ref_inference_streaming(
+                self.params, self.cfg, tokens, tlen, nlen, ref, src, clen, noise, starts, tail,
+                rstate, nb, cache)
+            new_rstates = split_stream_state(new_r, len(jobs))
+        elif self._tail_infer is not None:
             tails, new_src = self._tail_infer(self.params, tokens, tlen, ref, src, clen, noise,
-                                              starts, tail)
+                                              starts, tail, **kw)
         else:
-            wav, new_src = self._infer(self.params, tokens, tlen, ref, src, clen, noise)
+            wav, new_src = self._infer(self.params, tokens, tlen, ref, src, clen, noise, **kw)
             tails = torch.gather(wav, 1, starts[:, None] + torch.arange(tail, device=dev))
         new_states = torch.zeros((len(jobs), self.state_len), device=dev)
         new_states[:, :n] = new_src.float()
@@ -224,21 +275,23 @@ class S3GenScheduler:
                 loop.call_soon_threadsafe(self._signal_dispatch)
             except RuntimeError:
                 pass
-        return tails.float().cpu().numpy(), starts_host, new_states
+        return tails.float().cpu().numpy(), starts_host, new_states, new_rstates
 
     async def _run(self) -> None:
         while True:
-            bucket = next((b for b, q in self._queues.items() if q), None)
-            if bucket is None:
+            qkey = next((k for k, q in self._queues.items() if q), None)
+            if qkey is None:
                 self._wake.clear()
                 await self._wake.wait()
                 continue
-            queue = self._queues[bucket]
+            bucket = qkey[0]
+            queue = self._queues[qkey]
             take = min(len(queue), self.allowed_batch(bucket))
             jobs, queue[:] = queue[:take], queue[take:]
             t0 = _time.perf_counter()
             try:
-                tails, starts, new_states = await asyncio.to_thread(self._run_batch, jobs)
+                tails, starts, new_states, new_rstates = await asyncio.to_thread(
+                    self._run_batch, jobs)
             except asyncio.CancelledError:
                 for job in jobs:
                     if not job.future.done():
@@ -253,8 +306,13 @@ class S3GenScheduler:
             dt = _time.perf_counter() - t0
             metrics.record_stage("s3gen_device", dt, items=take)
             self.max_batch_seen = max(self.max_batch_seen, take)
-            log.info("[S3GEN] batch bucket=%d jobs=%d %.3fs", bucket, take, dt)
+            if new_rstates is not None:
+                self.max_stream_batch_seen = max(self.max_stream_batch_seen, take)
+            log.info("[S3GEN] batch bucket=%d jobs=%d cached=%s streaming=%s %.3fs", bucket, take,
+                     qkey[1] != 0, qkey[2], dt)
             for i, job in enumerate(jobs):
                 if not job.future.done():
-                    job.future.set_result(
-                        (tails[i], starts[i], new_states[i] if job.keep_state else None))
+                    result = (tails[i], starts[i], new_states[i] if job.keep_state else None)
+                    if new_rstates is not None:
+                        result += (new_rstates[i],)
+                    job.future.set_result(result)

@@ -2,12 +2,12 @@
 
 Reads the same environment variable names as ``chatterbox_tpu.config``
 (``MODEL_PATH``, ``MAX_DECODE_SLOTS``, ``TTS_*`` …, case-insensitive), from
-the process environment only. Defaults follow the JAX package (16 decode
-slots; ``MAX_DECODE_SLOTS=1`` serves per request) except where the port does
-not implement a path yet: no CFM prompt cache, no streaming CFM, no
-progressive slices.
-``check_supported`` raises ``NotImplementedError`` naming the ROADMAP.md item
-when one of those is asked for, instead of quietly ignoring it.
+the process environment only. Defaults follow the JAX package: 16 decode
+slots (``MAX_DECODE_SLOTS=1`` serves per request), the CFM prompt cache in
+"step" mode and streaming CFM on. ``check_supported`` raises
+``NotImplementedError`` naming the ROADMAP.md item when a path the port does
+not have yet is asked for (progressive slices), instead of quietly ignoring
+it.
 """
 from __future__ import annotations
 
@@ -56,15 +56,9 @@ def get_tts_config() -> TTSSettings:
 
 # (env name, port default, value(s) that ask for a path the port lacks, item)
 _UNPORTED = (
-    ("CHATTERBOX_CFM_PROMPT_CACHE", "0", ("1", "step", "static"),
-     "ROADMAP.md Queue 1 item 6 (CFM prompt cache)"),
-    ("CHATTERBOX_CFM_STREAM", "0", ("1",),
-     "ROADMAP.md Queue 1 item 6 (streaming CFM)"),
     ("CHATTERBOX_PROGRESSIVE_SLICES", "0", ("1",),
      "ROADMAP.md Queue 1 item 7 (progressive slices ride the streaming ladder)"),
 )
-# the JAX package's bounded re-synthesis window: any value but 0 is unported
-_WINDOW = "CHATTERBOX_OVERLAP_WINDOW_TOKENS"
 
 
 def check_supported() -> None:
@@ -73,7 +67,3 @@ def check_supported() -> None:
         value = os.environ.get(name, default).lower()
         if value in unported:
             raise NotImplementedError(f"{name}={value}: not ported yet — {item}")
-    if int(os.environ.get(_WINDOW, "0") or 0) != 0:
-        raise NotImplementedError(
-            f"{_WINDOW}: the bounded re-synthesis window is not ported; the port "
-            "re-synthesises each chunk's accumulated tokens (ROADMAP.md Queue 1 item 6)")

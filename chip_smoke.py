@@ -19,7 +19,10 @@ the script exits non-zero without printing the final line:
    across its ring's tile edges, the bodies no serving path runs (K2 at
    dh = 32 and 128; K1 and K3 at Dh = 32 and 128, G = 2 and 4; K3 also at
    G = 8 and 3), then K1 (int8 and bf16 bodies), K2 and K3 at the batched
-   path's shapes (32 lanes; 16 CFG pairs). Each gets its device time (CUDA events around calls queued
+   path's shapes (32 lanes; 16 CFG pairs), and K2's context form at the
+   streaming batch's (32 lanes, Tq = 72, 142 and 202 new frames over
+   Tk = Tq + 1012 keys) and at a ragged Tq and Tk with an all-masked lane.
+   Each gets its device time (CUDA events around calls queued
    behind a spin kernel), its time per call with the host's dispatch (CUDA
    events around one call on an idle GPU), its plain version's device time,
    one PyTorch library call's device time on the same inputs
@@ -27,25 +30,40 @@ the script exits non-zero without printing the final line:
    bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the tensor-core peak for their type (float32 at the TF32
    rate);
-4. batched serving: EngineConfig.full() (int8 KV cache, random weights from a
-   seed, a seeded conds.pt as the default voice, CHATTERBOX_MAX_NEW_TOKENS),
-   MAX_DECODE_SLOTS=16, 16 concurrent requests through
-   engine.stream(..., output_format="wav") with the HTTP handler's arguments,
-   some spanning two text chunks, under torch.profiler (CUDA activity only)
-   for the device's busy share. Every WAV is checked (RIFF header, sample
-   count against the tokens produced, finite, not silent); the decoder must
-   have run 12 or more slots at once, S3Gen must have batched 2 or more jobs,
-   and K1 (int8 body) and K2 must have launched. Then one 35-step slice at 16
-   slots, timed on the host and under the profiler;
-5. the per-request path (MAX_DECODE_SLOTS=1): two requests, one of two chunks,
-   with the same checks and K1/K2 launches;
-6. a full-width BatchedT3Decoder with a bf16 cache at 16 slots: 16 prefills,
+4. batched serving with the S3Gen defaults (the CFM prompt cache in "step"
+   mode, streaming CFM): EngineConfig.full() (int8 KV cache, random weights
+   from a seed, a seeded conds.pt as the default voice,
+   CHATTERBOX_MAX_NEW_TOKENS), MAX_DECODE_SLOTS=16; the default voice's
+   prompt cache rebuilt as at a voice's first request (its build time and
+   size, and one request's streaming state), then 16 concurrent requests
+   through engine.stream(..., output_format="wav") with the HTTP handler's
+   arguments, some spanning two text chunks, under torch.profiler (CUDA
+   activity only) for the device's busy share. Every WAV is checked (RIFF
+   header, sample count against the tokens produced, finite, not silent);
+   the decoder must have run 12 or more slots at once, S3Gen must have
+   batched 2 or more streaming jobs, every S3Gen call must have streamed (no
+   fallback to re-solve), and K1 (int8 body), K2's self form (the prompt
+   prefill) and K2's context form must have launched. Then one 35-step
+   slice at 16 slots, timed on the host and under the profiler;
+5. S3Gen at full width on phase 4's engine: a chunk's first streaming slice
+   from a fresh state against the prompt-cached tail path with the same
+   cache and noise (FIRST_SLICE_TOL); one batched call (16 jobs, 128-token
+   bucket) per path, streaming, cached re-solve and uncached re-solve, with
+   its device time and its device time by kernel; then 4 concurrent
+   one-chunk requests on the uncached batched path
+   (CHATTERBOX_CFM_PROMPT_CACHE=0) at a decode cap of 35 tokens, which must
+   run K2's self form only and batch 2 or more uncached S3Gen jobs;
+6. the per-request path (MAX_DECODE_SLOTS=1) at a decode cap of 35 tokens:
+   one two-chunk request with the prompt cache, then one one-chunk request
+   uncached, with the same checks and K1/K2 launches;
+7. a full-width BatchedT3Decoder with a bf16 cache at 16 slots: 16 prefills,
    one slice (K1's bf16 body at 32 lanes), then K3 against its plain version
    and beside K1's bf16 body on the live cache of the first and last layer;
-7. the kernels' JSON summary, the GPU line, then the final JSON line.
+8. the kernels' JSON summary, the GPU line, then the final JSON line.
 
-K1 and K2 report the launches of the batched serving phase (the main path);
-K3, which no serving path calls, reports its launches in phases 3 and 6.
+K1 and K2 report the launches of the batched serving phase (the main path),
+K2 once per form; K3, which no serving path calls, reports its launches in
+phases 3 and 7.
 """
 from __future__ import annotations
 
@@ -121,15 +139,28 @@ def profiler():
     return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
 
 
-def device_ms(prof) -> tuple[float, float]:
+def device_ms(prof, top: int = 0) -> tuple:
     """(summed, busy) ms of the device activity (kernels, copies, fills) a
     finished profiler saw: the sum of their durations, and the union of
-    their intervals. Read from the raw trace events: key_averages() takes
-    minutes over the hundreds of thousands of kernels of a serving run."""
-    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    their intervals; with ``top``, also the ``top`` kernel names (template
+    arguments dropped) by summed ms, as [(name, ms, launches)], and the
+    count of all device activities. Read from
+    the raw trace events in one pass: key_averages() takes minutes over the
+    hundreds of thousands of kernels of a serving run."""
+    spans, by = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.start_ns(), e.end_ns())
+        spans.append(span)
+        if top:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name())
+            name = re.split(r"[<(]", name, maxsplit=1)[0].strip()[:60]
+            ms, n = by.get(name, (0.0, 0))
+            by[name] = (ms + (span[1] - span[0]) / 1e6, n + 1)
     if not spans:
         raise RuntimeError("torch.profiler recorded no device time")
+    spans.sort()
     summed = sum(b - a for a, b in spans)
     busy, (lo, hi) = 0, spans[0]
     for a, b in spans[1:]:
@@ -137,7 +168,11 @@ def device_ms(prof) -> tuple[float, float]:
             busy, lo, hi = busy + hi - lo, a, b
         else:
             hi = max(hi, b)
-    return summed / 1e6, (busy + hi - lo) / 1e6
+    out = (summed / 1e6, (busy + hi - lo) / 1e6)
+    if top:
+        kernels = sorted(((k, round(ms, 3), n) for k, (ms, n) in by.items()), key=lambda r: -r[1])
+        out += (kernels[:top], len(spans))
+    return out
 
 
 def queued_ms(fn, n: int) -> float | None:
@@ -280,52 +315,94 @@ def check_decode_attention(results: dict) -> None:
         results[cache] = {"max_abs_err": worst, "tol": TOL[q_dtype]}
 
 
-def check_flash_mha(results: dict) -> None:
-    """K2 at 2 lanes (T = 1012 and 2500), then at the batched path's (16 jobs'
-    CFG pairs, the 64-token bucket: T = 2 × (250 + 64) frames)."""
+def check_flash_mha(results: dict, context: bool = False) -> None:
+    """K2 against its plain version, float32 and bfloat16. Self form: at 2
+    lanes (T = 1012 with an all-masked lane, and 2500), then at the batched
+    path's shape (16 jobs' CFG pairs, the 64-token bucket: T = 2 × (250 + 64)
+    frames). Context form (``context``): Tq new frames over Tk = Tq + 1012
+    prepended keys at the streaming batch's shapes (32 lanes, Tq = 72, 142,
+    202), then a ragged Tq and Tk (neither a multiple of a tile) with an
+    all-masked lane. The all-masked lanes' rows must be exact zeros."""
     from chatterbox_tpu_torch.ops import flash_mha as fm
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(2)
+    g = torch.Generator(device=dev).manual_seed(9 if context else 2)
     H, dh = 8, 64
+
+    def self_mask(B, T):
+        valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+        valid[0, T - 37:] = False              # padded tail
+        valid[1, :100] = False
+        return valid
+
+    def ctx_mask(B, Tq, n_prompt, n_ring):
+        return context_mask(g, B, Tq, n_prompt, n_ring, dev)
+
+    # (B, Tq, Tk, key mask, lane whose keys are all masked or None)
+    cases = ([(LANES, Tq, Tq + CTX_PROMPT + CTX_RING, ctx_mask(LANES, Tq, CTX_PROMPT, CTX_RING),
+               None) for Tq in (72, 142, 202)]
+             + [(LANES, 37, 37 + 990, ctx_mask(LANES, 37, 489, 501), 3)] if context else
+             [(2, 1012, 1012, self_mask(2, 1012), 1), (2, 2500, 2500, self_mask(2, 2500), None),
+              (LANES, 628, 628, self_mask(LANES, 628), None)])
+    form = "flash_mha context" if context else "flash_mha"
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         worst, timing = 0.0, {}
-        for B, T in ((2, 1012), (2, 2500), (LANES, 628)):
-            q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev).to(dtype)
-                       for _ in range(3))
-            valid = torch.ones((B, T), dtype=torch.bool, device=dev)
-            valid[0, T - 37:] = False          # padded tail
-            if T == 1012:
-                valid[1] = False               # a lane whose keys are all masked
-            else:
-                valid[1, :100] = False
+        for B, Tq, Tk, valid, masked in cases:
+            q = torch.randn((B, H, Tq, dh), generator=g, device=dev).to(dtype)
+            k, v = (torch.randn((B, H, Tk, dh), generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            valid = valid.clone()
+            if masked is not None:
+                valid[masked] = False
             got = fm.flash_mha(q, k, v, valid, scale=0.125)
             want = fm.flash_mha_plain(q, k, v, valid, scale=0.125)
-            worst = max(worst, compare(f"flash_mha[{name}] B={B} T={T}", got, want, TOL[dtype]))
-            if T == 1012:
-                zero = got[1].float().abs().max().item()
+            worst = max(worst, compare(f"{form}[{name}] B={B} Tq={Tq} Tk={Tk}", got, want,
+                                       TOL[dtype]))
+            if masked is not None:
+                zero = got[masked].float().abs().max().item()
                 if zero != 0.0:
-                    raise AssertionError(f"flash_mha[{name}]: all-masked lane gave {zero}, not 0")
+                    raise AssertionError(f"{form}[{name}]: all-masked lane gave {zero}, not 0")
                 continue
             ms, call_ms = time_ms(lambda: fm.flash_mha(q, k, v, valid, scale=0.125))
             plain_ms, _ = time_ms(lambda: fm.flash_mha_plain(q, k, v, valid, scale=0.125))
             mask = valid[:, None, None, :]
             library_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, scale=0.125))
-            n_keys = valid.sum().item()                   # Σ_b valid keys of lane b
-            ops = 4.0 * dh * H * T * n_keys               # QKᵀ and PV, 2 ops per FMA
-            moved = 4 * q.numel() * q.element_size() + valid.numel()
+            # QKᵀ and PV over the valid keys; q read and out written once, K
+            # and V read at the valid keys only (the function needs no other)
+            n_valid = valid.sum().item()
+            ops = 4.0 * dh * H * Tq * n_valid
+            moved = (2 * q.numel() + 2 * H * dh * n_valid) * q.element_size() + valid.numel()
             bound_ms, bound_by = bound(moved, ops, dtype)
-            print(f"  flash_mha[{name}] B={B} H={H} T={T} dh={dh}: device ms kernel {ms:.4f}, "
-                  f"plain {plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound_ms:.4f} "
+            print(f"  {form}[{name}] B={B} H={H} Tq={Tq} Tk={Tk} dh={dh}: device ms kernel "
+                  f"{ms:.4f}, plain {plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound_ms:.4f} "
                   f"({bound_by}); kernel per call {call_ms:.4f}", flush=True)
-            timing[(B, T)] = {"shape": f"B={B} H={H} T={T} dh={dh}", "ms": ms,
-                              "plain_ms": plain_ms, "call_ms": call_ms,
-                              "library_ms": library_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by}
-        results[name] = {"max_abs_err": worst, "tol": TOL[dtype], **timing[(LANES, 628)],
-                         "B2_T2500": timing[(2, 2500)]}
+            timing[(B, Tq)] = {"shape": f"B={B} H={H} Tq={Tq} Tk={Tk} dh={dh}", "ms": ms,
+                               "plain_ms": plain_ms, "call_ms": call_ms,
+                               "library_ms": library_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by}
+        main, *rest = ((LANES, 72), (LANES, 142), (LANES, 202)) if context else \
+            ((LANES, 628), (2, 2500))
+        results[name] = {"max_abs_err": worst, "tol": TOL[dtype], **timing[main],
+                         **{f"B{b}_T{t}": timing[(b, t)] for b, t in rest}}
+
+
+# the streaming batch's attention: 16 requests' CFG lanes, Tq new frames (a
+# block of 36, 71 or 101 tokens) over [500 prompt | 512 ring | Tq own] keys
+CTX_PROMPT, CTX_RING = 500, 512
+
+
+def context_mask(g, B: int, Tq: int, n_prompt: int, n_ring: int, dev) -> torch.Tensor:
+    """A streaming call's key mask: the prompt valid, each lane's ring
+    filled to a random klen, each lane's own block right-packed with a random
+    number of new frames."""
+    klen = torch.randint(0, n_ring + 1, (B,), generator=g, device=dev)
+    new = torch.randint(1, Tq + 1, (B,), generator=g, device=dev)
+    r = torch.arange(n_ring, device=dev)[None, :]
+    o = torch.arange(Tq, device=dev)[None, :]
+    return torch.cat([torch.ones((B, n_prompt), dtype=torch.bool, device=dev),
+                      r < klen[:, None], o >= (Tq - new)[:, None]], dim=1)
 
 
 def batched_windows(dev, S: int):
@@ -651,8 +728,9 @@ async def run_requests(engine, texts, prefix: str):
     return await asyncio.gather(*[one(i, t) for i, t in enumerate(texts)])
 
 
-def report_requests(engine, results) -> float:
-    """Check each WAV and print its request's numbers → seconds of audio."""
+def report_requests(engine, results, two_chunks: bool = True) -> float:
+    """Check each WAV and print its request's numbers → seconds of audio;
+    ``two_chunks``: one request must have spanned two text chunks."""
     spt = engine.cfg.gen.samples_per_token
     fade = int(engine.sr * REQUEST["crossfade_duration_milliseconds"] / 1000)
     total = 0.0
@@ -665,14 +743,16 @@ def report_requests(engine, results) -> float:
               f"RTF {stats['wall_s'] / audio_s:.3f}; T3 {stats['t3_s']:.2f} s over "
               f"{stats['t3_steps']} steps, S3Gen {stats['s3gen_s']:.2f} s for "
               f"{stats['slices']} calls", flush=True)
-    if not any(engine.request_stats[rid]["chunks"] >= 2 for rid, _ in results):
+    if two_chunks and not any(engine.request_stats[rid]["chunks"] >= 2 for rid, _ in results):
         raise AssertionError("no request spanned two text chunks")
     return total
 
 
-def require_main_path(launches: dict, what: str) -> None:
-    if launches["decode_attention"]["int8"] == 0 or launches["flash_mha"]["float32"] == 0:
-        raise AssertionError(f"{what} did not run K1's int8 body and K2: {launches}")
+def require_main_path(launches: dict, what: str, forms=("float32", "float32_ctx")) -> None:
+    """K1's int8 body and each named form of K2 must have launched."""
+    if launches["decode_attention"]["int8"] == 0 or any(
+            launches["flash_mha"][f] == 0 for f in forms):
+        raise AssertionError(f"{what} did not run K1's int8 body and K2 {forms}: {launches}")
 
 
 def text_lanes(engine, text: str):
@@ -700,12 +780,46 @@ def fill_slots(engine, dec) -> int:
     return dec.cfg.max_seq_len
 
 
-async def serve_batched(out: dict) -> dict:
+def nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def build_voice_cache(engine) -> dict:
+    """Drop the default voice's CFM prompt cache and build it again, as a
+    voice's first request does: its build time, its size and the size of
+    one request's streaming state (the K/V ring and the rest)."""
+    conds = engine.voice_cache["default"]
+    engine.clear_voice_cache("default")
+    engine.voice_cache["default"] = conds
+    torch.cuda.synchronize()
+    m0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+    cache = engine._cfm_cache_for("default", conds)
+    torch.cuda.synchronize()
+    build_s, grown = time.perf_counter() - t0, torch.cuda.memory_allocated() - m0
+    state = engine._stream_state0("default", cache)
+    info = {"build_s": build_s, "cache_bytes": nbytes(cache), "allocated_bytes": grown,
+            "ring_bytes": nbytes({k: state["cfm"][k] for k in ("k", "v")}),
+            "state_bytes": nbytes(state)}
+    print(f"  CFM prompt cache (step mode) of the default voice: built in {build_s:.3f} s, "
+          f"{info['cache_bytes'] / 2**20:.1f} MiB ({grown / 2**20:.1f} MiB allocated); one "
+          f"request's streaming state {info['state_bytes'] / 2**20:.1f} MiB, of which the K/V ring "
+          f"{info['ring_bytes'] / 2**20:.1f} MiB (window {state['cfm']['k'].shape[3]} frames)",
+          flush=True)
+    return info
+
+
+async def serve_batched(out: dict):
+    """Phase 4 → (the engine, kept for phase 5; K1/K2 launches)."""
     engine = await start_engine()
     dec, s3 = engine.decoder, engine.s3gen_scheduler
+    if engine._cfm_cache_mode() != "step" or not engine._streaming():
+        raise AssertionError("the engine's defaults are not the step prompt cache + streaming CFM")
     texts = [TEXTS[i % 3] if i % 3 else f"Stream {i}. {TEXTS[0]}" for i in range(SLOTS)]
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    cache_info = build_voice_cache(engine)
     t0 = time.perf_counter()
     with profiler() as prof:
         results = await run_requests(engine, texts, "batched")
@@ -718,6 +832,9 @@ async def serve_batched(out: dict) -> dict:
           f"(its summary took {time.perf_counter() - t1:.1f} s); device activity summed "
           f"{summed_ms / 1e3:.3f} s", flush=True)
     audio = report_requests(engine, results)
+    stats = [engine.request_stats[rid] for rid, _ in results]
+    streamed, slices = sum(s["streamed"] for s in stats), sum(s["slices"] for s in stats)
+    fallbacks = sum(s["fallbacks"] for s in stats)
     full = [(n, k, dt) for n, k, dt in dec.slice_log if n == SLOTS]
     step_ms = 1e3 * sum(dt for *_, dt in full) / max(1, sum(k for _, k, _ in full))
     print(f"  total: {audio:.2f} s of audio in {wall:.3f} s of wall = {audio / wall:.3f} s of audio "
@@ -726,13 +843,17 @@ async def serve_batched(out: dict) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"  decoder: max_active_seen {dec.max_active_seen}; {len(full)} slices at {SLOTS} "
           f"active slots, host wall {step_ms:.2f} ms per step; S3Gen max_batch_seen "
-          f"{s3.max_batch_seen}", flush=True)
+          f"{s3.max_batch_seen}, streaming max_batch_seen {s3.max_stream_batch_seen}; "
+          f"{streamed} of {slices} S3Gen calls streamed, {fallbacks} fallbacks to re-solve",
+          flush=True)
     print(f"  launches during serving: {launches}", flush=True)
     require_main_path(launches, "batched serving")
     if dec.max_active_seen < SLOTS * 3 // 4:   # 12 of 16
         raise AssertionError(f"the decoder ran at most {dec.max_active_seen} slots at once")
-    if s3.max_batch_seen < 2:
-        raise AssertionError("S3Gen never batched two jobs")
+    if s3.max_stream_batch_seen < 2:
+        raise AssertionError("S3Gen never batched two streaming jobs")
+    if fallbacks or streamed != slices:
+        raise AssertionError(f"{fallbacks} fallbacks; {streamed} of {slices} calls streamed")
 
     # one 35-step slice at 16 active slots, on the idle serving decoder
     view = fill_slots(engine, dec)
@@ -753,18 +874,206 @@ async def serve_batched(out: dict) -> dict:
           f"({[round(1e3 * w, 1) for w in walls]} ms per slice), device {slice_dev / 35:.3f} ms "
           f"per step ({100 * slice_dev / 35 / alone_ms:.1f} % busy)", flush=True)
     out.update(wall_s=wall, audio_s=audio, audio_per_wall=audio / wall, busy=busy_ms / 1e3 / wall,
+               device_summed_s=summed_ms / 1e3, device_busy_s=busy_ms / 1e3,
                max_active_seen=dec.max_active_seen, s3gen_max_batch=s3.max_batch_seen,
-               serving_step_ms=step_ms, alone_step_ms=alone_ms, slice_device_ms=slice_dev)
-    engine.shutdown()
-    return launches
+               s3gen_max_stream_batch=s3.max_stream_batch_seen, s3gen_calls=slices,
+               serving_step_ms=step_ms, alone_step_ms=alone_ms, slice_device_ms=slice_dev,
+               cfm_prompt_cache=cache_info)
+    return engine, launches
+
+
+# a chunk's first streaming slice against the prompt-cached tail path, at
+# full width: the same cache and noise, so the mels differ by float32
+# summation order (right-packed block against left-packed bucket) through 10
+# Euler steps, held relative to the mel's peak; the excitation follows from
+# the mel. The waveform's difference is reported, not held: the random-weight
+# vocoder amplifies a 1e-7 change of the mel to 3e-2 of the waveform (the
+# same check at EngineConfig.tiny_ref() on the CPU), which says nothing of
+# the streaming path
+FIRST_SLICE_TOL = {"mel": 1e-3, "source": 1e-3}
+
+
+def s3gen_batch(engine, B: int, T: int, acc: int, seed: int):
+    """Inputs of one batched S3Gen call at bucket T: B jobs of ``acc``
+    accumulated tokens → (tokens, token_len, ref, src, cache_len, start,
+    tail_len, noise for a re-solve, noise for a streaming slice)."""
+    from chatterbox_tpu_torch.models.s3gen_ref import draw_noise
+    from chatterbox_tpu_torch.runtime.s3gen_scheduler import MAX_TAIL_TOKENS
+
+    rc, dev = engine.cfg.s3gen_ref, engine.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.full((B, T), rc.flow.vocab_size, dtype=torch.int64, device=dev)
+    tokens[:, :acc] = torch.randint(0, rc.flow.vocab_size, (B, acc), generator=g, device=dev)
+    ref = {k: torch.cat([v] * B) for k, v in engine.voice_cache["default"].gen_ref.items()}
+    spt = rc.samples_per_token
+    tail_len = min(MAX_TAIL_TOKENS, T) * spt
+    start = torch.full((B,), max(0, min((acc - 35) * spt, T * spt - tail_len)), device=dev)
+    zeros = torch.zeros((B,), dtype=torch.int64, device=dev)
+    noise = [{k: torch.cat([d[k] for d in draws]) for k in draws[0]}
+             for draws in ([draw_noise(rc, 1, T, g, dev, stream=st) for _ in range(B)]
+                           for st in (False, True))]
+    return (tokens, torch.full((B,), acc, device=dev), ref, torch.zeros((B, T * spt), device=dev),
+            zeros, start, tail_len, *noise)
+
+
+@torch.inference_mode()
+def check_first_slice(engine) -> dict:
+    """s3gen_ref_inference_streaming from a fresh state against
+    s3gen_ref_inference_tail with the same prompt cache and noise, on the
+    full model (random weights): a chunk's first slice of 36 tokens in the
+    64-token bucket."""
+    from chatterbox_tpu_torch.models.s3gen_ref import (
+        s3gen_ref_inference_streaming,
+        s3gen_ref_inference_tail,
+    )
+    from chatterbox_tpu_torch.models.s3gen_ref.model import _mel_and_source
+    from chatterbox_tpu_torch.runtime.s3gen_scheduler import stream_block_tokens
+
+    rc, p = engine.cfg.s3gen_ref, engine.params["s3gen"]
+    cache = engine._cfm_cache_lru["default"]
+    T, n0 = 64, 36
+    tokens, tlen, ref, src, clen, _, tail_len, _, noise = s3gen_batch(engine, 1, T, n0, seed=11)
+    start = torch.zeros_like(clen)
+    fpt, spt = rc.flow.up_stride, rc.samples_per_token
+    mel_c, src_c = _mel_and_source(p, rc, tokens, tlen, ref, src, clen, noise, cache)
+    wav_c, _ = s3gen_ref_inference_tail(p, rc, tokens, tlen, ref, src, clen, noise, start, tail_len,
+                                        cfm_cache=cache)
+    state0 = engine._stream_state0("default", cache)
+    wav_s, src_s, st = s3gen_ref_inference_streaming(
+        p, rc, tokens, tlen, tlen, ref, src, clen, noise, start, tail_len, state0,
+        stream_block_tokens(n0, T), cache)
+    n_mel, n_wav = n0 * fpt, n0 * spt
+    mel_s = st["mel"][:, :n_mel]
+    peak = mel_c[:, :n_mel].abs().max().item()
+    errs = {"mel": compare("first slice mel (relative to its peak)", mel_s / peak,
+                           mel_c[:, :n_mel] / peak, FIRST_SLICE_TOL["mel"]),
+            "source": compare("first slice source", src_s[:, :n_wav], src_c[:, :n_wav],
+                              FIRST_SLICE_TOL["source"]),
+            "wav": compare("first slice wav (not held)", wav_s[:, :n_wav], wav_c[:, :n_wav],
+                           float("inf"))}
+    if int(st["cfm"]["frames"][0]) != n_mel or st["mel"][:, n_mel:].abs().max().item() != 0.0:
+        raise AssertionError("first slice: the streaming state did not advance by its frames")
+    print(f"  mel peak {peak:.3f}, wav peak {wav_c.abs().max().item():.3f}", flush=True)
+    return {"max_abs_err": errs, "tol": FIRST_SLICE_TOL, "mel_peak": peak}
+
+
+@torch.inference_mode()
+def s3gen_call_times(engine, T: int = 128, acc: int = 105) -> dict:
+    """Device and host time of one batched S3Gen call at the batched path's
+    shape (16 jobs, the 128-token bucket, 105 tokens accumulated, 35 new):
+    streaming (the default), prompt-cached re-solve and uncached re-solve
+    (the path before the prompt cache)."""
+    from chatterbox_tpu_torch.models.s3gen_ref import (
+        s3gen_ref_inference_streaming,
+        s3gen_ref_inference_tail,
+        stack_stream_states,
+    )
+    from chatterbox_tpu_torch.runtime.s3gen_scheduler import stream_block_tokens
+
+    rc, p = engine.cfg.s3gen_ref, engine.params["s3gen"]
+    cache = engine._cfm_cache_lru["default"]
+    B, new = SLOTS, 35
+    tokens, tlen, ref, src, clen, start, tail_len, noise, snoise = s3gen_batch(engine, B, T, acc, 5)
+    rstate = stack_stream_states([engine._stream_state0("default", cache)] * B)
+    nlen = torch.full_like(tlen, new)
+    calls = {
+        "streaming": lambda: s3gen_ref_inference_streaming(
+            p, rc, tokens, tlen, nlen, ref, src, clen, snoise, start, tail_len, rstate,
+            stream_block_tokens(new + 1, T), cache),
+        "cached": lambda: s3gen_ref_inference_tail(p, rc, tokens, tlen, ref, src, clen, noise,
+                                                   start, tail_len, cfm_cache=cache),
+        "uncached": lambda: s3gen_ref_inference_tail(p, rc, tokens, tlen, ref, src, clen, noise,
+                                                     start, tail_len),
+    }
+    out = {}
+    for name, fn in calls.items():
+        # the profiled call comes first: device time does not need a warm
+        # call (phase 4 and the first-slice check ran these paths); the host
+        # wall is taken on the second, outside the profiler
+        reset_launches()
+        with profiler() as prof:
+            fn()
+            torch.cuda.synchronize()
+        summed, busy, kernels, n_device = device_ms(prof, top=8)
+        k2 = read_launches()["flash_mha"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = {"device_ms": summed, "busy_ms": busy, "host_wall_ms": 1e3 * wall,
+                     "device_activities": n_device, "k2_launches": k2, "top_kernels": kernels}
+        print(f"  S3Gen batched call [{name}] B={B} bucket {T}, {acc} tokens ({new} new): device "
+              f"{summed:.1f} ms (busy {busy:.1f} ms) over {n_device} device activities, host "
+              f"wall {1e3 * wall:.1f} ms; K2 launches {k2}; device ms by kernel {kernels}",
+              flush=True)
+    return out
+
+
+# the decode cap of the later serving phases, below phase 4's: one 35-token
+# slice per chunk, then the closing slice's S3Gen call re-solves the
+# accumulated tokens
+REDUCED_NEW_TOKENS = 35
+
+
+async def s3gen_phase(engine, out: dict) -> None:
+    """Phase 5, on phase 4's engine: the first-slice check, the device time
+    of one batched call per path, then a wave on the uncached batched path
+    (CHATTERBOX_CFM_PROMPT_CACHE=0: 4 concurrent one-chunk requests at
+    REDUCED_NEW_TOKENS), which must batch 2 or more uncached S3Gen jobs."""
+    import dataclasses
+
+    out["first_slice"] = check_first_slice(engine)
+    out["s3gen_call"] = s3gen_call_times(engine)
+    s3, cfg = engine.s3gen_scheduler, engine.cfg
+    texts = [TEXTS[0], TEXTS[2], f"Stream 2. {TEXTS[0]}", f"Stream 3. {TEXTS[2]}"]
+    os.environ["CHATTERBOX_CFM_PROMPT_CACHE"] = "0"
+    engine.cfg = dataclasses.replace(cfg, max_new_tokens=REDUCED_NEW_TOKENS)
+    s3.max_batch_seen = s3.max_stream_batch_seen = 0
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        with profiler() as prof:
+            results = await run_requests(engine, texts, "uncached")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        summed_ms, busy_ms = device_ms(prof)
+        audio = report_requests(engine, results, two_chunks=False)
+        print(f"  uncached batched path, {len(results)} concurrent requests: {audio:.2f} s of "
+              f"audio in {wall:.3f} s of wall; device activity summed {summed_ms / 1e3:.3f} s, "
+              f"busy {100 * busy_ms / 1e3 / wall:.1f} %; S3Gen max_batch_seen "
+              f"{s3.max_batch_seen} (streaming {s3.max_stream_batch_seen}); launches {launches}",
+              flush=True)
+        require_main_path(launches, "uncached batched serving", forms=("float32",))
+        if launches["flash_mha"]["float32_ctx"] or s3.max_stream_batch_seen:
+            raise AssertionError("CHATTERBOX_CFM_PROMPT_CACHE=0 ran the cached or streaming path")
+        if s3.max_batch_seen < 2:
+            raise AssertionError("S3Gen never batched two uncached jobs")
+        out["uncached_wave"] = {"requests": len(results), "wall_s": wall, "audio_s": audio,
+                                "device_summed_s": summed_ms / 1e3, "busy": busy_ms / 1e3 / wall,
+                                "s3gen_max_batch": s3.max_batch_seen}
+    finally:
+        del os.environ["CHATTERBOX_CFM_PROMPT_CACHE"]
+        engine.cfg = cfg
 
 
 async def serve_per_request(out: dict):
-    engine = await start_engine()
+    """At reduced depth (REDUCED_NEW_TOKENS per chunk): one two-chunk
+    request with the default prompt cache, then one one-chunk request on the
+    uncached path (CHATTERBOX_CFM_PROMPT_CACHE=0), one after the other."""
+    os.environ["CHATTERBOX_MAX_NEW_TOKENS"] = str(REDUCED_NEW_TOKENS)
+    try:
+        engine = await start_engine()
+    finally:
+        os.environ["CHATTERBOX_MAX_NEW_TOKENS"] = MAX_NEW_TOKENS
     reset_launches()
-    results = []
-    for i, text in enumerate(TEXTS[:2]):   # one after the other
-        results += await run_requests(engine, [text], f"single{i}")
+    results = await run_requests(engine, [TEXTS[1]], "single")
+    os.environ["CHATTERBOX_CFM_PROMPT_CACHE"] = "0"
+    try:
+        results += await run_requests(engine, [TEXTS[2]], "single-uncached")
+    finally:
+        del os.environ["CHATTERBOX_CFM_PROMPT_CACHE"]
     launches = read_launches()
     report_requests(engine, results)
     print(f"  launches: {launches}", flush=True)
@@ -810,11 +1119,15 @@ def batched_bf16_decoder(engine, k1: dict, k3: dict) -> int:
                       dap.decode_attention_pipelined(*args), want, TOL[torch.bfloat16])
         k3["live"] = max(k3.get("live", 0.0), err)
         if layer == 0:
-            k3_ms, _ = time_ms(lambda: dap.decode_attention_pipelined(*args))
             k1_ms, _ = time_ms(lambda: da.decode_attention(*args))
-            print(f"  layer 0 live cache: device ms K3 {k3_ms:.4f}, K1 bf16 {k1_ms:.4f}",
-                  flush=True)
-            k3["live_ms"], k1["live_bf16_ms"] = k3_ms, k1_ms
+            bms, bby = decode_bound(args[0], torch.bfloat16, start, pos, Hk, scales=False)
+            k3["live_timing"] = time_decode(
+                "decode_attention_pipelined[bfloat16] layer 0 live cache",
+                lambda: dap.decode_attention_pipelined(*args),
+                lambda: da.decode_attention_plain(*args), decode_library_fn(*args), bms, bby,
+                err, TOL[torch.bfloat16])
+            print(f"  layer 0 live cache: device ms K1 bf16 {k1_ms:.4f}", flush=True)
+            k3["live_ms"], k1["live_bf16_ms"] = k3["live_timing"]["ms"], k1_ms
     return read_launches()["decode_attention_pipelined"]["native"]
 
 
@@ -861,12 +1174,13 @@ def main() -> int:
     done(t0, walls, "build")
 
     t0 = phase("3. kernels against their plain versions")
-    k1, k2, k3 = {}, {}, {}
+    k1, k2, k3, k2c = {}, {}, {}, {}
     reset_launches()
     check_decode_attention(k1)
     check_decode_slice_edges(k1)
     check_pipelined_edges(k3)
     check_flash_mha(k2)
+    check_flash_mha(k2c, context=True)
     check_other_shapes(k1, k2, k3)
     check_batched_decode(k1, k3)
     k3_launches = read_launches()["decode_attention_pipelined"]["native"]
@@ -879,29 +1193,43 @@ def main() -> int:
         write_conds(model_dir / "conds.pt")
         os.environ.update(MODEL_PATH=str(model_dir), CHATTERBOX_MAX_NEW_TOKENS=MAX_NEW_TOKENS,
                           CHATTERBOX_KV="int8", MAX_DECODE_SLOTS=str(SLOTS))
-        t0 = phase(f"4. batched serving ({SLOTS} slots, int8 KV, {SLOTS} concurrent requests)")
-        launches = asyncio.run(serve_batched(serving))
-        gc.collect()
-        torch.cuda.empty_cache()
+        for name in ("CHATTERBOX_CFM_PROMPT_CACHE", "CHATTERBOX_CFM_STREAM"):
+            os.environ.pop(name, None)   # the defaults: step prompt cache, streaming CFM
+        t0 = phase(f"4. batched serving ({SLOTS} slots, int8 KV, {SLOTS} concurrent requests; "
+                   "CFM prompt cache and streaming CFM)")
+        loop = asyncio.new_event_loop()
+        engine, launches = loop.run_until_complete(serve_batched(serving))
         done(t0, walls, "batched_serving")
 
-        t0 = phase("5. per-request serving (MAX_DECODE_SLOTS=1, int8 KV)")
+        t0 = phase("5. S3Gen at full width: first streaming slice against the cached tail path; "
+                   "one batched call per path; the uncached batched path")
+        loop.run_until_complete(s3gen_phase(engine, serving))
+        engine.shutdown()
+        loop.run_until_complete(asyncio.sleep(0))   # let the schedulers' tasks end
+        loop.close()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        done(t0, walls, "s3gen")
+
+        t0 = phase("6. per-request serving (MAX_DECODE_SLOTS=1, int8 KV)")
         os.environ["MAX_DECODE_SLOTS"] = "1"
         engine = asyncio.run(serve_per_request(serving))
         done(t0, walls, "per_request_serving")
 
-        t0 = phase(f"6. BatchedT3Decoder with a bf16 cache at {SLOTS} slots; K3 on its live cache")
+        t0 = phase(f"7. BatchedT3Decoder with a bf16 cache at {SLOTS} slots; K3 on its live cache")
         k3_launches += batched_bf16_decoder(engine, k1, k3_live)
         engine.shutdown()
         done(t0, walls, "bf16_decoder")
 
-    print("== 7. summary", flush=True)
+    print("== 8. summary", flush=True)
     rounded = {k: round(v, 1) for k, v in walls.items()}
     print(f"  phase walls (s): {json.dumps(rounded)}", flush=True)
     # ms / plain_ms / library_ms: device time per call; call_ms: with the
     # host's dispatch; bound_ms: bytes over 3.35 TB/s or operations over peak
     k3_main = {**k3["bfloat16"], "max_abs_err": max(k3["bfloat16"]["max_abs_err"], k3_live["live"]),
-               "live_cache_err": k3_live["live"], "live_cache_ms": k3_live["live_ms"]}
+               "live_cache_err": k3_live["live"], "live_cache_ms": k3_live["live_ms"],
+               "live_cache": k3_live["live_timing"]}
     summary = {"kernels": [
         dict(name="decode_attention", route="cuda", **KERNELS["decode_attention"],
              launches=launches["decode_attention"]["int8"], body="int8", **k1[f"int8_B{LANES}"],
@@ -911,12 +1239,17 @@ def main() -> int:
                  "other_shapes": {c: k1[f"other_shapes_{c}"] for c in ("int8", "bfloat16", "float32")},
                  "live_bf16_ms": k1["live_bf16_ms"]}),
         dict(name="flash_mha", route="cuda", **KERNELS["flash_mha"],
-             launches=launches["flash_mha"]["float32"], body="float32", **k2["float32"],
+             launches=launches["flash_mha"]["float32"], body="float32, self form",
+             launches_from="phase 4: the default voice's prompt prefill", **k2["float32"],
              other_bodies={"bfloat16": k2["bfloat16"], "other_head_dims": {
                  c: k2[f"other_dh_{c}"] for c in ("float32", "bfloat16")}}),
+        dict(name="flash_mha_context", route="cuda", **KERNELS["flash_mha"],
+             launches=launches["flash_mha"]["float32_ctx"], body="float32, context form",
+             launches_from="phase 4: every cached and streaming estimator evaluation",
+             **k2c["float32"], other_bodies={"bfloat16": k2c["bfloat16"]}),
         dict(name="decode_attention_pipelined", route="cuda",
              **KERNELS["decode_attention_pipelined"], launches=k3_launches, body="bfloat16",
-             launches_from="phases 3 and 6 (no serving path calls it)", **k3_main,
+             launches_from="phases 3 and 7 (no serving path calls it)", **k3_main,
              slice_rows=k3["edges_bfloat16"]["slice_rows"],
              other_bodies={"float32": k3["float32"], "edge_checks": {
                  c: k3[f"edges_{c}"] for c in ("bfloat16", "float32")},

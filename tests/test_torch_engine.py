@@ -2,10 +2,13 @@
 
 Both engines serve EngineConfig.tiny_ref() with the same parameters (the JAX
 engine's random init, converted) and the same seeded default voice
-(``conds.pt`` in a temporary MODEL_PATH), with no CFM prompt cache, on both
-serving paths: per request (MAX_DECODE_SLOTS=1) and batched
-(MAX_DECODE_SLOTS=4: the continuous-batching decoder and the S3Gen
-micro-batcher). Greedy requests are sent to both with the arguments the HTTP
+(``conds.pt`` in a temporary MODEL_PATH) on both serving paths: per request
+(MAX_DECODE_SLOTS=1) and batched (MAX_DECODE_SLOTS=4: the continuous-batching
+decoder and the S3Gen micro-batcher); first with the CFM prompt cache off
+(CHATTERBOX_CFM_PROMPT_CACHE=0, the uncached path), then with the JAX
+package's defaults (the prompt cache in "step" mode, and streaming CFM on
+the batched path). Both engines' serving metrics (``runtime.metrics``) are
+compared too. Greedy requests are sent to both with the arguments the HTTP
 handler passes; the WAVs must be valid and hold the same number of samples
 (the noise differs — threefry against the port's generators — so the samples
 themselves are not compared; the modules' numerics are held by the other
@@ -192,17 +195,151 @@ def test_default_voice_fields(env):
 
 
 def test_unported_settings_raise(env, monkeypatch):
-    monkeypatch.setenv("CHATTERBOX_CFM_STREAM", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
+    """Progressive slices still raise; the CFM prompt cache (every mode),
+    streaming CFM and the bounded re-synthesis window are accepted now."""
+    for name, value in (("CHATTERBOX_CFM_STREAM", "1"), ("CHATTERBOX_CFM_PROMPT_CACHE", "step"),
+                        ("CHATTERBOX_CFM_PROMPT_CACHE", "static"),
+                        ("CHATTERBOX_OVERLAP_WINDOW_TOKENS", "64")):
+        monkeypatch.setenv(name, value)
         TTSEngine(EngineConfig.tiny_ref(), device="cpu")
-    monkeypatch.setenv("CHATTERBOX_CFM_STREAM", "0")
-    monkeypatch.setenv("CHATTERBOX_CFM_PROMPT_CACHE", "step")
-    with pytest.raises(NotImplementedError, match="prompt cache"):
+    eng = TTSEngine(EngineConfig.tiny_ref(), device="cpu")
+    assert eng._cfm_cache_mode() == "static" and eng.overlap_window == 64
+    monkeypatch.setenv("CHATTERBOX_PROGRESSIVE_SLICES", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
         TTSEngine(EngineConfig.tiny_ref(), device="cpu")
+
+
+def test_default_settings_are_the_jax_packages(monkeypatch):
+    """With nothing set, both engines serve the CFM prompt cache in "step"
+    mode; "0" turns it off in both."""
+    from chatterbox_tpu.runtime.engine import TTSEngine as J
+
+    monkeypatch.delenv("CHATTERBOX_CFM_PROMPT_CACHE", raising=False)
+    jeng = J.__new__(J)
+    jeng.cfg = JEngineConfig.tiny_ref()
+    assert TTSEngine._cfm_cache_mode() == jeng._cfm_cache_mode() == "step"
     monkeypatch.setenv("CHATTERBOX_CFM_PROMPT_CACHE", "0")
-    monkeypatch.setenv("CHATTERBOX_OVERLAP_WINDOW_TOKENS", "64")
-    with pytest.raises(NotImplementedError, match="re-synthesis window"):
-        TTSEngine(EngineConfig.tiny_ref(), device="cpu")
+    assert TTSEngine._cfm_cache_mode() == jeng._cfm_cache_mode() == "0"
+
+
+def _metrics_delta(before, after):
+    """Requests, tokens and the stages that ran between two snapshots."""
+    stages = {n for n, v in after["stages"].items()
+              if v["count"] > before["stages"].get(n, {"count": 0})["count"]}
+    return (after["requests"]["total"] - before["requests"]["total"],
+            after["tokens_generated"] - before["tokens_generated"], stages)
+
+
+def _serve_defaults(slots: str, **env):
+    """Both engines with the JAX package's S3Gen defaults (prompt cache,
+    streaming CFM), or those with ``env`` set on top, at
+    MAX_DECODE_SLOTS=``slots``: the three BATCHED requests concurrently →
+    (jax wavs, port wavs, port engine, jax metrics delta, port metrics
+    delta)."""
+    from chatterbox_tpu.runtime.metrics import metrics as jmetrics
+    from chatterbox_tpu_torch.runtime.metrics import metrics as tmetrics
+
+    mp = pytest.MonkeyPatch()
+    mp.delenv("CHATTERBOX_CFM_PROMPT_CACHE", raising=False)
+    mp.delenv("CHATTERBOX_CFM_STREAM", raising=False)
+    mp.setenv("MAX_DECODE_SLOTS", slots)
+    mp.setenv("CHATTERBOX_PRECOMPILE", "0")
+    for name, value in env.items():
+        mp.setenv(name, value)
+    reset_config_cache()
+    try:
+        jeng = JTTSEngine(JEngineConfig.tiny_ref(), seed=3)
+        asyncio.run(jeng.ainit())
+        m0 = jmetrics.snapshot()
+        jwavs = asyncio.run(_collect_concurrently(jeng, JToken))
+        jdelta = _metrics_delta(m0, jmetrics.snapshot())
+        params = {k: convert_params(jax_tree_to_np(jeng.params[k]), "cpu") for k in ("t3", "s3gen")}
+        jeng.shutdown()
+        teng = TTSEngine(EngineConfig.tiny_ref(), seed=3, device="cpu", params=params)
+        asyncio.run(teng.ainit())
+        m0 = tmetrics.snapshot()
+        twavs = asyncio.run(_collect_concurrently(teng, CancellationToken))
+        tdelta = _metrics_delta(m0, tmetrics.snapshot())
+        # ainit built the default voice's prompt cache, which served the requests
+        assert list(teng._cfm_cache_lru) == ["default"]
+        teng.shutdown()
+    finally:
+        mp.undo()
+        reset_config_cache()
+    return jwavs, twavs, teng, jdelta, tdelta
+
+
+@pytest.fixture(scope="module")
+def served_defaults(env):
+    return _serve_defaults("4")
+
+
+@pytest.fixture(scope="module")
+def served_defaults_per_request(env):
+    return _serve_defaults("1")
+
+
+@pytest.mark.parametrize("path", ["batched", "per_request"])
+def test_default_serving_matches_jax_sample_counts(request, path):
+    """With no S3Gen setting, the batched path serves the prompt cache and
+    streaming CFM (each chunk's slices after the first solve only their new
+    tokens), the per-request path the prompt cache alone, in both engines:
+    equal WAV lengths, request by request."""
+    jwavs, twavs, teng, _, _ = request.getfixturevalue(
+        "served_defaults" if path == "batched" else "served_defaults_per_request")
+    for kw, jwav, twav in zip(BATCHED, jwavs, twavs):
+        assert twav[:44] == jwav[:44]
+        assert len(twav) == len(jwav) > 44
+        assert np.abs(np.frombuffer(twav[44:], dtype="<i2")).max() > 0
+        stats = teng.request_stats[kw["request_id"]]
+        _check_samples_follow_tokens(twav, stats, teng, REQUEST["crossfade_duration_milliseconds"])
+        assert stats["fallbacks"] == 0
+        if path == "batched":
+            assert stats["streamed"] == stats["slices"] > 0
+        else:
+            assert stats["streamed"] == 0
+
+
+# a bounded re-synthesis window of 12 tokens: with 8-token slices, every
+# slice from the third on drops left context (streaming, which never drops,
+# is off so that the batched path re-solves too)
+WINDOW = {"CHATTERBOX_OVERLAP_WINDOW_TOKENS": "12", "CHATTERBOX_CFM_STREAM": "0"}
+
+
+@pytest.mark.parametrize("path", ["batched", "per_request"])
+def test_overlap_window_matches_jax_sample_counts(env, path):
+    """CHATTERBOX_OVERLAP_WINDOW_TOKENS on both paths (prompt cache on):
+    slices drop left context and the port emits the JAX engine's WAV
+    lengths, request by request, with every slice's samples following its
+    tokens (a misaligned window would cut or repeat audio). The batched
+    path's excitation row is shifted by the drop in the scheduler
+    (tests/test_torch_s3gen_scheduler.py::test_state_roundtrip_and_shift)."""
+    jwavs, twavs, teng, _, _ = _serve_defaults("4" if path == "batched" else "1", **WINDOW)
+    assert teng.overlap_window == 12
+    for kw, jwav, twav in zip(BATCHED, jwavs, twavs):
+        assert twav[:44] == jwav[:44]
+        assert len(twav) == len(jwav) > 44
+        stats = teng.request_stats[kw["request_id"]]
+        _check_samples_follow_tokens(twav, stats, teng, REQUEST["crossfade_duration_milliseconds"])
+        assert stats["streamed"] == 0
+    assert sum(teng.request_stats[kw["request_id"]]["window_drops"] for kw in BATCHED) > 0
+
+
+@pytest.mark.parametrize("path", ["batched", "per_request"])
+def test_engine_records_metrics_like_jax(request, path):
+    """The engine records what the JAX engine records: one record_request
+    per request, the tokens of every slice, and the same host and device
+    stages (s3gen_prep_host, s3gen_stitch_host and, batched, the decoder's
+    and the micro-batcher's stages with s3gen_stack_host; per request,
+    s3gen_single_device)."""
+    *_, jdelta, tdelta = request.getfixturevalue(
+        "served_defaults" if path == "batched" else "served_defaults_per_request")
+    assert tdelta == jdelta
+    assert tdelta[0] == len(BATCHED) and tdelta[1] > 0
+    want = {"s3gen_prep_host", "s3gen_stitch_host"}
+    want |= ({"s3gen_stack_host", "s3gen_device", "t3_decode_device", "t3_prefill_device"}
+             if path == "batched" else {"s3gen_single_device"})
+    assert tdelta[2] == want
 
 
 def test_missing_conds_names_voice_cloning(env, monkeypatch, tmp_path):

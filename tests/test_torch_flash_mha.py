@@ -1,10 +1,12 @@
 """K2 parity: the port's flash MHA (plain version, which its wrapper runs
 for CPU tensors) against the JAX package's Pallas ``flash_mha(...,
-interpret=True)``, including a ragged T and an all-masked row; the port's
-estimator transformer block against JAX ``_tf_block`` on its flash branch;
-and the precision contract of the CUDA kernel's tensor-core products,
-emulated in plain torch. The CUDA kernel itself is compared with the plain
-version on the card, by chip_smoke.py. Tolerance 2e-5 (float32, as
+interpret=True)``, including a ragged T and an all-masked row; its context
+form (Tq queries over Tk prepended keys) against the JAX package's einsum
+branch of ``_tf_block`` on valid rows; the port's estimator transformer
+block against JAX ``_tf_block`` on its flash branch; and the precision
+contract of the CUDA kernel's tensor-core products, emulated in plain torch,
+for both forms. The CUDA kernel itself is compared with the plain version on
+the card, by chip_smoke.py. Tolerance 2e-5 (float32, as
 tests/test_pallas_mha.py).
 """
 import numpy as np
@@ -73,13 +75,17 @@ def test_tf_block_matches_jax_flash_branch(monkeypatch):
 
 
 def test_wrapper_uses_plain_version_on_cpu_and_counts_no_launch():
+    """Self and context form alike: no launch is counted on the CPU (the
+    counts now also hold the context form's, under <dtype>_ctx)."""
     q, k, v = _qkv(4, 1, 2, 40, 32)
     valid = np.ones((1, 40), bool)
     fm.reset_launches()
     got = fm.flash_mha(*map(to_t, (q, k, v, valid)))
     want = fm.flash_mha_plain(*map(to_t, (q, k, v, valid)))
     torch.testing.assert_close(got, want, atol=0, rtol=0)
-    assert fm.launches == {"float32": 0, "bfloat16": 0}
+    got = fm.flash_mha(to_t(q[:, :, :7]), *map(to_t, (k, v, valid)))
+    torch.testing.assert_close(got, want[:, :, :7], atol=0, rtol=0)
+    assert fm.launches == {"float32": 0, "bfloat16": 0, "float32_ctx": 0, "bfloat16_ctx": 0}
 
 
 def test_wrapper_rejects_other_devices():
@@ -189,3 +195,68 @@ def test_split_contract_matches_pallas(T):
     want = jflash(*map(jnp.asarray, (q, k, v, valid)), scale=0.125, interpret=True)
     got = _emulated_mha(*map(to_t, (q, k, v, valid)), 0.125, _round_bf16)
     np.testing.assert_allclose(to_np(got), np.asarray(want), atol=1e-4, rtol=1e-4)
+
+
+# --- the context form: Tq new frames over [prompt | ring | own] keys ---
+
+def _ctx_inputs(seed, B, H, Tq, n_ctx, dh):
+    """q [B, H, Tq, dh], k/v [B, H, n_ctx + Tq, dh] and the key mask of a
+    cached or streaming call: a prompt with a masked left pad, a partly
+    filled ring, and the block's own right-packed frames."""
+    rng = np.random.default_rng(seed)
+    Tk = n_ctx + Tq
+    q = rng.standard_normal((B, H, Tq, dh)).astype(np.float32)
+    k, v = (rng.standard_normal((B, H, Tk, dh)).astype(np.float32) for _ in range(2))
+    valid = np.ones((B, Tk), bool)
+    valid[:, : n_ctx // 4] = False             # the prompt's left pad
+    valid[:, n_ctx // 2 + 17: n_ctx] = False   # the ring past its klen
+    valid[0, n_ctx: n_ctx + Tq // 3] = False   # lane 0: a short right-packed block
+    return q, k, v, valid
+
+
+def _jax_einsum_attention(q, k, v, valid, scale):
+    """The JAX package's context branch (decoder.py:293-298), on the head-major
+    layout: masked softmax over all Tk keys, float32."""
+    s = jnp.einsum("bhid,bhjd->bhij", q, k, preferred_element_type=jnp.float32) * scale
+    s = jnp.where(valid[:, None, None, :], s, -1e9)
+    return jnp.einsum("bhij,bhjd->bhid", jax.nn.softmax(s, axis=-1), v,
+                      preferred_element_type=jnp.float32)
+
+
+@pytest.mark.parametrize("Tq,n_ctx", [(9, 40), (72, 130), (13, 1)])
+def test_context_form_matches_jax_einsum_on_valid_rows(Tq, n_ctx):
+    """flash_mha_plain with Tq ≠ Tk against the JAX einsum. The forms differ
+    only where a query row has no valid key at all (JAX: the uniform average
+    of every key, K2: 0); the model never hits that on a valid frame (a
+    frame's own key is valid), so lane 1 gets an all-masked mask here and is
+    compared only for K2's zero."""
+    B, H, dh = 3, 2, 64
+    q, k, v, valid = _ctx_inputs(11, B, H, Tq, n_ctx, dh)
+    valid[1] = False
+    want = np.asarray(_jax_einsum_attention(*map(jnp.asarray, (q, k, v, valid)), 0.125))
+    got = to_np(fm.flash_mha(*map(to_t, (q, k, v, valid)), scale=0.125))
+    assert got.shape == (B, H, Tq, dh)
+    np.testing.assert_array_equal(got[1], 0.0)
+    keep = [0, 2]
+    np.testing.assert_allclose(got[keep], want[keep], atol=TOL, rtol=TOL)
+
+
+def _contract_error_ctx(B, H, Tq, n_ctx, dh, rnd, passes, seed):
+    q, k, v, valid = (to_t(x) for x in _ctx_inputs(seed, B, H, Tq, n_ctx, dh))
+    err = 0.0
+    for b0 in range(0, B, 8):
+        lanes = (q[b0:b0 + 8], k[b0:b0 + 8], v[b0:b0 + 8], valid[b0:b0 + 8])
+        got = _emulated_mha(*lanes, 0.125, rnd, passes)
+        err = max(err, (got - fm.flash_mha_plain(*lanes, scale=0.125)).abs().max().item())
+    return err
+
+
+@pytest.mark.parametrize("Tq", [72, 202])
+def test_split_contract_context_form_at_batched_shapes(Tq):
+    """The bf16x3 products of the context form at the streaming batch's
+    shapes (32 CFG lanes, H = 8, dh = 64; Tq = 72 or 202 new frames over
+    Tk = Tq + 1012 keys: 500 prompt frames and a 512-frame ring) stay within
+    CONTRACT_TOL of float32; one-pass bf16 does not."""
+    err = _contract_error_ctx(32, 8, Tq, 1012, 64, _round_bf16, 3, seed=12)
+    assert err <= CONTRACT_TOL, err
+    assert _contract_error_ctx(8, 8, Tq, 1012, 64, _round_bf16, 1, seed=12) > CONTRACT_TOL

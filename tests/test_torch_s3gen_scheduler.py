@@ -1,5 +1,10 @@
 """The port's S3Gen micro-batcher and tail-windowed vocoder on the CPU.
 
+Prompt-cached and streaming jobs: a cached batch equals direct cached calls,
+a streaming batch equals direct batch-1 streaming calls (tail, source row
+and each job's new state), and jobs with different caches never share a
+batch.
+
 After the non-streaming cases of tests/test_s3gen_scheduler.py, on
 ``chatterbox_tpu_torch.runtime.s3gen_scheduler.S3GenScheduler`` with the
 reference architecture at S3GenRefConfig.tiny() (the JAX init, converted,
@@ -37,11 +42,18 @@ from chatterbox_tpu_torch.convert import convert_params
 from chatterbox_tpu_torch.models.s3gen_ref import (
     S3GenRefConfig,
     draw_noise,
+    init_s3gen_stream_state,
     s3gen_ref_inference,
+    s3gen_ref_inference_streaming,
     s3gen_ref_inference_tail,
+    s3gen_ref_prompt_prefill,
 )
 from chatterbox_tpu_torch.models.s3gen_ref.hift import hift_receptive_margin
-from chatterbox_tpu_torch.runtime.s3gen_scheduler import MAX_TAIL_TOKENS, S3GenScheduler
+from chatterbox_tpu_torch.runtime.s3gen_scheduler import (
+    MAX_TAIL_TOKENS,
+    S3GenScheduler,
+    stream_block_tokens,
+)
 
 CFG = S3GenRefConfig.tiny()
 SPT = CFG.samples_per_token
@@ -204,19 +216,127 @@ def test_three_jobs_run_three_lanes(setup):
         np.testing.assert_array_equal(tail, results[0][0])
 
 
-def test_unported_jobs_raise(setup):
+def test_unported_jobs_raise(setup, monkeypatch):
+    """Progressive slices still raise (settings); prompt-cached and
+    streaming jobs are accepted now, and a streaming job the block cannot
+    hold, one without the prompt cache, or one with a window shift, is
+    refused, as is an out-of-range shift."""
+    from chatterbox_tpu_torch.settings import check_supported
+
     _, _, params, _, ref = setup
+    monkeypatch.setenv("CHATTERBOX_PROGRESSIVE_SLICES", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+        check_supported()
 
     async def run(**kw):
         sched = S3GenScheduler(params, CFG, state_tokens=STATE_TOKENS)
-        await sched.synthesize(_tokens(4, 4), 4, ref, None, 0, 0, **kw)
+        try:
+            return await sched.synthesize(_tokens(4, 4), 4, ref, None, 0, 0, **kw)
+        finally:
+            sched.stop()
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        asyncio.run(run(rstate={}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        asyncio.run(run(cache={}))
+    cache = _cache(params, ref)
+    state = init_s3gen_stream_state(CFG, cache, 16, STATE_TOKENS)
+    assert len(asyncio.run(run(cache=cache))) == 3
+    assert len(asyncio.run(run(cache=cache, new_len=4, rstate=state))) == 4
+    with pytest.raises(ValueError, match="prompt cache"):
+        asyncio.run(run(new_len=4, rstate=state))
+    with pytest.raises(ValueError, match="new tokens"):
+        asyncio.run(run(cache=cache, new_len=5, rstate=state))
+    with pytest.raises(ValueError, match="shift"):
+        asyncio.run(run(cache=cache, new_len=4, rstate=state, shift=SPT))
     with pytest.raises(ValueError, match="shift"):
         asyncio.run(run(shift=STATE_TOKENS * SPT))
+
+
+def _cache(params, ref, seed=777):
+    g = torch.Generator().manual_seed(seed)
+    noise = torch.randn((1, 2048, CFG.flow.output_size), generator=g)
+    with torch.inference_mode():
+        return s3gen_ref_prompt_prefill(params, CFG, ref, noise)
+
+
+def test_cached_batch_matches_direct_call(setup):
+    """Three co-batched jobs with the voice's prompt cache (captured at
+    batch 1, broadcast over the batch): each equals the direct cached call
+    on its draws."""
+    _, _, params, _, ref = setup
+    cache = _cache(params, ref)
+    T = 6
+    tokens = _tokens(T, 5)
+    results, sched = _serve(params, [((tokens, 5, ref, None, 0, 30 + i), dict(cache=cache))
+                                     for i in range(3)])
+    assert sched.max_batch_seen == 3
+    for i, (tail, _, state) in enumerate(results):
+        g = torch.Generator().manual_seed(30 + i)
+        with torch.inference_mode():
+            wav, src = s3gen_ref_inference(
+                params, CFG, torch.as_tensor(tokens[None]), torch.tensor([5]), ref,
+                torch.zeros((1, T * SPT)), torch.tensor([0]), draw_noise(CFG, 1, T, g, "cpu"),
+                cfm_cache=cache)
+        np.testing.assert_allclose(tail, to_np(wav[0]), atol=BATCH_TOL, rtol=0)
+        np.testing.assert_allclose(to_np(state[: T * SPT]), to_np(src[0]), atol=BATCH_TOL, rtol=0)
+
+
+def test_streaming_batch_matches_direct_call(setup):
+    """Two streaming jobs co-batched at different stages of their chunks
+    (a first slice of 4 tokens; a second slice of 3 after 4): the block is
+    picked for the larger new_len, each job's tail, source row and new state
+    equal the direct batch-1 streaming call on its draws, and the returned
+    states are the job's own."""
+    _, _, params, _, ref = setup
+    cache = _cache(params, ref)
+    T = 8
+    tokens = _tokens(T, 7, seed=3)
+    fresh = init_s3gen_stream_state(CFG, cache, 16, STATE_TOKENS)
+
+    def direct(n_tok, new, src_row, clen, prev, seed, rstate):
+        g = torch.Generator().manual_seed(seed)
+        with torch.inference_mode():
+            return s3gen_ref_inference_streaming(
+                params, CFG, torch.as_tensor(tokens[None]), torch.tensor([n_tok]),
+                torch.tensor([new]), ref, src_row[None, : T * SPT], torch.tensor([clen]),
+                draw_noise(CFG, 1, T, g, "cpu", stream=True), torch.tensor([prev]), T * SPT,
+                rstate, stream_block_tokens(4, T), cache)
+
+    # job b's first slice (4 tokens), run alone to make its second-slice state
+    _, src_b, st_b = direct(4, 4, torch.zeros(STATE_TOKENS * SPT), 0, 0, 41, fresh)
+    row_b = torch.zeros(STATE_TOKENS * SPT)
+    row_b[: T * SPT] = src_b[0]
+    jobs = [((tokens, 4, ref, None, 0, 40), dict(cache=cache, new_len=4, rstate=fresh)),
+            ((tokens, 7, ref, row_b, 4 * SPT, 41),
+             dict(cache=cache, new_len=3, rstate=st_b, prev_rel=4 * SPT))]
+    results, sched = _serve(params, jobs)
+    assert sched.max_batch_seen == 2 and sched.max_stream_batch_seen == 2
+    want = [direct(4, 4, torch.zeros(STATE_TOKENS * SPT), 0, 0, 40, fresh),
+            direct(7, 3, row_b, 4 * SPT, 4 * SPT, 41, st_b)]
+    for (tail, start, row, st), (w_tail, w_src, w_st) in zip(results, want):
+        assert start == 0
+        np.testing.assert_allclose(tail, to_np(w_tail[0]), atol=BATCH_TOL, rtol=0)
+        np.testing.assert_allclose(to_np(row[: T * SPT]), to_np(w_src[0]), atol=BATCH_TOL, rtol=0)
+        np.testing.assert_allclose(to_np(st["mel"]), to_np(w_st["mel"]), atol=BATCH_TOL, rtol=0)
+        for k, a in w_st["cfm"].items():
+            np.testing.assert_allclose(to_np(st["cfm"][k]), to_np(a), atol=BATCH_TOL,
+                                       rtol=BATCH_TOL, err_msg=k)
+    assert [int(r[3]["cfm"]["frames"][0]) for r in results] == [4 * CFG.flow.up_stride,
+                                                                 7 * CFG.flow.up_stride]
+
+
+def test_jobs_with_different_caches_do_not_coalesce(setup):
+    """Queues key on the prompt cache's identity: four jobs of one bucket
+    with two voices' caches go out as two batches of two."""
+    _, _, params, _, ref = setup
+    caches = [_cache(params, ref, seed) for seed in (1, 2)]
+    lanes = []
+
+    def spy(p, tk, *rest, cache=None):
+        lanes.append((tk.shape[0], id(cache)))
+        return s3gen_ref_inference(p, CFG, tk, *rest, cfm_cache=cache)
+
+    tokens = _tokens(6, 6)
+    jobs = [((tokens, 6, ref, None, 0, i), dict(cache=caches[i % 2])) for i in range(4)]
+    _serve(params, jobs, infer=spy)
+    assert sorted(lanes) == sorted([(2, id(caches[0])), (2, id(caches[1]))])
 
 
 def test_tail_vocode_through_scheduler_matches_full(setup):

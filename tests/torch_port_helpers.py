@@ -73,3 +73,28 @@ def jax_s3gen_noise(jcfg, key, B, T):
         "rand_ini": to_t(jax.random.uniform(k_ini, (B, H))),
         "nsf": to_t(jax.random.normal(k_noise, (B, T * jcfg.samples_per_token, H))),
     }
+
+
+def assert_trees_close(jax_tree, port_tree, rel: float = 1e-4):
+    """Leaf by leaf (``None`` nodes skipped, as jax.tree does): the same
+    structure and shapes, each leaf within ``rel`` of its largest magnitude
+    (GroupNorm sums of squares reach ~1e3, so an absolute bound would say
+    little)."""
+    import jax
+
+    want = jax.tree.leaves(jax_tree)
+    got = jax.tree.leaves(jax.tree.map(to_np, port_tree))
+    assert len(want) == len(got) > 0
+    for a, b in zip(want, got):
+        a = np.asarray(a, np.float64)
+        assert a.shape == b.shape
+        np.testing.assert_allclose(b, a, rtol=0, atol=rel * (1.0 + np.abs(a).max()))
+
+
+def prompt_noise(n_mels: int, batch: int = 1) -> torch.Tensor:
+    """The CFM prompt noise both packages draw from the fixed key 777 (the
+    JAX engine's prompt-cache key), as a 2048-frame buffer."""
+    import jax
+    import jax.numpy as jnp
+
+    return to_t(jax.random.normal(jax.random.PRNGKey(777), (batch, 2048, n_mels), jnp.float32))
