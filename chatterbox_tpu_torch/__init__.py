@@ -10,10 +10,15 @@ wrapper takes only for a tensor on the CPU.
 
 Package layout:
   text/, audio/  host-side chunking, PCM/WAV, crossfade, container encoders
-  models/        T3 (speech-token decoder) and S3Gen ref (token → waveform)
-  ops/           core numerics, sampling, the three kernels and their nvcc build
-  runtime/       the streaming engine, the batched T3 decoder, the S3Gen
-                 micro-batcher, serving metrics, conds.pt loading
+  models/        T3 (speech-token decoder), S3Gen ref (token → waveform, and
+                 its voice embedding: front ends, S3TokenizerV2, CAMPPlus)
+                 and the VoiceEncoder
+  ops/           core numerics, spectra, sampling, the three kernels and
+                 their nvcc build
+  runtime/       the streaming engine (voice cloning included), the batched T3
+                 decoder, the S3Gen micro-batcher, serving metrics, conds.pt
+                 loading
+  serve/         the voice store
   settings.py    environment settings (same variable names as the JAX package)
   convert.py     JAX-layout parameter pytrees → the port's layouts
 """

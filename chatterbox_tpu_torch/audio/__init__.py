@@ -1,6 +1,6 @@
 from .crossfade import CrossfadeStitcher, equal_power_curves, trim_leading, trim_trailing
 from .encoding import AudioEncoder, AudioFormat
-from .pcm import float_to_pcm16, make_wav_header
+from .pcm import float_to_pcm16, make_wav_header, pcm16_to_float, read_wav, resample, write_wav
 
 __all__ = [
     "AudioEncoder",
@@ -9,6 +9,10 @@ __all__ = [
     "equal_power_curves",
     "float_to_pcm16",
     "make_wav_header",
+    "pcm16_to_float",
+    "read_wav",
+    "resample",
     "trim_leading",
     "trim_trailing",
+    "write_wav",
 ]

@@ -12,7 +12,11 @@ names its counterpart in the other. Only the layouts of weights differ:
   torch ``[Cout, Cin, K]``;
 * transposed conv (the HiFT ``ups`` stages) ``[K, Cin, Cout]`` → torch
   ``[Cin, Cout, K]``. The JAX ``conv_transpose1d`` flips its kernel to
-  emulate torch's convolution, so here the weight is transposed, not flipped.
+  emulate torch's convolution, so here the weight is transposed, not flipped;
+* 2-D conv (CAMPPlus's head) HWIO ``[kH, kW, Cin, Cout]`` → torch OIHW
+  ``[Cout, Cin, kH, kW]``;
+* the VoiceEncoder's LSTM weights ``wx`` / ``wh`` ``[in, 4H]`` → torch's
+  ``weight_ih`` / ``weight_hh`` layout ``[4H, in]``.
 
 Every other leaf (embeddings, norms, biases, buffers) is copied as is.
 ``convert_params`` also accepts torch leaves, which is how the port's own
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 _STACKED_LINEAR = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
+_LINEAR = frozenset({"w", "wx", "wh"})
 
 
 def _leaf(x: Any, key: str, parents: tuple, device, dtype) -> torch.Tensor:
@@ -38,10 +43,12 @@ def _leaf(x: Any, key: str, parents: tuple, device, dtype) -> torch.Tensor:
         t = torch.from_numpy(a)
     if t.is_floating_point() and dtype is not None:
         t = t.to(dtype)
-    if key == "w" and t.dim() == 2:
+    if key in _LINEAR and t.dim() == 2:
         t = t.t()
     elif key == "w" and t.dim() == 3:
         t = t.permute(1, 2, 0) if "ups" in parents else t.permute(2, 1, 0)
+    elif key == "w" and t.dim() == 4:
+        t = t.permute(3, 2, 0, 1)
     elif key in _STACKED_LINEAR and t.dim() == 3:
         t = t.transpose(1, 2)
     return t.contiguous().to(device)

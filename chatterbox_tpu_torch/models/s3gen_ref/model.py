@@ -15,15 +15,18 @@ which the CFM solves the generated frames only.
 the prompt cache and the request's frozen earlier frames
 (``init_s3gen_stream_state``); ``stack_stream_states`` and
 ``split_stream_state`` batch and unbatch those states.
-Voice embedding (tokenizer, CAMPPlus, mel frontends) is not ported yet
-(ROADMAP.md Queue 1 item 9): the conditioning ``ref`` dict comes from
-``conds.pt``.
+``s3gen_ref_embed_ref(wav24, wav16) → ref`` builds the conditioning dict
+from reference audio: prompt tokens (S3TokenizerV2), prompt mel (the HiFiGAN
+front end) and the CAMPPlus x-vector, in fixed right-padded windows (mel
+frames = up_stride × prompt tokens); ``conds.pt`` gives the same dict for
+the snapshot's default voice.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ...convert import convert_params
 from ...ops.initializers import DenseInit
@@ -39,6 +42,8 @@ from .decoder import (
     init_estimator_params,
     init_stream_state,
 )
+from .campplus import campplus_embed, init_campplus_params
+from .features import hifigan_log_mel, kaldi_fbank, reflect_tail
 from .hift import (
     _upsample_total,
     hift_decode,
@@ -47,14 +52,17 @@ from .hift import (
     make_source,
     predict_f0,
 )
+from .tokenizer import init_s3tok_ref_params, s3tok_ref_tokenize
 from .upsample_encoder import init_upsample_encoder_params, upsample_encode
+
+MEL_HOP_24K = 480  # HiFiGAN mel hop at 24 kHz (50 frames/s)
 
 
 def init_s3gen_ref_params(cfg: S3GenRefConfig, generator: torch.Generator, device,
                           dtype=torch.float32) -> Dict:
-    """Random flow + vocoder parameters with the JAX package's distributions
-    (the voice-embedding subtrees ``tokenizer``/``speaker`` are not part of
-    the port yet)."""
+    """Random parameters with the JAX package's distributions. The voice
+    embedding's subtrees (``tokenizer``, ``speaker``) are drawn after the
+    flow and the vocoder, so those stay the same at a given seed."""
     init = DenseInit(generator, device)
     mk = lambda *shape: init.dense(shape)  # noqa: E731
     fl = cfg.flow
@@ -68,7 +76,47 @@ def init_s3gen_ref_params(cfg: S3GenRefConfig, generator: torch.Generator, devic
         },
         "mel2wav": init_hift_params(init, cfg.hift),
     }
-    return convert_params(tree, device, dtype)
+    params = convert_params(tree, device, dtype)
+    params["tokenizer"] = init_s3tok_ref_params(cfg.tokenizer, generator, device, dtype)
+    params["speaker"] = init_campplus_params(cfg.speaker, generator, device, dtype)
+    return params
+
+
+def s3gen_ref_embed_ref(
+    params: Dict,
+    cfg: S3GenRefConfig,
+    wav24: torch.Tensor,      # [B, L24] 24 kHz reference audio, right-padded
+    wav24_len: torch.Tensor,  # [B]
+    wav16: torch.Tensor,      # [B, L16] the same audio at 16 kHz
+    wav16_len: torch.Tensor,  # [B]
+) -> Dict:
+    """The voice's conditioning dict: spk_emb [B, 192] (the weights' dtype),
+    prompt_tokens [B, P] and prompt_len, prompt_mel [B, Pm, 80] (float32)
+    and prompt_mel_len; lengths and tokens int64."""
+    # the padding past a short prompt holds its reflected tail: the last
+    # frame's window reaches up to (n_fft - hop) / 2 samples past the valid
+    # end, where the reference extractor sees reflected audio, not zeros
+    mel = hifigan_log_mel(reflect_tail(wav24, wav24_len))          # [B, F, 80]
+    Pm, P = cfg.max_prompt_mel, cfg.max_prompt_tokens
+    mel = F.pad(mel, (0, 0, 0, max(0, Pm - mel.shape[1])))[:, :Pm]
+    mel_len = (wav24_len.long() // MEL_HOP_24K).clamp_max(Pm)
+
+    tokens, tok_len = s3tok_ref_tokenize(params["tokenizer"], cfg.tokenizer, wav16, wav16_len)
+    tokens = F.pad(tokens, (0, max(0, P - tokens.shape[1])))[:, :P]
+    # alignment rule: prompt mel frames == up_stride × prompt tokens
+    tok_len = torch.minimum(tok_len, mel_len // cfg.flow.up_stride).clamp_max(P)
+    mel_len = tok_len * cfg.flow.up_stride
+
+    fb, fb_len = kaldi_fbank(wav16, wav16_len)
+    fb_valid = torch.arange(fb.shape[1], device=fb.device)[None, :] < fb_len[:, None]
+    mel_valid = torch.arange(Pm, device=mel.device)[None, :] < mel_len[:, None]
+    return {
+        "spk_emb": campplus_embed(params["speaker"], cfg.speaker, fb, fb_valid),
+        "prompt_tokens": tokens,
+        "prompt_len": tok_len,
+        "prompt_mel": torch.where(mel_valid[:, :, None], mel, 0.0),
+        "prompt_mel_len": mel_len,
+    }
 
 
 def draw_noise(cfg: S3GenRefConfig, batch: int, n_tokens: int, generator: torch.Generator,

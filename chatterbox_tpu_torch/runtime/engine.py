@@ -23,11 +23,18 @@ tokens against the voice's prompt context and the request's frozen earlier
 frames. The per-request path uses the prompt cache without streaming, as in
 the JAX package.
 
-What this port serves today (the rest raises NotImplementedError naming its
-ROADMAP.md item): the default voice from ``MODEL_PATH/conds.pt`` and random
-weights made on the device from a seeded generator. The device is explicit:
-with no CUDA device and no ``device="cpu"``, construction raises. The engine
-records the JAX engine's serving metrics (``runtime.metrics``).
+Voices, as in the JAX package: a request with no voice id gets the default
+voice, read from ``MODEL_PATH/conds.pt`` or, with no usable file, the neutral
+voice that ``_cond_fn`` builds from zero waveforms; a voice id names a file
+of the voice store (``serve.voice_manager``), cloned at its first request by
+``prepare_conditionals`` (S3TokenizerV2, the VoiceEncoder, CAMPPlus and the
+mel front ends) and cached under its name.
+
+Weights are random, made on the device from a seeded generator (checkpoint
+loading raises NotImplementedError naming its ROADMAP.md item). The device
+is explicit: with no CUDA device and no ``device="cpu"``, construction
+raises. The engine records the JAX engine's serving metrics
+(``runtime.metrics``).
 """
 from __future__ import annotations
 
@@ -43,29 +50,34 @@ import time
 import zlib
 from enum import Enum
 from pathlib import Path
-from typing import AsyncGenerator, Dict, Literal, Optional
+from typing import AsyncGenerator, Dict, Literal, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..audio.crossfade import CrossfadeStitcher, trim_leading, trim_trailing
 from ..audio.encoding import AudioEncoder
-from ..audio.pcm import float_to_pcm16
+from ..audio.pcm import float_to_pcm16, read_wav, resample
 from ..logging_config import log
 from ..models.s3gen_ref import (
     S3GenRefConfig,
     draw_noise,
     init_s3gen_ref_params,
     init_s3gen_stream_state,
+    s3gen_ref_embed_ref,
     s3gen_ref_inference,
     s3gen_ref_inference_tail,
     s3gen_ref_prompt_prefill,
 )
 from ..models.s3gen_ref.decoder import cfm_noise_frames, static_prompt_cache
+from ..models.s3gen_ref.tokenizer import s3tok_ref_tokenize
 from ..models.t3 import T3Config, cond_embeddings, init_t3_params, make_decode_state, t3_decode_slice, t3_prefill
 from ..models.tokenizer import TextTokenizer
+from ..models.voice_encoder import VoiceEncoderConfig, init_voice_encoder_params, voice_embed
 from ..ops import _build
 from ..ops.initializers import make_generator
+from ..serve.voice_manager import VoiceManager
 from ..settings import check_supported, get_settings, get_tts_config
 from ..text import split_text_into_chunks
 from .cancellation import CancellationToken, race_cancellation
@@ -73,6 +85,13 @@ from .loader import load_default_conds
 from .metrics import metrics
 from .s3gen_scheduler import MAX_TAIL_TOKENS, S3GenScheduler
 from .scheduler import BatchedT3Decoder
+
+S3_SR = 16000      # the tokenizer's, the VoiceEncoder's and CAMPPlus's rate
+S3GEN_SR = 24000   # the prompt mel's rate
+ENC_COND_LEN = 6 * S3_SR        # T3 prompt budget: tokenize at most 6 s
+DEC_COND_LEN = 10 * S3GEN_SR    # embed_ref budget: 10 s of 24 kHz audio
+DEC16_COND_LEN = 10 * S3_SR     # the same 10 s at 16 kHz
+NEUTRAL_VOICE_S = 2             # the neutral voice: 2 s of zeros
 
 
 class InitializationState(Enum):
@@ -94,6 +113,7 @@ class Conditionals:
 class EngineConfig:
     t3: T3Config
     s3gen_ref: S3GenRefConfig
+    ve: VoiceEncoderConfig = VoiceEncoderConfig()
     text_bucket: int = 16       # pad text token counts to multiples of this
     max_new_tokens: int = 1000  # per-chunk decode cap
     param_dtype: str = "float32"
@@ -107,6 +127,7 @@ class EngineConfig:
         return EngineConfig(
             t3=T3Config.tiny(),
             s3gen_ref=EngineConfig._apply_ref_env_knobs(S3GenRefConfig.tiny()),
+            ve=VoiceEncoderConfig.tiny(),
             text_bucket=8,
             max_new_tokens=64,
         )
@@ -143,6 +164,7 @@ class EngineConfig:
         return EngineConfig(
             t3=T3Config().with_(kv_cache_dtype=kv),
             s3gen_ref=EngineConfig._apply_ref_env_knobs(S3GenRefConfig()),
+            ve=VoiceEncoderConfig(),
             param_dtype=param_dtype,
             max_new_tokens=max(8, min(cap, 1000)),
         )
@@ -201,6 +223,61 @@ def _token_bucket_sizes(slice_size: int, cap: int):
 PROMPT_NOISE_SEED = 777
 
 
+def reference_inputs(wav: np.ndarray, sr: int) -> Tuple[torch.Tensor, ...]:
+    """A reference waveform → ``_cond_fn``'s audio inputs on the CPU: the
+    audio at 24 kHz and at 16 kHz, each cut to 10 s and zero-padded to that
+    static size, and its lengths (the T3 prompt's 16 kHz length capped at
+    6 s)."""
+    wav24 = resample(wav, sr, S3GEN_SR)[:DEC_COND_LEN]
+    wav16 = resample(wav, sr, S3_SR)[:DEC16_COND_LEN]
+    w24 = torch.zeros((1, DEC_COND_LEN))
+    w24[0, : len(wav24)] = torch.from_numpy(wav24)
+    w16 = torch.zeros((1, DEC16_COND_LEN))
+    w16[0, : len(wav16)] = torch.from_numpy(wav16)
+    return (w24, torch.tensor([len(wav24)]), w16, torch.tensor([min(len(wav16), ENC_COND_LEN)]),
+            torch.tensor([len(wav16)]))
+
+
+def neutral_inputs() -> Tuple[torch.Tensor, ...]:
+    """``_cond_fn``'s audio inputs for the neutral voice: 2 s of zeros at
+    each rate."""
+    n24, n16 = NEUTRAL_VOICE_S * S3GEN_SR, NEUTRAL_VOICE_S * S3_SR
+    return (torch.zeros((1, n24)), torch.tensor([n24]), torch.zeros((1, n16)),
+            torch.tensor([n16]), torch.tensor([n16]))
+
+
+def _t3_lanes(t3p: Dict, t3c: T3Config, spk: torch.Tensor, tokens: torch.Tensor,
+              tok_len: torch.Tensor, exaggeration: torch.Tensor) -> torch.Tensor:
+    """T3's conditioning lanes [2, C, D] from a voice's speaker embedding and
+    prompt tokens (cut or zero-padded to the prompt window): cond, then
+    uncond with zero speaker and exaggeration."""
+    P = t3c.speech_cond_prompt_len
+    prompt = F.pad(tokens[:, :P], (0, max(0, P - tokens.shape[1])))
+    prompt_len = tok_len.clamp_max(P)
+    cond = cond_embeddings(t3p, t3c, spk, prompt, exaggeration, prompt_len)
+    uncond = cond_embeddings(t3p, t3c, torch.zeros_like(spk), prompt,
+                             torch.zeros_like(exaggeration), prompt_len)
+    return torch.cat([cond, uncond])
+
+
+@torch.inference_mode()
+def _cond_fn(params: Dict, cfg: EngineConfig, wav24: torch.Tensor, wav24_len: torch.Tensor,
+             wav16: torch.Tensor, wav16_len_enc: torch.Tensor, wav16_len_dec: torch.Tensor,
+             exaggeration: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """A voice's conditioning from its reference audio → (T3 lanes [2, C, D]:
+    cond, then uncond with zero speaker and exaggeration; the S3Gen ref
+    dict). ``wav16`` is one buffer with two valid lengths: the T3 prompt
+    tokenizes ``wav16_len_enc`` samples (≤ 6 s), the VoiceEncoder and
+    ``embed_ref`` take ``wav16_len_dec`` (≤ 10 s). Runs where the tensors
+    are."""
+    refc = cfg.s3gen_ref
+    tokens, tok_len = s3tok_ref_tokenize(params["s3gen"]["tokenizer"], refc.tokenizer, wav16,
+                                         wav16_len_enc)
+    spk = voice_embed(params["ve"], cfg.ve, wav16, wav16_len_dec)
+    lanes = _t3_lanes(params["t3"], cfg.t3, spk, tokens, tok_len, exaggeration)
+    return lanes, s3gen_ref_embed_ref(params["s3gen"], refc, wav24, wav24_len, wav16, wav16_len_dec)
+
+
 def _resolve_device(device) -> torch.device:
     if device is not None:
         return torch.device(device)
@@ -212,8 +289,9 @@ def _resolve_device(device) -> torch.device:
 class TTSEngine:
     def __init__(self, engine_cfg: Optional[EngineConfig] = None, seed: int = 0,
                  device=None, params: Optional[Dict] = None):
-        """``params`` (optional) replaces the random init: {"t3": …, "s3gen": …}
-        in the port's layout (``convert.convert_params``), on ``device``."""
+        """``params`` (optional) replaces the random init: {"t3": …, "s3gen":
+        …, "ve": …} in the port's layout (``convert.convert_params``), on
+        ``device``."""
         settings = get_settings()
         check_supported()
         if engine_cfg is None:
@@ -227,6 +305,7 @@ class TTSEngine:
         self.device = _resolve_device(device)
         self.gen_cfg = engine_cfg.gen
         self.sr = self.gen_cfg.sample_rate
+        self.voice_manager = VoiceManager()
         self.voice_cache: Dict[str, Conditionals] = {}
         self.params: Optional[Dict] = params
         self.tokenizer: Optional[TextTokenizer] = None
@@ -303,9 +382,11 @@ class TTSEngine:
             gen = make_generator(self.seed, self.device)
             log.info("No checkpoint — random-init weights on %s (seed %d)", self.device, self.seed)
             with torch.inference_mode():
+                # drawn in this order, so T3 and S3Gen stay the same at a seed
                 self.params = {
                     "t3": init_t3_params(self.cfg.t3, gen, self.device, dtype),
                     "s3gen": init_s3gen_ref_params(self.cfg.s3gen_ref, gen, self.device, dtype),
+                    "ve": init_voice_encoder_params(self.cfg.ve, gen, self.device, dtype),
                 }
         if self.device.type == "cuda":
             _build.library()  # build the kernels now, not inside the first request
@@ -424,37 +505,45 @@ class TTSEngine:
         return (self.seed * 1_000_003 + _stable_seed(request_id) + chunk_idx) & 0x7FFFFFFF
 
     # --------------------------------------------------------------- voices
+    def _conditionals(self, inputs: Tuple[torch.Tensor, ...]) -> Conditionals:
+        """``_cond_fn`` on the engine's device at VOICE_EXAGGERATION_FACTOR;
+        ``inputs`` as ``reference_inputs`` gives them."""
+        exag = torch.tensor([get_tts_config().VOICE_EXAGGERATION_FACTOR], device=self.device)
+        lanes, ref = _cond_fn(self.params, self.cfg, *(x.to(self.device) for x in inputs), exag)
+        return Conditionals(lanes, ref)
+
     def _default_conditionals(self) -> Conditionals:
-        """The no-voice_id conditionals, from ``MODEL_PATH/conds.pt``."""
+        """The no-voice_id conditionals: the snapshot's default voice
+        (``MODEL_PATH/conds.pt``) when present and readable; the neutral
+        voice, built from 2 s of zeros, otherwise."""
         if "default" not in self.voice_cache:
+            conds = None
             conds_file = Path(get_settings().MODEL_PATH) / "conds.pt"
-            raw = load_default_conds(conds_file)
-            if raw is None:
-                raise FileNotFoundError(
-                    f"{conds_file} not found: the port serves the snapshot's default voice "
-                    "only; building a voice from audio (voice cloning) is ROADMAP.md Queue 1 item 9")
-            self.voice_cache["default"] = self._conds_from_default_file(raw)
-            log.info("Default voice loaded from %s", conds_file)
+            if conds_file.exists():
+                try:
+                    conds = self._conds_from_default_file(load_default_conds(conds_file))
+                    log.info("Default voice loaded from %s", conds_file)
+                except Exception:
+                    log.warning("Failed to read %s; using the neutral default voice",
+                                conds_file, exc_info=True)
+            if conds is None:
+                conds = self._conditionals(neutral_inputs())
+                log.info("Default voice: the neutral voice (no usable %s)", conds_file)
+            self.voice_cache["default"] = conds
         return self.voice_cache["default"]
 
     @torch.inference_mode()
     def _conds_from_default_file(self, raw: Dict) -> Conditionals:
-        """The loaded ``conds.pt`` fields → Conditionals: the T3 lanes through
-        ``cond_embeddings`` (uncond lane: zero speaker and exaggeration), the
-        gen dict padded to the static prompt windows."""
-        t3c, rc, dev = self.cfg.t3, self.cfg.s3gen_ref, self.device
-        P = t3c.speech_cond_prompt_len
-        toks = raw["prompt_speech_tokens"][:, :P]
-        prompt = np.zeros((1, P), np.int64)
-        prompt[0, : toks.shape[1]] = toks[0]
-        prompt_t = torch.as_tensor(prompt, device=dev)
-        plen = torch.tensor([toks.shape[1]], device=dev)
-        spk = torch.as_tensor(raw["speaker_emb"], device=dev)
-        exag = torch.tensor([raw["emotion_adv"]], dtype=torch.float32, device=dev)
-        t3p = self.params["t3"]
-        cond = cond_embeddings(t3p, t3c, spk, prompt_t, exag, plen)
-        uncond = cond_embeddings(t3p, t3c, torch.zeros_like(spk), prompt_t, torch.zeros_like(exag), plen)
-        lanes = torch.cat([cond, uncond])
+        """The loaded ``conds.pt`` fields → Conditionals: the T3 lanes as
+        ``_cond_fn`` builds them, from the stored speaker embedding, prompt
+        tokens and exaggeration; the gen dict padded to the static prompt
+        windows."""
+        rc, dev = self.cfg.s3gen_ref, self.device
+        toks = torch.as_tensor(raw["prompt_speech_tokens"], device=dev).long()
+        lanes = _t3_lanes(self.params["t3"], self.cfg.t3,
+                          torch.as_tensor(raw["speaker_emb"], device=dev), toks,
+                          torch.tensor([toks.shape[1]], device=dev),
+                          torch.tensor([raw["emotion_adv"]], dtype=torch.float32, device=dev))
 
         Pg, Pm, up = rc.max_prompt_tokens, rc.max_prompt_mel, rc.flow.up_stride
         gtok = np.zeros((1, Pg), np.int64)
@@ -478,9 +567,13 @@ class TTSEngine:
         return Conditionals(lanes, ref)
 
     def prepare_conditionals(self, wav_fpath: str) -> None:
-        raise NotImplementedError(
-            "voice cloning from a reference wav (VoiceEncoder, S3TokenizerV2, CAMPPlus, "
-            "the feature frontends) is ROADMAP.md Queue 1 item 9")
+        """Clone the voice of a reference WAV and cache it under the file's
+        name: at most 10 s of it, resampled to 24 and 16 kHz and padded to
+        the static sizes."""
+        wav, sr = read_wav(wav_fpath)
+        voice_id = Path(wav_fpath).name
+        self.voice_cache[voice_id] = self._conditionals(reference_inputs(wav, sr))
+        log.info("Prepared conditionals for voice '%s'", voice_id)
 
     def clear_voice_cache(self, voice_id: str) -> None:
         self._cfm_cache_lru.pop(voice_id, None)
@@ -491,11 +584,15 @@ class TTSEngine:
         else:
             log.warning("Attempted to clear non-cached voice '%s'.", voice_id)
 
-    async def _get_conds(self, voice_id: Optional[str]) -> Conditionals:
+    async def _get_conds(self, voice_id: Optional[str], request_id: str) -> Conditionals:
         if not voice_id:
             return await asyncio.to_thread(self._default_conditionals)
         if voice_id not in self.voice_cache:
-            self.prepare_conditionals(voice_id)
+            path = self.voice_manager.get_voice_path(voice_id)
+            if path is None:
+                raise FileNotFoundError(f"Voice '{voice_id}' not found")
+            log.info("[%s] Voice '%s' not cached; preparing conditionals", request_id, voice_id)
+            await asyncio.to_thread(self.prepare_conditionals, path)
         return self.voice_cache[voice_id]
 
     # --------------------------------------------------------------- stream
@@ -520,7 +617,7 @@ class TTSEngine:
             if self._state != InitializationState.READY:
                 raise RuntimeError(f"TTS Engine is not ready. Status: {self._state.value}")
             start_time = time.time()
-            conds = await self._get_conds(voice_id)
+            conds = await self._get_conds(voice_id, request_id)
             cfm_cache = stream0 = None
             if self._cfm_cache_mode() != "0":
                 cfm_cache = await asyncio.to_thread(self._cfm_cache_for, voice_id or "default",

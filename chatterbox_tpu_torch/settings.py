@@ -30,6 +30,8 @@ def _fill(cls, prefix: str):
 @dataclasses.dataclass(frozen=True)
 class AppSettings:
     MODEL_PATH: str = "models"
+    VOICES_DIR: str = "voices/"                    # user-uploaded voices
+    PRELOADED_VOICES_DIR: str = "preloaded-voices/"
     CONCURRENT_REQUESTS_PER_WORKER: int = 0
     MAX_DECODE_SLOTS: int = 16
     DTYPE_POLICY: str = "bfloat16"
@@ -41,6 +43,7 @@ class TTSSettings:
     """The ``TTS_*`` settings the engine reads (the per-request defaults of
     the JAX package's HTTP layer arrive with the app factory)."""
 
+    VOICE_EXAGGERATION_FACTOR: float = 0.5  # a cloned or neutral voice's exaggeration
     SPEECH_TOKEN_QUEUE_MAX_SIZE: int = 2
     PCM_CHUNK_QUEUE_MAX_SIZE: int = 3
     AUDIO_TOKENS_PER_SLICE: int = 35   # the batched decoder's slice length

@@ -53,8 +53,24 @@ the script exits non-zero without printing the final line:
    one-chunk requests on the uncached batched path
    (CHATTERBOX_CFM_PROMPT_CACHE=0) at a decode cap of 35 tokens, which must
    run K2's self form only and batch 2 or more uncached S3Gen jobs;
-6. the per-request path (MAX_DECODE_SLOTS=1) at a decode cap of 35 tokens:
-   one two-chunk request with the prompt cache, then one one-chunk request
+5b. voice cloning on phase 4's engine, the voice store pointed at the
+   repo's preloaded-voices/ (VOICES_DIR a temporary directory): (a)
+   prepare_conditionals clones demo-voice.wav on the card, cold, then warm
+   under the profiler (wall and device time), held against the same
+   _cond_fn on the CPU over an f32 copy of the weights and the same padded
+   inputs (the share of each prompt-token row that agrees, reported; held
+   to CLONE_TOL: every digit away from an FSQ boundary equal, cosine and
+   max-abs error of the CAMPPlus and VoiceEncoder embeddings, max-abs error
+   of the prompt mel and of the T3 lanes); (b) the voice dropped, 4 concurrent requests in it at
+   a decode cap of 35 tokens on the batched defaults: the first clones it
+   again through the voice store and builds its CFM prompt cache (K2's self
+   form), and K2's context form and K1's int8 body must launch, the voice
+   must hold its own prompt cache, and an S3Gen batch must stack two or
+   more of its jobs; then its prompt cache's build time and size;
+6. the per-request path (MAX_DECODE_SLOTS=1) at a decode cap of 35 tokens,
+   on a MODEL_PATH with no conds.pt: the neutral default voice, built on
+   the card from 2 s of zeros, held against the CPU as in 5b; then one
+   two-chunk request with the prompt cache, then one one-chunk request
    uncached, with the same checks and K1/K2 launches;
 7. a full-width BatchedT3Decoder with a bf16 cache at 16 slots: 16 prefills,
    one slice (K1's bf16 body at 32 lanes), then K3 against its plain version
@@ -713,15 +729,16 @@ async def start_engine():
     return engine
 
 
-async def run_requests(engine, texts, prefix: str):
-    """Send ``texts`` concurrently → [(request id, wav bytes)]."""
+async def run_requests(engine, texts, prefix: str, request: dict = REQUEST):
+    """Send ``texts`` concurrently with ``request``'s arguments → [(request
+    id, wav bytes)]."""
     from chatterbox_tpu_torch.runtime.cancellation import CancellationToken
 
     async def one(i, text):
         rid = f"{prefix}-{i}"
         data = b""
         async for chunk in engine.stream(text=text, request_id=rid,
-                                         cancellation_token=CancellationToken(), **REQUEST):
+                                         cancellation_token=CancellationToken(), **request):
             data += chunk
         return rid, data
 
@@ -786,23 +803,23 @@ def nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def build_voice_cache(engine) -> dict:
-    """Drop the default voice's CFM prompt cache and build it again, as a
-    voice's first request does: its build time, its size and the size of
-    one request's streaming state (the K/V ring and the rest)."""
-    conds = engine.voice_cache["default"]
-    engine.clear_voice_cache("default")
-    engine.voice_cache["default"] = conds
+def build_voice_cache(engine, voice: str = "default") -> dict:
+    """Drop a voice's CFM prompt cache and build it again, as its first
+    request does: its build time, its size and the size of one request's
+    streaming state (the K/V ring and the rest)."""
+    conds = engine.voice_cache[voice]
+    engine.clear_voice_cache(voice)
+    engine.voice_cache[voice] = conds
     torch.cuda.synchronize()
     m0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
-    cache = engine._cfm_cache_for("default", conds)
+    cache = engine._cfm_cache_for(voice, conds)
     torch.cuda.synchronize()
     build_s, grown = time.perf_counter() - t0, torch.cuda.memory_allocated() - m0
-    state = engine._stream_state0("default", cache)
+    state = engine._stream_state0(voice, cache)
     info = {"build_s": build_s, "cache_bytes": nbytes(cache), "allocated_bytes": grown,
             "ring_bytes": nbytes({k: state["cfm"][k] for k in ("k", "v")}),
             "state_bytes": nbytes(state)}
-    print(f"  CFM prompt cache (step mode) of the default voice: built in {build_s:.3f} s, "
+    print(f"  CFM prompt cache (step mode) of voice '{voice}': built in {build_s:.3f} s, "
           f"{info['cache_bytes'] / 2**20:.1f} MiB ({grown / 2**20:.1f} MiB allocated); one "
           f"request's streaming state {info['state_bytes'] / 2**20:.1f} MiB, of which the K/V ring "
           f"{info['ring_bytes'] / 2**20:.1f} MiB (window {state['cfm']['k'].shape[3]} frames)",
@@ -1010,6 +1027,217 @@ def s3gen_call_times(engine, T: int = 128, acc: int = 105) -> dict:
     return out
 
 
+# The cloned voice on the card against the same _cond_fn on the CPU, on an
+# f32 copy of the engine's weights and the same padded inputs. The card runs
+# the engine's bf16 weights: the tokenizer and CAMPPlus compute in bf16 (each
+# casts its input down to its weights' dtype, as in the JAX package), the
+# VoiceEncoder and the mel front ends in float32. The float32 paths are held
+# at float32's summation-order scale (the prompt mel's float32 FFT is within
+# 5e-6 of float64's on this voice), the bf16 ones at bf16's: CAMPPlus at
+# full width on this voice is within cosine 0.99999 and 6e-3 of its peak of
+# the f32 copy on the CPU. Tokens: an FSQ digit flips wherever the bf16 run
+# moves 0.999·tanh(z) across ±0.5, and bf16 moves z by up to 0.053 at widths
+# 256–768 on the CPU (one code in 75 is already 1.3 % of this voice's row;
+# a 1e-6 change of the input flips 2 of 75 at width 256), so a share of
+# agreeing tokens is reported, not held. Held instead: every digit whose
+# 0.999·tanh(z) on the CPU lies more than "digit_margin" from ±0.5 is the
+# card's digit, for both token rows (the T3 prompt's ≤ 6 s and the S3Gen
+# prompt's ≤ 10 s); the T3 lanes are held against the CPU's lanes from the
+# card's tokens (from its own: reported). "rel": max-abs error over 1 + the
+# CPU side's peak.
+CLONE_TOL = {
+    "digit_margin": 0.1,       # tanh domain; 2x bf16's largest move of z
+    "ve_cos": 0.9999,          # VoiceEncoder embedding (float32 both sides)
+    "ve_abs": 1e-4,
+    "mel_abs": 1e-4,           # prompt log-mel (float32 both sides)
+    "spk_cos": 0.999,          # CAMPPlus x-vector (bf16 on the card)
+    "spk_rel": 5e-2,
+    "lanes_rel": 5e-2,         # T3 lanes (a bf16 perceiver on the card), the card's tokens
+}
+CLONE_VOICE = "demo-voice.wav"   # preloaded-voices/: 24 kHz mono 16-bit, 3.0 s
+
+
+def f32_cpu(tree):
+    """A parameter tree's float32 copy on the CPU."""
+    if isinstance(tree, dict):
+        return {k: f32_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [f32_cpu(v) for v in tree]
+    return tree.detach().cpu().float() if tree.is_floating_point() else tree.detach().cpu()
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return F.cosine_similarity(a.float().cpu().flatten(), b.float().cpu().flatten(), dim=0).item()
+
+
+def token_check(card: torch.Tensor, z: torch.Tensor, n: int, cfg) -> dict:
+    """The card's tokens [n] against the CPU's FSQ input z [n, dims]: the
+    share of tokens that agree, and the digits more than digit_margin from a
+    rounding boundary on the CPU (decisive) and how many of them differ."""
+    from chatterbox_tpu_torch.models.s3gen_ref.tokenizer import _FSQ_TANH_SCALE, fsq_digits
+
+    z = z[:n].float()
+    want = fsq_digits(z)
+    powers = cfg.fsq_levels ** torch.arange(cfg.fsq_dim)
+    got = (card[:n].cpu()[:, None] // powers) % cfg.fsq_levels
+    decisive = ((torch.tanh(z) * _FSQ_TANH_SCALE).abs() - 0.5).abs() > CLONE_TOL["digit_margin"]
+    codes = (want * powers).sum(-1).long()
+    return {"n": n, "share": (card[:n].cpu() == codes).float().mean().item() if n else 1.0,
+            "digits": n * cfg.fsq_dim, "decisive": int(decisive.sum()),
+            "decisive_differ": int(((got != want) & decisive).sum())}
+
+
+@torch.inference_mode()
+def compare_conditionals(engine, conds, inputs, what: str) -> dict:
+    """``conds``, built on the card from ``inputs`` (``reference_inputs`` or
+    ``neutral_inputs``), against ``_cond_fn`` on the CPU over an f32 copy of
+    the weights it reads; the T3 prompt's tokens and the VoiceEncoder's
+    embedding, which the lanes fold in, are recomputed on each side. Raises
+    on a breach of CLONE_TOL, after printing every number."""
+    from chatterbox_tpu_torch.models.s3gen_ref.tokenizer import (
+        s3tok_ref_encode,
+        s3tok_ref_tokenize,
+    )
+    from chatterbox_tpu_torch.models.voice_encoder import voice_embed
+    from chatterbox_tpu_torch.runtime.engine import _cond_fn, _t3_lanes
+    from chatterbox_tpu_torch.settings import get_tts_config
+
+    p, cfg, dev = engine.params, engine.cfg, engine.device
+    tok = cfg.s3gen_ref.tokenizer
+    cpu = {"t3": f32_cpu({k: p["t3"][k] for k in ("cond", "speech_emb")}),
+           "s3gen": f32_cpu({k: p["s3gen"][k] for k in ("tokenizer", "speaker")}),
+           "ve": f32_cpu(p["ve"])}
+    exag = torch.tensor([get_tts_config().VOICE_EXAGGERATION_FACTOR])
+    t0 = time.perf_counter()
+    lanes, ref = _cond_fn(cpu, cfg, *inputs, exag)
+    cpu_s = time.perf_counter() - t0
+    w16, enc_len, dec_len = inputs[2], inputs[3], inputs[4]
+    gref = {k: v.cpu() for k, v in conds.gen_ref.items()}
+    rows = {}
+    for row, n_samples, card in (("t3", enc_len, None), ("s3gen", dec_len, gref["prompt_tokens"])):
+        z, n = s3tok_ref_encode(cpu["s3gen"]["tokenizer"], tok, w16, n_samples)
+        if card is None:   # the T3 prompt's row, which the lanes fold in
+            card, n_card = s3tok_ref_tokenize(p["s3gen"]["tokenizer"], tok, w16.to(dev),
+                                              n_samples.to(dev))
+        else:              # the prompt window, cut to the mel by the alignment rule
+            n_card, n = gref["prompt_len"], ref["prompt_len"]
+        if int(n_card[0]) != int(n[0]):
+            raise AssertionError(f"{what}: {row} token counts {int(n_card[0])} (card), "
+                                 f"{int(n[0])} (CPU)")
+        rows[row] = token_check(card[0], z[0], int(n[0]), tok)
+        if row == "t3":
+            t3_card = (card.cpu(), n_card.cpu())
+    ve = [voice_embed(pp, cfg.ve, w16.to(d), dec_len.to(d))
+          for pp, d in ((p["ve"], dev), (cpu["ve"], "cpu"))]
+    # the lanes from the card's prompt tokens: a flipped code moves a
+    # perceiver latent that attends to it by a whole embedding, which the
+    # token check already counts
+    lanes_card_tokens = _t3_lanes(cpu["t3"], cfg.t3, ve[1], *t3_card, exag)
+
+    def max_abs(a, b):
+        return (a.float().cpu() - b.float()).abs().max().item()
+
+    out = {
+        "tokens": rows,
+        "ve_cos": cosine(ve[0], ve[1]), "ve_abs": max_abs(ve[0], ve[1]),
+        "mel_abs": max_abs(gref["prompt_mel"], ref["prompt_mel"]),
+        "spk_cos": cosine(gref["spk_emb"], ref["spk_emb"]),
+        "spk_rel": max_abs(gref["spk_emb"], ref["spk_emb"]) / (1 + ref["spk_emb"].abs().max().item()),
+        "lanes_rel": max_abs(conds.t3_cond_lanes, lanes_card_tokens)
+        / (1 + lanes_card_tokens.abs().max().item()),
+        "lanes_rel_cpu_tokens": max_abs(conds.t3_cond_lanes, lanes) / (1 + lanes.abs().max().item()),
+        "spk_peak": ref["spk_emb"].abs().max().item(), "lanes_peak": lanes.abs().max().item(),
+        "mel_len": [int(gref["prompt_mel_len"][0]), int(ref["prompt_mel_len"][0])],
+        "cpu_s": cpu_s,
+    }
+    print(f"  {what}, card against the CPU (f32 copy): {json.dumps(out)}; tolerances "
+          f"{json.dumps(CLONE_TOL)}", flush=True)
+    bad = [f"tokens_{r}" for r, v in rows.items() if v["decisive_differ"]]
+    bad += [k for k in ("ve_cos", "spk_cos") if not out[k] >= CLONE_TOL[k]]
+    bad += [k for k in ("ve_abs", "mel_abs", "spk_rel", "lanes_rel") if not out[k] <= CLONE_TOL[k]]
+    if out["mel_len"][0] != out["mel_len"][1]:
+        bad.append("mel_len")
+    if bad:
+        raise AssertionError(f"{what}: outside CLONE_TOL: {bad}")
+    return out
+
+
+async def clone_phase(engine, out: dict) -> None:
+    """On phase 4's engine: (a) clone CLONE_VOICE from the voice store on the
+    card (prepare_conditionals, once cold, then warm under the profiler) and
+    hold it against the CPU; (b) drop it and serve 4 concurrent requests in
+    that voice at REDUCED_NEW_TOKENS on the batched defaults: the first
+    clones it again through the voice store and builds its CFM prompt cache.
+    K2's self form (that build), its context form and K1's int8 body must
+    launch, the voice must get its own cache, and an S3Gen batch must stack
+    two or more of its jobs. Then the cache's build time and size."""
+    import dataclasses
+
+    from chatterbox_tpu_torch.audio.pcm import read_wav
+    from chatterbox_tpu_torch.runtime.engine import reference_inputs
+
+    path = engine.voice_manager.get_voice_path(CLONE_VOICE)
+    if path is None or not path.startswith(os.environ["PRELOADED_VOICES_DIR"]):
+        raise AssertionError(f"{CLONE_VOICE} not found in the preloaded voices: {path}")
+    walls = []
+    for cold in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cold:
+            engine.prepare_conditionals(path)
+        else:
+            with profiler() as prof:
+                engine.prepare_conditionals(path)
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    summed, busy, kernels, n_device = device_ms(prof, top=6)
+    conds = engine.voice_cache[CLONE_VOICE]
+    if conds.t3_cond_lanes.device != engine.device:
+        raise AssertionError("the cloned voice's conditionals are not on the engine's device")
+    print(f"  prepare_conditionals({CLONE_VOICE}): wall {walls[0]:.3f} s cold, {walls[1]:.3f} s "
+          f"warm; warm device time {summed:.2f} ms (busy {busy:.2f} ms) over {n_device} device "
+          f"activities; device ms by kernel {kernels}", flush=True)
+    inputs = reference_inputs(*read_wav(path))
+    check = compare_conditionals(engine, conds, inputs, f"cloned {CLONE_VOICE}")
+    out["clone"] = {"prepare_wall_s": walls, "prepare_device_ms": summed,
+                    "prepare_busy_ms": busy, "prepare_device_activities": n_device,
+                    "against_cpu": check}
+
+    s3, cfg = engine.s3gen_scheduler, engine.cfg
+    engine.clear_voice_cache(CLONE_VOICE)
+    engine.cfg = dataclasses.replace(cfg, max_new_tokens=REDUCED_NEW_TOKENS)
+    s3.max_batch_seen = s3.max_stream_batch_seen = 0
+    request = dict(REQUEST, voice_id=CLONE_VOICE)
+    texts = [TEXTS[0], TEXTS[2], f"Stream 2. {TEXTS[0]}", f"Stream 3. {TEXTS[2]}"]
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        results = await run_requests(engine, texts, "cloned", request)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        engine.cfg = cfg
+    audio = report_requests(engine, results, two_chunks=False)
+    print(f"  {len(results)} concurrent requests in {CLONE_VOICE} (first use: cloned through the "
+          f"voice store, its prompt cache built): {audio:.2f} s of audio in {wall:.3f} s of wall; "
+          f"S3Gen max_batch_seen {s3.max_batch_seen} (streaming {s3.max_stream_batch_seen}); "
+          f"launches {launches}", flush=True)
+    require_main_path(launches, "serving the cloned voice")
+    if CLONE_VOICE not in engine.voice_cache or CLONE_VOICE not in engine._cfm_cache_lru:
+        raise AssertionError(f"{CLONE_VOICE} has no conditionals or no CFM prompt cache of its own")
+    if engine._cfm_cache_lru[CLONE_VOICE] is engine._cfm_cache_lru.get("default"):
+        raise AssertionError("the cloned voice shares the default voice's prompt cache")
+    if s3.max_stream_batch_seen < 2:
+        raise AssertionError("S3Gen never stacked two jobs of the cloned voice")
+    stats = [engine.request_stats[rid] for rid, _ in results]
+    out["clone"].update(requests=len(results), wall_s=wall, audio_s=audio,
+                        ttfa_s=[st["ttfa_s"] for st in stats], s3gen_max_stream_batch=
+                        s3.max_stream_batch_seen, launches=launches,
+                        cfm_prompt_cache=build_voice_cache(engine, CLONE_VOICE))
+
+
 # the decode cap of the later serving phases, below phase 4's: one 35-token
 # slice per chunk, then the closing slice's S3Gen call re-solves the
 # accumulated tokens
@@ -1059,14 +1287,22 @@ async def s3gen_phase(engine, out: dict) -> None:
 
 
 async def serve_per_request(out: dict):
-    """At reduced depth (REDUCED_NEW_TOKENS per chunk): one two-chunk
-    request with the default prompt cache, then one one-chunk request on the
-    uncached path (CHATTERBOX_CFM_PROMPT_CACHE=0), one after the other."""
+    """At reduced depth (REDUCED_NEW_TOKENS per chunk), on a MODEL_PATH with
+    no conds.pt: the neutral default voice, built on the card, against the
+    CPU; then one two-chunk request with the default prompt cache, then one
+    one-chunk request on the uncached path (CHATTERBOX_CFM_PROMPT_CACHE=0),
+    one after the other."""
+    from chatterbox_tpu_torch.runtime.engine import neutral_inputs
+
     os.environ["CHATTERBOX_MAX_NEW_TOKENS"] = str(REDUCED_NEW_TOKENS)
     try:
         engine = await start_engine()
     finally:
         os.environ["CHATTERBOX_MAX_NEW_TOKENS"] = MAX_NEW_TOKENS
+    if (Path(os.environ["MODEL_PATH"]) / "conds.pt").exists():
+        raise AssertionError("phase 6 must run without conds.pt")
+    out["neutral_voice"] = compare_conditionals(engine, engine.voice_cache["default"],
+                                                neutral_inputs(), "neutral default voice")
     reset_launches()
     results = await run_requests(engine, [TEXTS[1]], "single")
     os.environ["CHATTERBOX_CFM_PROMPT_CACHE"] = "0"
@@ -1188,11 +1424,14 @@ def main() -> int:
 
     serving, k3_live = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        model_dir = Path(tmp) / "models"
+        model_dir, neutral_dir = Path(tmp) / "models", Path(tmp) / "models-neutral"
         model_dir.mkdir()
+        neutral_dir.mkdir()
         write_conds(model_dir / "conds.pt")
         os.environ.update(MODEL_PATH=str(model_dir), CHATTERBOX_MAX_NEW_TOKENS=MAX_NEW_TOKENS,
-                          CHATTERBOX_KV="int8", MAX_DECODE_SLOTS=str(SLOTS))
+                          CHATTERBOX_KV="int8", MAX_DECODE_SLOTS=str(SLOTS),
+                          VOICES_DIR=str(Path(tmp) / "voices"),
+                          PRELOADED_VOICES_DIR=str(Path(__file__).resolve().parent / "preloaded-voices"))
         for name in ("CHATTERBOX_CFM_PROMPT_CACHE", "CHATTERBOX_CFM_STREAM"):
             os.environ.pop(name, None)   # the defaults: step prompt cache, streaming CFM
         t0 = phase(f"4. batched serving ({SLOTS} slots, int8 KV, {SLOTS} concurrent requests; "
@@ -1204,16 +1443,23 @@ def main() -> int:
         t0 = phase("5. S3Gen at full width: first streaming slice against the cached tail path; "
                    "one batched call per path; the uncached batched path")
         loop.run_until_complete(s3gen_phase(engine, serving))
+        done(t0, walls, "s3gen")
+
+        t0 = phase(f"5b. voice cloning on phase 4's engine: {CLONE_VOICE} on the card against the "
+                   "CPU; 4 concurrent requests in that voice")
+        loop.run_until_complete(clone_phase(engine, serving))
         engine.shutdown()
         loop.run_until_complete(asyncio.sleep(0))   # let the schedulers' tasks end
         loop.close()
         del engine
         gc.collect()
         torch.cuda.empty_cache()
-        done(t0, walls, "s3gen")
+        done(t0, walls, "voice_cloning")
 
-        t0 = phase("6. per-request serving (MAX_DECODE_SLOTS=1, int8 KV)")
+        t0 = phase("6. per-request serving (MAX_DECODE_SLOTS=1, int8 KV) with no conds.pt: "
+                   "the neutral default voice")
         os.environ["MAX_DECODE_SLOTS"] = "1"
+        os.environ["MODEL_PATH"] = str(neutral_dir)
         engine = asyncio.run(serve_per_request(serving))
         done(t0, walls, "per_request_serving")
 

@@ -8,7 +8,9 @@ decoder and the S3Gen micro-batcher); first with the CFM prompt cache off
 (CHATTERBOX_CFM_PROMPT_CACHE=0, the uncached path), then with the JAX
 package's defaults (the prompt cache in "step" mode, and streaming CFM on
 the batched path). Both engines' serving metrics (``runtime.metrics``) are
-compared too. Greedy requests are sent to both with the arguments the HTTP
+compared too, and so are their voices: the neutral default voice when
+``conds.pt`` is absent, and a voice cloned from a WAV of the voice store,
+served on both paths. Greedy requests are sent to both with the arguments the HTTP
 handler passes; the WAVs must be valid and hold the same number of samples
 (the noise differs — threefry against the port's generators — so the samples
 themselves are not compared; the modules' numerics are held by the other
@@ -20,16 +22,21 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import jax_tree_to_np
+from torch_port_helpers import assert_trees_close, jax_tree_to_np, to_np
 
 from chatterbox_tpu.config import reset_config_cache
 from chatterbox_tpu.runtime import CancellationToken as JToken
 from chatterbox_tpu.runtime import EngineConfig as JEngineConfig
 from chatterbox_tpu.runtime import TTSEngine as JTTSEngine
+from chatterbox_tpu_torch.audio.pcm import write_wav
 from chatterbox_tpu_torch.convert import convert_params
+from chatterbox_tpu_torch.runtime import engine as teng_mod
 from chatterbox_tpu_torch.runtime.cancellation import CancellationToken
 from chatterbox_tpu_torch.runtime.engine import EngineConfig, TTSEngine
 from chatterbox_tpu_torch.runtime.loader import load_default_conds
+
+# float32 conditionals: each within REL of its largest magnitude
+REL = 1e-4
 
 REQUEST = dict(
     text="Hello there. This is a test of the port.",
@@ -342,12 +349,199 @@ def test_engine_records_metrics_like_jax(request, path):
     assert tdelta[2] == want
 
 
-def test_missing_conds_names_voice_cloning(env, monkeypatch, tmp_path):
+def _assert_conds_close(jconds, tconds):
+    """The port's conditionals against the JAX engine's: the T3 lanes and the
+    ref dict's floats within REL of their largest magnitude, tokens and
+    lengths exactly."""
+    assert_trees_close(jconds.t3_cond_lanes, tconds.t3_cond_lanes, REL)
+    for key in ("prompt_tokens", "prompt_len", "prompt_mel_len"):
+        np.testing.assert_array_equal(to_np(tconds.gen_ref[key]),
+                                      np.asarray(jconds.gen_ref[key]))
+    assert_trees_close({k: jconds.gen_ref[k] for k in ("spk_emb", "prompt_mel")},
+                       {k: tconds.gen_ref[k] for k in ("spk_emb", "prompt_mel")}, REL)
+
+
+def _converted(jeng):
+    return {k: convert_params(jax_tree_to_np(jeng.params[k]), "cpu") for k in ("t3", "s3gen", "ve")}
+
+
+def test_neutral_default_voice_matches_jax(env, monkeypatch, tmp_path):
+    """With no conds.pt both engines start and build the neutral default
+    voice from 2 s of zeros: the same conditionals."""
+    monkeypatch.setenv("MODEL_PATH", str(tmp_path))
+    reset_config_cache()
+    jeng = JTTSEngine(JEngineConfig.tiny_ref(), seed=3)
+    asyncio.run(jeng.ainit())
+    teng = TTSEngine(EngineConfig.tiny_ref(), seed=3, device="cpu", params=_converted(jeng))
+    asyncio.run(teng.ainit())
+    assert teng.get_initialization_status()["state"] == "ready"
+    _assert_conds_close(jeng.voice_cache["default"], teng.voice_cache["default"])
+    jeng.shutdown()
+
+
+def test_unreadable_conds_falls_back_to_neutral(env, monkeypatch, tmp_path, caplog):
+    """An unreadable conds.pt is reported and the neutral voice serves."""
+    (tmp_path / "conds.pt").write_bytes(b"not a torch archive")
     monkeypatch.setenv("MODEL_PATH", str(tmp_path))
     eng = TTSEngine(EngineConfig.tiny_ref(), device="cpu")
-    with pytest.raises(FileNotFoundError, match="voice cloning"):
-        asyncio.run(eng.ainit())
-    assert eng.get_initialization_status()["state"] == "error"
+    eng._init_models()
+    with caplog.at_level("WARNING"):
+        conds = eng._default_conditionals()
+    assert "Failed to read" in caplog.text and "neutral default voice" in caplog.text
+    want = teng_mod._cond_fn(eng.params, eng.cfg, *teng_mod.neutral_inputs(), torch.tensor([0.5]))
+    assert torch.equal(conds.t3_cond_lanes, want[0])
+    assert all(torch.equal(conds.gen_ref[k], v) for k, v in want[1].items())
+
+
+VOICE = "clone-me.wav"
+
+
+def _write_voice(env) -> str:
+    """A seeded 2.5 s voice at 22.05 kHz (16-bit) in the user voice store."""
+    rng = np.random.default_rng(21)
+    t = np.arange(55125) / 22050.0
+    wav = (0.3 * np.sin(2 * np.pi * 150.0 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 2.5 * t))
+           + 0.03 * rng.standard_normal(t.size))
+    (env / "voices").mkdir(exist_ok=True)
+    path = env / "voices" / VOICE
+    write_wav(str(path), wav, 22050)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def cloned(env):
+    """Both engines on the per-request path with the prompt cache ("step"):
+    the voice cloned by prepare_conditionals, then one greedy request in it.
+    The JAX engine resamples with scipy too (its native resampler off)."""
+    import chatterbox_tpu.native as jnative
+
+    path = _write_voice(env)
+    mp = pytest.MonkeyPatch()
+    mp.delenv("CHATTERBOX_CFM_PROMPT_CACHE", raising=False)
+    mp.setattr(jnative, "resample_poly", lambda *a: None)
+    reset_config_cache()
+    try:
+        jeng = JTTSEngine(JEngineConfig.tiny_ref(), seed=3)
+        asyncio.run(jeng.ainit())
+        jeng.prepare_conditionals(path)
+        jwav = asyncio.run(_collect(jeng, JToken(), voice_id=VOICE, request_id="cloned"))
+        teng = TTSEngine(EngineConfig.tiny_ref(), seed=3, device="cpu", params=_converted(jeng))
+        asyncio.run(teng.ainit())
+        teng.prepare_conditionals(path)
+        tconds = teng.voice_cache[VOICE]
+        teng.voice_cache.pop(VOICE)   # the request clones it again through the voice store
+        twav = asyncio.run(_collect(teng, CancellationToken(), voice_id=VOICE, request_id="cloned"))
+        jconds = jeng.voice_cache[VOICE]
+        jeng.shutdown()
+    finally:
+        mp.undo()
+        reset_config_cache()
+    return jconds, tconds, jwav, twav, teng
+
+
+def test_prepare_conditionals_matches_jax(cloned):
+    jconds, tconds, *_ = cloned
+    _assert_conds_close(jconds, tconds)
+
+
+def test_cloned_voice_serves_like_jax_per_request(cloned):
+    """stream(voice_id=...) clones the voice from the store, builds its own
+    CFM prompt cache and serves the JAX engine's sample count."""
+    _, tconds, jwav, twav, teng = cloned
+    assert twav[:44] == jwav[:44] and len(twav) == len(jwav) > 44
+    assert np.abs(np.frombuffer(twav[44:], dtype="<i2")).max() > 0
+    assert list(teng._cfm_cache_lru) == ["default", VOICE]
+    _assert_conds_close(tconds, teng.voice_cache[VOICE])
+    stats = teng.request_stats["cloned"]
+    _check_samples_follow_tokens(twav, stats, teng, REQUEST["crossfade_duration_milliseconds"])
+
+
+def test_cloned_voice_dtypes_match_default_voice(cloned):
+    """A cloned voice's ref dict has the dtypes of the conds.pt voice's, so
+    the S3Gen micro-batcher can stack the two: one batched call with a job
+    of each runs."""
+    from chatterbox_tpu_torch.runtime.s3gen_scheduler import S3GenScheduler, _Job
+
+    *_, teng = cloned
+    default, voice = teng.voice_cache["default"].gen_ref, teng.voice_cache[VOICE].gen_ref
+    assert {k: (v.dtype, v.shape) for k, v in default.items()} == \
+        {k: (v.dtype, v.shape) for k, v in voice.items()}
+    sched = S3GenScheduler(teng.params["s3gen"], teng.cfg.s3gen_ref, state_tokens=64)
+    toks = np.full(16, teng.cfg.s3gen_ref.vocab_size, np.int64)
+    toks[:10] = np.arange(10) * 37
+    jobs = [_Job(toks, 10, ref, None, 0, seed, 0, 0, None) for seed, ref in enumerate((default, voice))]
+    with torch.inference_mode():
+        tails, *_ = sched._run_batch(jobs)
+    assert tails.shape[0] == 2 and np.isfinite(tails).all()
+
+
+def test_cloned_voice_batched_like_jax(env):
+    """The batched path with the S3Gen defaults (prompt cache, streaming
+    CFM): three concurrent requests, two in the cloned voice and one in the
+    default voice; both engines give the same sample counts, request by
+    request, and the cloned voice gets its own prompt cache."""
+    import chatterbox_tpu.native as jnative
+
+    _write_voice(env)
+    reqs = [dict(kw, voice_id=v) for kw, v in zip(BATCHED, [VOICE, None, VOICE])]
+    mp = pytest.MonkeyPatch()
+    mp.delenv("CHATTERBOX_CFM_PROMPT_CACHE", raising=False)
+    mp.setenv("MAX_DECODE_SLOTS", "4")
+    mp.setattr(jnative, "resample_poly", lambda *a: None)
+    reset_config_cache()
+
+    async def serve(engine, token_cls):
+        return await asyncio.gather(*[_collect(engine, token_cls(), **kw) for kw in reqs])
+
+    try:
+        jeng = JTTSEngine(JEngineConfig.tiny_ref(), seed=3)
+        asyncio.run(jeng.ainit())
+        jwavs = asyncio.run(serve(jeng, JToken))
+        teng = TTSEngine(EngineConfig.tiny_ref(), seed=3, device="cpu", params=_converted(jeng))
+        jeng.shutdown()
+        asyncio.run(teng.ainit())
+        twavs = asyncio.run(serve(teng, CancellationToken))
+        lru = list(teng._cfm_cache_lru)
+        teng.shutdown()
+    finally:
+        mp.undo()
+        reset_config_cache()
+    for kw, jwav, twav in zip(reqs, jwavs, twavs):
+        assert twav[:44] == jwav[:44] and len(twav) == len(jwav) > 44
+        stats = teng.request_stats[kw["request_id"]]
+        assert stats["streamed"] == stats["slices"] > 0
+    assert lru == ["default", VOICE]
+
+
+@pytest.fixture
+def tiny_engine(env):
+    eng = TTSEngine(EngineConfig.tiny_ref(), device="cpu")
+    asyncio.run(eng.ainit())
+    return eng
+
+
+@pytest.mark.parametrize("voice_id", ["no-such-voice.wav", "../models/conds.pt", "/etc/hostname"])
+def test_unknown_voice_raises(tiny_engine, voice_id):
+    with pytest.raises(FileNotFoundError, match="not found"):
+        asyncio.run(_collect(tiny_engine, CancellationToken(), voice_id=voice_id))
+    assert voice_id not in tiny_engine.voice_cache
+
+
+def test_clear_voice_cache_drops_the_voice(env, tiny_engine, monkeypatch):
+    """clear_voice_cache drops the voice's conditionals, its CFM prompt cache
+    and its streaming template; the next use clones it again."""
+    monkeypatch.setenv("CHATTERBOX_CFM_PROMPT_CACHE", "step")
+    eng = tiny_engine
+    path = _write_voice(env)
+    eng.prepare_conditionals(path)
+    cache = eng._cfm_cache_for(VOICE, eng.voice_cache[VOICE])
+    eng._stream_state0(VOICE, cache)
+    assert VOICE in eng._cfm_cache_lru and VOICE in eng._stream0
+    eng.clear_voice_cache(VOICE)
+    assert VOICE not in eng.voice_cache and VOICE not in eng._cfm_cache_lru
+    assert VOICE not in eng._stream0
+    asyncio.run(eng._get_conds(VOICE, "again"))
+    assert VOICE in eng.voice_cache
 
 
 def test_no_cuda_and_no_device_raises(env, monkeypatch):

@@ -141,3 +141,46 @@ def test_metrics_snapshots_match():
     ts.pop("uptime_s")
     js.pop("uptime_s")
     assert ts == js
+
+
+def _voice_store_trace(vm, user, pre):
+    """One sequence of voice-store calls → what each returned or raised."""
+    (pre / "shared.wav").write_bytes(b"preloaded")
+    (pre / "only-pre.wav").write_bytes(b"preloaded")
+    out = []
+
+    def call(fn, *args):
+        try:
+            out.append(("ok", fn(*args)))
+        except (FileExistsError, FileNotFoundError, ValueError) as exc:
+            out.append((type(exc).__name__, None))
+
+    call(vm.save_voice, "shared.wav", b"user")        # a preloaded name: duplicate
+    call(vm.save_voice, "mine.wav", b"user")
+    call(vm.save_voice, "mine.wav", b"again")         # duplicate
+    call(vm.save_voice, "../escape.wav", b"x")        # a path: refused
+    (user / "shared.wav").write_bytes(b"user")         # a user file shadows a preloaded one
+    for vid in ("mine.wav", "shared.wav", "only-pre.wav", "nope.wav", "../mine.wav", "", "/x"):
+        out.append(("path", vm.get_voice_path(vid)))
+    out.append(("list", vm.list_voices()))
+    call(vm.delete_voice, "only-pre.wav")             # preloaded voices cannot be deleted
+    call(vm.delete_voice, "../voices/mine.wav")
+    call(vm.delete_voice, "mine.wav")
+    out.append(("list", vm.list_voices()))
+    return [(k, v.replace(str(user), "U").replace(str(pre), "P") if isinstance(v, str) else v)
+            for k, v in out]
+
+
+def test_voice_manager_matches(tmp_path):
+    """The port's voice store and the JAX package's give the same answers:
+    user voices shadow preloaded ones, duplicates raise FileExistsError,
+    paths are refused, only user voices can be deleted."""
+    from chatterbox_tpu.serve.voice_manager import VoiceManager as JVM
+    from chatterbox_tpu_torch.serve.voice_manager import VoiceManager as TVM
+
+    traces = []
+    for name, cls in (("t", TVM), ("j", JVM)):
+        user, pre = tmp_path / name / "voices", tmp_path / name / "preloaded"
+        traces.append(_voice_store_trace(cls(str(user), str(pre)), user, pre))
+    assert traces[0] == traces[1]
+    assert ("FileExistsError", None) in traces[0] and ("path", "U/shared.wav") in traces[0]

@@ -46,11 +46,12 @@ HIFT_LOGMAG_SHIFT = 2.0
 
 def conditioned_s3gen_params(jp, jcfg, post_scale: float = HIFT_POST_SCALE):
     """A JAX S3Gen ref parameter tree with conv_post conditioned as above
-    (``post_scale`` replaces HIFT_POST_SCALE)."""
+    (``post_scale`` replaces HIFT_POST_SCALE); the other subtrees, the voice
+    embedding's ``tokenizer`` and ``speaker`` included, as they are."""
     post = jp["mel2wav"]["conv_post"]
     shift = np.zeros(post["b"].shape, np.float32)
     shift[: jcfg.hift.istft_n_fft // 2 + 1] = HIFT_LOGMAG_SHIFT
-    return {"flow": jp["flow"], "mel2wav": {
+    return {**jp, "mel2wav": {
         **jp["mel2wav"],
         "conv_post": {"w": post["w"] * post_scale, "b": post["b"] * post_scale - shift},
     }}
