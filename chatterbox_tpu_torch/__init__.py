@@ -16,11 +16,14 @@ Package layout:
   ops/           core numerics, spectra, sampling, the three kernels and
                  their nvcc build
   runtime/       the streaming engine (voice cloning included), the batched T3
-                 decoder, the S3Gen micro-batcher, serving metrics, conds.pt
-                 loading
-  serve/         the voice store
+                 decoder, the S3Gen micro-batcher, serving metrics; loading
+                 a model directory (safetensors reader and writer, the
+                 reference and native checkpoint formats, the manifest)
+  serve/         the voice store; the aiohttp server and the multi-host
+                 dispatcher (``python -m chatterbox_tpu_torch.serve.app``)
+  data/          the full-size checkpoint key manifest
   settings.py    environment settings (same variable names as the JAX package)
-  convert.py     JAX-layout parameter pytrees → the port's layouts
+  convert.py     JAX-layout parameter pytrees ↔ the port's layouts
 """
 
 __version__ = "0.1.0"

@@ -20,7 +20,8 @@ names its counterpart in the other. Only the layouts of weights differ:
 
 Every other leaf (embeddings, norms, biases, buffers) is copied as is.
 ``convert_params`` also accepts torch leaves, which is how the port's own
-initialisers build JAX-layout trees and convert them.
+initialisers build JAX-layout trees and convert them. ``unconvert_params``
+is its inverse, which the native checkpoint writer uses.
 """
 from __future__ import annotations
 
@@ -33,6 +34,20 @@ _STACKED_LINEAR = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
 _LINEAR = frozenset({"w", "wx", "wh"})
 
 
+def _perm(key: str, parents: tuple, ndim: int):
+    """The permutation that takes a JAX-layout leaf to the port's layout
+    (None: the leaf is copied as is)."""
+    if key in _LINEAR and ndim == 2:
+        return (1, 0)
+    if key == "w" and ndim == 3:
+        return (1, 2, 0) if "ups" in parents else (2, 1, 0)
+    if key == "w" and ndim == 4:
+        return (3, 2, 0, 1)
+    if key in _STACKED_LINEAR and ndim == 3:
+        return (0, 2, 1)
+    return None
+
+
 def _leaf(x: Any, key: str, parents: tuple, device, dtype) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         t = x
@@ -43,25 +58,38 @@ def _leaf(x: Any, key: str, parents: tuple, device, dtype) -> torch.Tensor:
         t = torch.from_numpy(a)
     if t.is_floating_point() and dtype is not None:
         t = t.to(dtype)
-    if key in _LINEAR and t.dim() == 2:
-        t = t.t()
-    elif key == "w" and t.dim() == 3:
-        t = t.permute(1, 2, 0) if "ups" in parents else t.permute(2, 1, 0)
-    elif key == "w" and t.dim() == 4:
-        t = t.permute(3, 2, 0, 1)
-    elif key in _STACKED_LINEAR and t.dim() == 3:
-        t = t.transpose(1, 2)
+    perm = _perm(key, parents, t.dim())
+    if perm is not None:
+        t = t.permute(perm)
     return t.contiguous().to(device)
 
 
-def convert_params(tree: Any, device, dtype=None, _key: str = "", _parents: tuple = ()):
+def _walk(tree: Any, fn, key: str = "", parents: tuple = ()):
+    """``fn(leaf, key, parents)`` over a dict / list nesting; ``key`` is the
+    leaf's own dict key, or its list's, and ``parents`` the keys above."""
+    if isinstance(tree, dict):
+        return {k: _walk(v, fn, k, parents + (key,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_walk(v, fn, key, parents + (key,)) for v in tree]
+    return fn(tree, key, parents)
+
+
+def convert_params(tree: Any, device, dtype=None):
     """Convert a JAX-layout parameter tree (dict / list nesting, array
     leaves) into the port's layout on ``device`` (no default: the caller
     names the device, the CPU included). ``dtype`` (optional) casts
     floating-point leaves."""
-    if isinstance(tree, dict):
-        return {k: convert_params(v, device, dtype, k, _parents + (_key,))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [convert_params(v, device, dtype, _key, _parents + (_key,)) for v in tree]
-    return _leaf(tree, _key, _parents, device, dtype)
+    return _walk(tree, lambda x, key, parents: _leaf(x, key, parents, device, dtype))
+
+
+def unconvert_params(tree: Any):
+    """The inverse of ``convert_params``: the port's parameter tree → the
+    JAX layout, as contiguous torch tensors on the same device and in the
+    same dtype."""
+    def leaf(t: torch.Tensor, key: str, parents: tuple) -> torch.Tensor:
+        perm = _perm(key, parents, t.dim())
+        if perm is not None:
+            t = t.permute(tuple(perm.index(i) for i in range(len(perm))))
+        return t.contiguous()
+
+    return _walk(tree, leaf)

@@ -16,19 +16,16 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ...convert import convert_params
 from ...ops.conv import conv1d
-from ...ops.initializers import DenseInit
 from .config import CampPlusConfig
 
 _SEG_LEN = 100  # CAM context segment pooling length
 
 
-def init_campplus_params(cfg: CampPlusConfig, generator: torch.Generator, device,
-                         dtype=torch.float32) -> Dict:
-    """Random parameters with the JAX package's distributions (2-D conv
-    weights drawn HWIO, as the JAX tree holds them, and converted to OIHW)."""
-    init = DenseInit(generator, device)
+def campplus_param_tree(cfg: CampPlusConfig, init) -> Dict:
+    """The JAX-layout tree, its leaves drawn by ``init`` with the JAX
+    package's distributions (2-D conv weights HWIO, as the JAX tree holds
+    them; the bridge makes them OIHW)."""
     mk = lambda *shape: init.dense(shape)  # noqa: E731
 
     def bn(c: int, affine: bool = True) -> Dict:
@@ -72,7 +69,7 @@ def init_campplus_params(cfg: CampPlusConfig, generator: torch.Generator, device
     xv["out_bn"] = bn(ch)
     xv["dense"] = {"conv": {"w": mk(1, ch * 2, cfg.embedding_size)},
                    "bn": bn(cfg.embedding_size, affine=False)}
-    return convert_params({"head": head, "xvector": xv}, device, dtype)
+    return {"head": head, "xvector": xv}
 
 
 def _bn(x: torch.Tensor, p: Dict, eps: float = 1e-5) -> torch.Tensor:

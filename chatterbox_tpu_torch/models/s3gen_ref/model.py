@@ -42,7 +42,7 @@ from .decoder import (
     init_estimator_params,
     init_stream_state,
 )
-from .campplus import campplus_embed, init_campplus_params
+from .campplus import campplus_embed, campplus_param_tree
 from .features import hifigan_log_mel, kaldi_fbank, reflect_tail
 from .hift import (
     _upsample_total,
@@ -52,7 +52,7 @@ from .hift import (
     make_source,
     predict_f0,
 )
-from .tokenizer import init_s3tok_ref_params, s3tok_ref_tokenize
+from .tokenizer import s3tok_ref_param_tree, s3tok_ref_tokenize
 from .upsample_encoder import init_upsample_encoder_params, upsample_encode
 
 MEL_HOP_24K = 480  # HiFiGAN mel hop at 24 kHz (50 frames/s)
@@ -60,13 +60,17 @@ MEL_HOP_24K = 480  # HiFiGAN mel hop at 24 kHz (50 frames/s)
 
 def init_s3gen_ref_params(cfg: S3GenRefConfig, generator: torch.Generator, device,
                           dtype=torch.float32) -> Dict:
-    """Random parameters with the JAX package's distributions. The voice
+    """Random parameters with the JAX package's distributions."""
+    return convert_params(s3gen_ref_param_tree(cfg, DenseInit(generator, device)), device, dtype)
+
+
+def s3gen_ref_param_tree(cfg: S3GenRefConfig, init) -> Dict:
+    """The JAX-layout tree, its leaves drawn by ``init``. The voice
     embedding's subtrees (``tokenizer``, ``speaker``) are drawn after the
     flow and the vocoder, so those stay the same at a given seed."""
-    init = DenseInit(generator, device)
     mk = lambda *shape: init.dense(shape)  # noqa: E731
     fl = cfg.flow
-    tree = {
+    return {
         "flow": {
             "input_emb": mk(fl.vocab_size, fl.input_size),
             "spk_affine": {"w": mk(fl.spk_embed_dim, fl.output_size), "b": mk(fl.output_size)},
@@ -75,11 +79,9 @@ def init_s3gen_ref_params(cfg: S3GenRefConfig, generator: torch.Generator, devic
             "estimator": init_estimator_params(init, fl),
         },
         "mel2wav": init_hift_params(init, cfg.hift),
+        "tokenizer": s3tok_ref_param_tree(cfg.tokenizer, init),
+        "speaker": campplus_param_tree(cfg.speaker, init),
     }
-    params = convert_params(tree, device, dtype)
-    params["tokenizer"] = init_s3tok_ref_params(cfg.tokenizer, generator, device, dtype)
-    params["speaker"] = init_campplus_params(cfg.speaker, generator, device, dtype)
-    return params
 
 
 def s3gen_ref_embed_ref(

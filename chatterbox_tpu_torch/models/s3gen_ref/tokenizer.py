@@ -17,9 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...convert import convert_params
 from ...ops.conv import conv1d
-from ...ops.initializers import DenseInit
 from ...ops.nn import NEG_INF, layer_norm, linear
 from .config import S3TokRefConfig
 from .features import whisper_log_mel
@@ -36,10 +34,9 @@ def _sinusoid_table(n_ctx: int, d: int) -> np.ndarray:
     return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
 
 
-def init_s3tok_ref_params(cfg: S3TokRefConfig, generator: torch.Generator, device,
-                          dtype=torch.float32) -> Dict:
-    """Random parameters with the JAX package's distributions."""
-    init = DenseInit(generator, device)
+def s3tok_ref_param_tree(cfg: S3TokRefConfig, init) -> Dict:
+    """The JAX-layout tree, its leaves drawn by ``init`` with the JAX
+    package's distributions; the sinusoid table as the checkpoint stores it."""
     mk = lambda *shape: init.dense(shape)  # noqa: E731
     D = cfg.n_state
     blocks = [{
@@ -54,14 +51,13 @@ def init_s3tok_ref_params(cfg: S3TokRefConfig, generator: torch.Generator, devic
         "mlp2": {"w": mk(4 * D, D), "b": mk(D)},
         "mlp_ln": {"w": mk(D), "b": mk(D)},
     } for _ in range(cfg.n_layer)]
-    tree = {
+    return {
         "conv1": {"w": mk(3, cfg.n_mels, D), "b": mk(D)},
         "conv2": {"w": mk(3, D, D), "b": mk(D)},
         "pos": torch.from_numpy(_sinusoid_table(cfg.n_audio_ctx, D)),
         "blocks": blocks,
         "fsq": {"w": mk(D, cfg.fsq_dim), "b": mk(cfg.fsq_dim)},
     }
-    return convert_params(tree, device, dtype)
 
 
 def _attention(p: Dict, cfg: S3TokRefConfig, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -47,9 +47,14 @@ def init_t3_params(cfg: T3Config, generator: torch.Generator, device,
                    dtype=torch.float32) -> Params:
     """Random init with the JAX package's distributions, built in the JAX
     layout and converted."""
+    return convert_params(t3_param_tree(cfg, DenseInit(generator, device)), device, dtype)
+
+
+def t3_param_tree(cfg: T3Config, init) -> Params:
+    """The JAX-layout tree, its leaves drawn by ``init`` (``DenseInit`` or
+    ``ShapeInit``)."""
     D, L = cfg.hidden_size, cfg.num_layers
     Hq, Hk, Dh, Fi = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.intermediate_size
-    init = DenseInit(generator, device)
     dense, zeros, ones = init.dense, init.zeros, init.ones
     params: Params = {
         "text_emb": dense((cfg.text_vocab_size, D), 0.02),
@@ -85,7 +90,7 @@ def init_t3_params(cfg: T3Config, generator: torch.Generator, device,
             "attn": {"norm_w": ones((D,)), "norm_b": zeros((D,)),
                      "wq": lin(), "wk": lin(), "wv": lin(), "wo": lin()},
         }
-    return convert_params(params, device, dtype)
+    return params
 
 
 def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:

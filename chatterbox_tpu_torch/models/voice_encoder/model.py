@@ -44,7 +44,11 @@ class VoiceEncoderConfig:
 def init_voice_encoder_params(cfg: VoiceEncoderConfig, generator: torch.Generator, device,
                               dtype=torch.float32) -> Dict:
     """Random parameters with the JAX package's distributions (zero biases)."""
-    init = DenseInit(generator, device)
+    return convert_params(voice_encoder_param_tree(cfg, DenseInit(generator, device)), device, dtype)
+
+
+def voice_encoder_param_tree(cfg: VoiceEncoderConfig, init) -> Dict:
+    """The JAX-layout tree, its leaves drawn by ``init``."""
     layers = []
     in_dim = cfg.n_mels
     for _ in range(cfg.layers):
@@ -52,9 +56,8 @@ def init_voice_encoder_params(cfg: VoiceEncoderConfig, generator: torch.Generato
                        "wh": init.dense((cfg.hidden, 4 * cfg.hidden)),
                        "b": init.zeros((4 * cfg.hidden,))})
         in_dim = cfg.hidden
-    tree = {"lstm": layers, "proj": {"w": init.dense((cfg.hidden, cfg.embed_dim)),
+    return {"lstm": layers, "proj": {"w": init.dense((cfg.hidden, cfg.embed_dim)),
                                      "b": init.zeros((cfg.embed_dim,))}}
-    return convert_params(tree, device, dtype)
 
 
 def _embed_frames(params: Dict, cfg: VoiceEncoderConfig, mel: torch.Tensor) -> torch.Tensor:

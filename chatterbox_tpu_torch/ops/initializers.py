@@ -3,8 +3,9 @@
 Same distributions as ``chatterbox_tpu/ops/initializers.py``: ``dense``
 draws N(0, 1) · scale with scale = 1/√fan_in by default, fan_in being the
 second-to-last dimension of the JAX-layout shape (the last for a vector).
-The init functions build JAX-layout trees with this and hand them to
-``convert.convert_params``, so structure and layouts come from one place.
+The ``*_param_tree`` functions build JAX-layout trees with this (or with
+``ShapeInit``, for a template) and ``convert.convert_params`` turns them into
+the port's layouts, so structure and layouts come from one place.
 """
 from __future__ import annotations
 
@@ -32,6 +33,24 @@ class DenseInit:
 
     def ones(self, shape) -> torch.Tensor:
         return torch.ones(tuple(shape), device=self.device)
+
+
+class ShapeInit:
+    """Stands in for ``DenseInit`` where only a tree's structure is wanted:
+    every drawn leaf is a meta tensor (shape and dtype, no storage, no
+    random draw), so a full-size template costs nothing. Buffers that init
+    functions compute from the config (a window, a sinusoid table) stay real
+    CPU tensors."""
+
+    device = torch.device("cpu")
+
+    def dense(self, shape, scale: Optional[float] = None) -> torch.Tensor:
+        return torch.empty(tuple(shape), device="meta")
+
+    def zeros(self, shape) -> torch.Tensor:
+        return self.dense(shape)
+
+    ones = zeros
 
 
 def make_generator(seed: int, device) -> torch.Generator:

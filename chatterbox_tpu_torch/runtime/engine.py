@@ -30,10 +30,13 @@ of the voice store (``serve.voice_manager``), cloned at its first request by
 ``prepare_conditionals`` (S3TokenizerV2, the VoiceEncoder, CAMPPlus and the
 mel front ends) and cached under its name.
 
-Weights are random, made on the device from a seeded generator (checkpoint
-loading raises NotImplementedError naming its ROADMAP.md item). The device
-is explicit: with no CUDA device and no ``device="cpu"``, construction
-raises. The engine records the JAX engine's serving metrics
+Weights come from ``MODEL_PATH``, as in the JAX engine: a native checkpoint
+(``runtime.checkpoint``) first, then the reference safetensors
+(``runtime.loader``), else a random init made on the device from a seeded
+generator. With ``CHATTERBOX_PROGRESSIVE_SLICES=1`` and streaming CFM,
+slices after a chunk's second grow (s → 2s → … ≤ 100 tokens), as in the JAX
+engine. The device is explicit: with no CUDA device and no ``device="cpu"``,
+construction raises. The engine records the JAX engine's serving metrics
 (``runtime.metrics``).
 """
 from __future__ import annotations
@@ -59,11 +62,11 @@ import torch.nn.functional as F
 from ..audio.crossfade import CrossfadeStitcher, trim_leading, trim_trailing
 from ..audio.encoding import AudioEncoder
 from ..audio.pcm import float_to_pcm16, read_wav, resample
+from ..convert import convert_params
 from ..logging_config import log
 from ..models.s3gen_ref import (
     S3GenRefConfig,
     draw_noise,
-    init_s3gen_ref_params,
     init_s3gen_stream_state,
     s3gen_ref_embed_ref,
     s3gen_ref_inference,
@@ -72,16 +75,17 @@ from ..models.s3gen_ref import (
 )
 from ..models.s3gen_ref.decoder import cfm_noise_frames, static_prompt_cache
 from ..models.s3gen_ref.tokenizer import s3tok_ref_tokenize
-from ..models.t3 import T3Config, cond_embeddings, init_t3_params, make_decode_state, t3_decode_slice, t3_prefill
+from ..models.t3 import T3Config, cond_embeddings, make_decode_state, t3_decode_slice, t3_prefill
 from ..models.tokenizer import TextTokenizer
-from ..models.voice_encoder import VoiceEncoderConfig, init_voice_encoder_params, voice_embed
+from ..models.voice_encoder import VoiceEncoderConfig, voice_embed
 from ..ops import _build
-from ..ops.initializers import make_generator
+from ..ops.initializers import DenseInit, make_generator
 from ..serve.voice_manager import VoiceManager
 from ..settings import check_supported, get_settings, get_tts_config
 from ..text import split_text_into_chunks
 from .cancellation import CancellationToken, race_cancellation
-from .loader import load_default_conds
+from .checkpoint import is_native_checkpoint, load_checkpoint
+from .loader import load_default_conds, load_reference_checkpoint, param_trees
 from .metrics import metrics
 from .s3gen_scheduler import MAX_TAIL_TOKENS, S3GenScheduler
 from .scheduler import BatchedT3Decoder
@@ -155,10 +159,7 @@ class EngineConfig:
         """Published widths: T3 30×1024 (H=16, Dh=64), S3Gen ref. KV cache
         dtype from CHATTERBOX_KV (int8 default, ``native`` = params dtype);
         per-chunk decode cap from CHATTERBOX_MAX_NEW_TOKENS."""
-        arch = os.environ.get("CHATTERBOX_S3GEN_ARCH", "ref")
-        if arch != "ref":
-            raise NotImplementedError(
-                f"CHATTERBOX_S3GEN_ARCH={arch}: the DiT stack is ROADMAP.md Queue 1 item 11")
+        check_supported()
         kv = os.environ.get("CHATTERBOX_KV", "int8")
         cap = int(os.environ.get("CHATTERBOX_MAX_NEW_TOKENS", "1000"))
         return EngineConfig(
@@ -203,6 +204,28 @@ def _snap_slice_size(requested: int, cap: int) -> int:
 def _lookahead_size(slice_size: int) -> int:
     """First-slice look-ahead: max(3, 0.2·slice)."""
     return max(3, -(-slice_size // 5))
+
+
+# Largest progressive slice: with its EOS code it stays within MAX_TAIL_TOKENS
+# and the streaming block ladder (s3gen_scheduler.STREAM_BLOCK_SNAP), so 100,
+# the top of SLICE_SIZE_SNAP.
+PROGRESSIVE_SLICE_CAP = 100
+
+
+def _progressive_enabled() -> bool:
+    """CHATTERBOX_PROGRESSIVE_SLICES=1: on the streaming full-overlap path,
+    slices after a chunk's second grow (s → 2s → … ≤ PROGRESSIVE_SLICE_CAP),
+    which halves the S3Gen calls of a long chunk without touching the first
+    audio (the JAX engine's deliberate deviation from the reference's fixed
+    audio_tokens_per_slice)."""
+    return os.environ.get("CHATTERBOX_PROGRESSIVE_SLICES", "0") == "1"
+
+
+def _next_slice_target(cur: int, slice_size: int, cap: int) -> int:
+    """Next progressive slice size: double, snap to the ladder, never shrink,
+    at most PROGRESSIVE_SLICE_CAP."""
+    nxt = _snap_slice_size(cur * 2, cap)
+    return min(max(nxt, cur, slice_size), PROGRESSIVE_SLICE_CAP)
 
 
 def _token_bucket_sizes(slice_size: int, cap: int):
@@ -308,6 +331,7 @@ class TTSEngine:
         self.voice_manager = VoiceManager()
         self.voice_cache: Dict[str, Conditionals] = {}
         self.params: Optional[Dict] = params
+        self.load_report: Dict = {}   # what _init_models loaded, and its wall
         self.tokenizer: Optional[TextTokenizer] = None
         self._state = InitializationState.NOT_STARTED
         self._progress = ""
@@ -371,23 +395,31 @@ class TTSEngine:
             raise
 
     def _init_models(self) -> None:
+        """The weights, as the JAX engine finds them in MODEL_PATH: a native
+        checkpoint, else the reference safetensors (``t3_cfg.safetensors``
+        present), else a random init from the engine's seed."""
         model_dir = Path(get_settings().MODEL_PATH)
         if self.params is None:
-            for name in ("t3_cfg.safetensors", "s3gen.safetensors"):
-                if (model_dir / name).exists():
-                    raise NotImplementedError(
-                        f"{model_dir / name}: checkpoint loading is ROADMAP.md Queue 1 item 8; "
-                        "the port runs on random weights only")
             dtype = torch.bfloat16 if self.cfg.param_dtype == "bfloat16" else torch.float32
-            gen = make_generator(self.seed, self.device)
-            log.info("No checkpoint — random-init weights on %s (seed %d)", self.device, self.seed)
-            with torch.inference_mode():
-                # drawn in this order, so T3 and S3Gen stay the same at a seed
-                self.params = {
-                    "t3": init_t3_params(self.cfg.t3, gen, self.device, dtype),
-                    "s3gen": init_s3gen_ref_params(self.cfg.s3gen_ref, gen, self.device, dtype),
-                    "ve": init_voice_encoder_params(self.cfg.ve, gen, self.device, dtype),
-                }
+            t0 = time.perf_counter()
+            if is_native_checkpoint(model_dir):
+                self._progress = "Loading native checkpoint..."
+                self.params = load_checkpoint(model_dir, self.cfg, dtype, self.device)
+                self.load_report = {"seconds": time.perf_counter() - t0, "bytes": sum(
+                    f.stat().st_size for f in model_dir.glob("*.safetensors"))}
+                log.info("Loaded native checkpoint from %s", model_dir)
+            elif (model_dir / "t3_cfg.safetensors").exists():
+                self._progress = "Loading checkpoint..."
+                self.params = load_reference_checkpoint(model_dir, self.cfg, dtype, self.device,
+                                                        self.seed, self.load_report)
+            if self.params is None:
+                log.info("No checkpoint at %s — random-init weights on %s (seed %d)", model_dir,
+                         self.device, self.seed)
+                with torch.inference_mode():
+                    # drawn in this order, so T3 and S3Gen stay the same at a seed
+                    trees = param_trees(self.cfg, DenseInit(make_generator(self.seed, self.device),
+                                                            self.device))
+                    self.params = convert_params(trees, self.device, dtype)
         if self.device.type == "cuda":
             _build.library()  # build the kernels now, not inside the first request
         tok_file = model_dir / "tokenizer.json"
@@ -635,9 +667,10 @@ class TTSEngine:
             # t3_s / s3gen_s: host wall of the device calls (they overlap)
             # streamed / fallbacks: S3Gen calls that ran streaming CFM, and
             # chunks that fell back from it to the re-solve; window_drops:
-            # re-solves that dropped left context (CHATTERBOX_OVERLAP_WINDOW_TOKENS)
+            # re-solves that dropped left context (CHATTERBOX_OVERLAP_WINDOW_TOKENS);
+            # slice_tokens: the T3 tokens of each slice sent to S3Gen
             stats = {"chunks": len(text_chunks), "t3_tokens": [], "synth_samples": 0,
-                     "samples": 0, "slices": 0, "ttfa_s": None, "wall_s": None,
+                     "samples": 0, "slices": 0, "slice_tokens": [], "ttfa_s": None, "wall_s": None,
                      "t3_s": 0.0, "t3_steps": 0, "s3gen_s": 0.0, "streamed": 0,
                      "fallbacks": 0, "window_drops": 0}
             self.request_stats[request_id] = stats
@@ -647,9 +680,12 @@ class TTSEngine:
             token_q: asyncio.Queue = asyncio.Queue(maxsize=tts_cfg.SPEECH_TOKEN_QUEUE_MAX_SIZE)
             pcm_q: asyncio.Queue = asyncio.Queue(maxsize=tts_cfg.PCM_CHUNK_QUEUE_MAX_SIZE)
             slice_size = _snap_slice_size(audio_tokens_per_slice, self.cfg.max_new_tokens)
+            # progressive slices ride the streaming block ladder, so they need
+            # the streaming full-overlap path
+            progressive = _progressive_enabled() and stream0 is not None
             t3_task = asyncio.create_task(self._t3_producer(
                 text_chunks, token_q, conds, cfg_guidance_weight, synthesis_temperature,
-                slice_size, request_id, cancellation_token, stats))
+                slice_size, request_id, cancellation_token, stats, progressive))
             s3_task = asyncio.create_task(self._s3gen_producer(
                 token_q, pcm_q, conds, chunk_overlap_strategy, slice_size,
                 crossfade_duration_milliseconds, remove_leading_milliseconds,
@@ -690,7 +726,8 @@ class TTSEngine:
     # ---------------------------------------------------------- T3 producer
     async def _t3_producer(self, text_chunks, token_q: asyncio.Queue, conds: Conditionals,
                            cfg_weight: float, temperature: float, slice_size: int,
-                           request_id: str, token: CancellationToken, stats: Dict) -> None:
+                           request_id: str, token: CancellationToken, stats: Dict,
+                           progressive: bool = False) -> None:
         t3p = self.params["t3"]
         t3c = self.cfg.t3
         dev = self.device
@@ -712,7 +749,7 @@ class TTSEngine:
                 if self.decoder is not None:
                     n_slices = await self._produce_chunk_batched(
                         conds, lanes, len(ids), cfg_weight, temperature, slice_size, token_q,
-                        token, i, len(text_chunks), seed, stats)
+                        token, i, len(text_chunks), seed, stats, progressive)
                     log.info("[%s][T3] chunk %d/%d: %d slices (batched) in %.3fs", request_id,
                              i + 1, len(text_chunks), n_slices, time.time() - t_start)
                     if n_slices < 0:  # cancelled mid-chunk
@@ -788,10 +825,11 @@ class TTSEngine:
                                      cfg_weight: float, temperature: float, slice_size: int,
                                      token_q: asyncio.Queue, token: CancellationToken,
                                      chunk_idx: int, n_chunks: int, seed: int,
-                                     stats: Dict) -> int:
+                                     stats: Dict, progressive: bool = False) -> int:
         """Decode one text chunk in a slot of the batched decoder and re-cut
         its token stream into request-sized slices → the slice count, or -1
-        if cancelled."""
+        if cancelled. With ``progressive`` (streaming full overlap only)
+        slices after the second grow toward PROGRESSIVE_SLICE_CAP."""
         buf = np.zeros((0,), np.int64)
         slice_idx, kept = 0, 0
         pending: Optional[dict] = None
@@ -821,7 +859,10 @@ class TTSEngine:
                 slice_idx += 1
                 pending = make_item(buf[:target], slice_idx)
                 buf = buf[target:]
-                target = slice_size
+                if progressive and slice_idx >= 2:
+                    target = _next_slice_target(target, slice_size, self.cfg.max_new_tokens)
+                else:
+                    target = slice_size
                 # tokens remain past the cut, so this slice is not the last:
                 # send it now instead of holding it for the next decode slice
                 if len(buf):
@@ -892,6 +933,7 @@ class TTSEngine:
                     break
                 t_start = time.time()
                 metrics.record_tokens(len(item["tokens"]))
+                stats["slice_tokens"].append(len(item["tokens"]))
                 t_prep0 = time.perf_counter()
                 if item["chunk_idx"] != last_chunk_idx:
                     acc_tokens = np.zeros((0,), np.int64)

@@ -75,11 +75,24 @@ the script exits non-zero without printing the final line:
 7. a full-width BatchedT3Decoder with a bf16 cache at 16 slots: 16 prefills,
    one slice (K1's bf16 body at 32 lanes), then K3 against its plain version
    and beside K1's bf16 body on the live cache of the first and last layer;
-8. the kernels' JSON summary, the GPU line, then the final JSON line.
+8. serving from a model directory: the three reference safetensors files
+   written at full size by the port's writer from its schemas (the
+   manifest's 2,792 keys, synthesize_checkpoint's seeded values) with a
+   seeded conds.pt; EngineConfig.full() booted from them by ainit as a
+   deployment starts (int8 KV, 16 slots), the load's wall and GB/s, a clean
+   manifest diff and conversion for each file; every leaf on the card held
+   bitwise to the same loader's conversion on the CPU; 4 concurrent
+   one-chunk requests with CHATTERBOX_PROGRESSIVE_SLICES=1 at a decode cap
+   of 210 tokens (WAVs checked, K1's int8 body and both K2 forms launched,
+   a slice past 35 tokens, every slice streamed), with each request's slice
+   sizes, TTFA and RTF; then the engine's parameters saved as a native
+   checkpoint and loaded back on the card, bitwise equal;
+9. the kernels' JSON summary, the GPU line, then the final JSON line.
 
 K1 and K2 report the launches of the batched serving phase (the main path),
 K2 once per form; K3, which no serving path calls, reports its launches in
-phases 3 and 7.
+phases 3 and 7. Each kernel also reports its launches while phase 8 served
+the loaded checkpoint (``launches_loaded_checkpoint``).
 """
 from __future__ import annotations
 
@@ -1367,6 +1380,147 @@ def batched_bf16_decoder(engine, k1: dict, k3: dict) -> int:
     return read_launches()["decode_attention_pipelined"]["native"]
 
 
+# the loaded-checkpoint phase: a one-chunk request decodes up to 210 tokens,
+# which progressive slices cut into 7, 35, 70 and 98
+LOADED_NEW_TOKENS = "210"
+# T3 and the VoiceEncoder from T3Config() and VoiceEncoderConfig(), S3Gen from
+# S3GenRefConfig(): the full-size schemas, with synthesize_checkpoint's values
+CHECKPOINT_SEED = 0
+
+
+def write_reference_checkpoint(model_dir: Path) -> dict:
+    """The three reference safetensors files at full size from the port's
+    schemas (every key of the manifest, seeded values), with the port's
+    writer, and a seeded conds.pt → the bytes and the write's wall."""
+    from chatterbox_tpu_torch.models.s3gen_ref import S3GenRefConfig
+    from chatterbox_tpu_torch.models.s3gen_ref.schema import (s3gen_checkpoint_schema,
+                                                              synthesize_checkpoint)
+    from chatterbox_tpu_torch.models.t3 import T3Config
+    from chatterbox_tpu_torch.models.voice_encoder import VoiceEncoderConfig
+    from chatterbox_tpu_torch.runtime.manifest import t3_checkpoint_schema, ve_checkpoint_schema
+    from chatterbox_tpu_torch.runtime.safetensors_io import save_file
+
+    files = {"t3_cfg.safetensors": t3_checkpoint_schema(T3Config()),
+             "ve.safetensors": ve_checkpoint_schema(VoiceEncoderConfig()),
+             "s3gen.safetensors": s3gen_checkpoint_schema(S3GenRefConfig())}
+    info, synth_s, write_s = {}, 0.0, 0.0
+    for i, (name, schema) in enumerate(files.items()):
+        t0 = time.perf_counter()
+        raw = synthesize_checkpoint(schema, seed=CHECKPOINT_SEED + i)
+        t1 = time.perf_counter()
+        save_file(raw, model_dir / name)
+        synth_s, write_s = synth_s + t1 - t0, write_s + time.perf_counter() - t1
+        info[name] = {"keys": len(raw), "values": int(sum(v.size for v in raw.values())),
+                      "bytes": (model_dir / name).stat().st_size}
+        print(f"  {name}: {info[name]['keys']} keys, {info[name]['values'] / 1e6:.1f} M values, "
+              f"{info[name]['bytes'] / 2**30:.3f} GiB", flush=True)
+        del raw
+    write_conds(model_dir / "conds.pt")
+    total = sum(f["bytes"] for f in info.values())
+    print(f"  {sum(f['keys'] for f in info.values())} keys, {total / 2**30:.2f} GiB: values drawn in "
+          f"{synth_s:.2f} s, written in {write_s:.2f} s ({total / write_s / 1e9:.2f} GB/s)", flush=True)
+    return {"files": info, "bytes": total, "synth_s": synth_s, "write_s": write_s}
+
+
+def compare_params(got: dict, want: dict, what: str) -> dict:
+    """Leaf by leaf, bitwise (torch.equal on the CPU): the leaf and element
+    counts and the leaves that differ, which must be none."""
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [x for k, v in tree.items() for x in leaves(v, f"{prefix}{k}/")]
+        if isinstance(tree, list):
+            return [x for i, v in enumerate(tree) for x in leaves(v, f"{prefix}{i}/")]
+        return [(prefix[:-1], tree)]
+
+    a, b = leaves(got), leaves(want)
+    if [k for k, _ in a] != [k for k, _ in b]:
+        raise AssertionError(f"{what}: the trees differ in structure")
+    differ = [k for (k, x), (_, y) in zip(a, b)
+              if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x.cpu(), y.cpu())]
+    out = {"leaves": len(a), "elements": int(sum(x.numel() for _, x in a)), "differ": len(differ)}
+    print(f"  {what}: {out['leaves']} leaves, {out['elements'] / 1e6:.1f} M elements compared "
+          f"bitwise, {len(differ)} differ {differ[:5]}", flush=True)
+    if differ:
+        raise AssertionError(f"{what}: {len(differ)} leaves differ")
+    return out
+
+
+async def serve_loaded_checkpoint(model_dir: Path, native_dir: Path, out: dict) -> dict:
+    """Phase 8: boot from the reference files, hold the card's leaves to the
+    CPU's conversion, serve with progressive slices, round-trip the native
+    format → the launches of the serving run."""
+    from chatterbox_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+    from chatterbox_tpu_torch.runtime.loader import load_reference_checkpoint
+
+    out["written"] = write_reference_checkpoint(model_dir)
+    engine = await start_engine()
+    report = engine.load_report
+    dtype = engine.params["t3"]["text_emb"].dtype
+    print(f"  load: {report['bytes'] / 2**30:.2f} GiB read and converted to the card in "
+          f"{report['seconds']:.2f} s ({report['bytes'] / report['seconds'] / 1e9:.2f} GB/s), "
+          f"params {dtype}", flush=True)
+    for name, f in report["files"].items():
+        bad = {k: len(f[k]) for k in ("mismatched", "missing", "unused")}
+        print(f"  {name}: {f['keys']} keys; manifest diff {f['manifest']}; conversion {bad}",
+              flush=True)
+        if any(bad.values()) or any(f["manifest"][k] for k in ("unexpected", "missing",
+                                                               "shape_mismatch")):
+            raise AssertionError(f"{name}: the conversion or the manifest diff is not clean")
+    if len(report["files"]) != 3:
+        raise AssertionError(f"loaded {sorted(report['files'])}, not the three files")
+    t0 = time.perf_counter()
+    cpu_params = load_reference_checkpoint(model_dir, engine.cfg, dtype, "cpu")
+    cpu_s = time.perf_counter() - t0
+    print(f"  the same files converted on the CPU in {cpu_s:.2f} s", flush=True)
+    card_vs_cpu = compare_params(engine.params, cpu_params, "card against the CPU's conversion")
+    del cpu_params
+    for f in list(model_dir.glob("*.safetensors")):
+        f.unlink()   # room on the disk for the native copy
+
+    texts = [TEXTS[0], TEXTS[2], f"Loaded. {TEXTS[0]}", f"Loaded. {TEXTS[2]}"]
+    reset_launches()
+    # the default voice's prompt cache built again inside the counted run, as
+    # at a voice's first request: K2's self form runs there
+    out["cfm_prompt_cache"] = build_voice_cache(engine)
+    results = await run_requests(engine, texts, "loaded")
+    launches = read_launches()
+    print(f"  {gpu_line()}", flush=True)
+    report_requests(engine, results, two_chunks=False)
+    stats = [engine.request_stats[rid] for rid, _ in results]
+    for (rid, _), st in zip(results, stats):
+        print(f"  {rid}: slices {st['slice_tokens']}", flush=True)
+    print(f"  launches: {launches}", flush=True)
+    require_main_path(launches, "serving the loaded checkpoint")
+    if any(st["chunks"] != 1 for st in stats):
+        raise AssertionError("a request spanned more than one text chunk")
+    if not any(n > 35 for st in stats for n in st["slice_tokens"]):
+        raise AssertionError("no slice grew past 35 tokens")
+    if any(st["fallbacks"] or st["streamed"] != st["slices"] for st in stats):
+        raise AssertionError("a slice fell back to the re-solve")
+
+    t0 = time.perf_counter()
+    save_checkpoint(native_dir, engine.params, engine.cfg)
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = load_checkpoint(native_dir, engine.cfg, dtype, engine.device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    native_bytes = sum(f.stat().st_size for f in native_dir.glob("*.safetensors"))
+    print(f"  native checkpoint: {native_bytes / 2**30:.2f} GiB (float32) written in {save_s:.2f} s, "
+          f"read back to the card in {load_s:.2f} s", flush=True)
+    round_trip = compare_params(native, engine.params, "native round trip against the engine")
+    del native
+    out.update(load_s=report["seconds"], load_bytes=report["bytes"],
+               load_gb_s=report["bytes"] / report["seconds"] / 1e9, cpu_convert_s=cpu_s,
+               card_vs_cpu=card_vs_cpu, native_save_s=save_s, native_load_s=load_s,
+               native_bytes=native_bytes, round_trip=round_trip,
+               slices={rid: st["slice_tokens"] for (rid, _), st in zip(results, stats)},
+               ttfa_s=[st["ttfa_s"] for st in stats])
+    engine.shutdown()
+    return launches
+
+
 def phase(title: str):
     print(f"== {title}", flush=True)
     return time.perf_counter()
@@ -1466,9 +1620,30 @@ def main() -> int:
         t0 = phase(f"7. BatchedT3Decoder with a bf16 cache at {SLOTS} slots; K3 on its live cache")
         k3_launches += batched_bf16_decoder(engine, k1, k3_live)
         engine.shutdown()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
         done(t0, walls, "bf16_decoder")
 
-    print("== 8. summary", flush=True)
+        t0 = phase("8. a full-size reference checkpoint: written, loaded on the card and held to "
+                   "the CPU; 4 requests with progressive slices; the native round trip")
+        loaded_dir, native_dir = Path(tmp) / "models-loaded", Path(tmp) / "models-native"
+        loaded_dir.mkdir()
+        os.environ.update(MODEL_PATH=str(loaded_dir), MAX_DECODE_SLOTS=str(SLOTS),
+                          CHATTERBOX_MAX_NEW_TOKENS=LOADED_NEW_TOKENS,
+                          CHATTERBOX_PROGRESSIVE_SLICES="1")
+        serving["checkpoint"] = {}
+        try:
+            loaded_launches = asyncio.run(serve_loaded_checkpoint(
+                loaded_dir, native_dir, serving["checkpoint"]))
+        finally:
+            del os.environ["CHATTERBOX_PROGRESSIVE_SLICES"]
+            os.environ["CHATTERBOX_MAX_NEW_TOKENS"] = MAX_NEW_TOKENS
+        gc.collect()
+        torch.cuda.empty_cache()
+        done(t0, walls, "loaded_checkpoint")
+
+    print("== 9. summary", flush=True)
     rounded = {k: round(v, 1) for k, v in walls.items()}
     print(f"  phase walls (s): {json.dumps(rounded)}", flush=True)
     # ms / plain_ms / library_ms: device time per call; call_ms: with the
@@ -1479,6 +1654,7 @@ def main() -> int:
     summary = {"kernels": [
         dict(name="decode_attention", route="cuda", **KERNELS["decode_attention"],
              launches=launches["decode_attention"]["int8"], body="int8", **k1[f"int8_B{LANES}"],
+             launches_loaded_checkpoint=loaded_launches["decode_attention"]["int8"],
              other_bodies={"bfloat16": k1[f"bfloat16_B{LANES}"], "B2_checks": {
                  c: k1[c] for c in ("int8", "bfloat16", "float32")}, "slice_edge_checks": {
                  c: k1[f"slice_edges_B{LANES}_{c}"] for c in ("int8", "bfloat16", "float32")},
@@ -1486,15 +1662,18 @@ def main() -> int:
                  "live_bf16_ms": k1["live_bf16_ms"]}),
         dict(name="flash_mha", route="cuda", **KERNELS["flash_mha"],
              launches=launches["flash_mha"]["float32"], body="float32, self form",
+             launches_loaded_checkpoint=loaded_launches["flash_mha"]["float32"],
              launches_from="phase 4: the default voice's prompt prefill", **k2["float32"],
              other_bodies={"bfloat16": k2["bfloat16"], "other_head_dims": {
                  c: k2[f"other_dh_{c}"] for c in ("float32", "bfloat16")}}),
         dict(name="flash_mha_context", route="cuda", **KERNELS["flash_mha"],
              launches=launches["flash_mha"]["float32_ctx"], body="float32, context form",
+             launches_loaded_checkpoint=loaded_launches["flash_mha"]["float32_ctx"],
              launches_from="phase 4: every cached and streaming estimator evaluation",
              **k2c["float32"], other_bodies={"bfloat16": k2c["bfloat16"]}),
         dict(name="decode_attention_pipelined", route="cuda",
              **KERNELS["decode_attention_pipelined"], launches=k3_launches, body="bfloat16",
+             launches_loaded_checkpoint=loaded_launches["decode_attention_pipelined"]["native"],
              launches_from="phases 3 and 7 (no serving path calls it)", **k3_main,
              slice_rows=k3["edges_bfloat16"]["slice_rows"],
              other_bodies={"float32": k3["float32"], "edge_checks": {

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import assert_trees_close, jax_tree_to_np, to_np
+from torch_port_helpers import assert_trees_close, jax_tree_to_np, to_np, write_conds
 
 from chatterbox_tpu.config import reset_config_cache
 from chatterbox_tpu.runtime import CancellationToken as JToken
@@ -52,24 +52,6 @@ REQUEST = dict(
     crossfade_duration_milliseconds=10,
     request_id="port-parity",
 )
-
-
-def write_conds(path, spk_dim, n_prompt=6, n_feat=14, seed=7):
-    """A seeded conds.pt in the reference format."""
-    rng = np.random.default_rng(seed)
-    t3 = {
-        "speaker_emb": torch.tensor(rng.standard_normal((1, spk_dim)), dtype=torch.float32),
-        "cond_prompt_speech_tokens": torch.tensor(rng.integers(0, 6561, (1, n_prompt))),
-        "emotion_adv": 0.5 * torch.ones(1, 1, 1),
-    }
-    gen = {
-        "prompt_token": torch.tensor(rng.integers(0, 6561, (1, n_prompt))),
-        "prompt_token_len": torch.tensor([n_prompt]),
-        "prompt_feat": torch.tensor(rng.standard_normal((1, n_feat, 80)), dtype=torch.float32),
-        "prompt_feat_len": None,
-        "embedding": torch.tensor(rng.standard_normal((1, 192)), dtype=torch.float32),
-    }
-    torch.save({"t3": t3, "gen": gen}, path)
 
 
 @pytest.fixture(scope="module")
@@ -202,8 +184,8 @@ def test_default_voice_fields(env):
 
 
 def test_unported_settings_raise(env, monkeypatch):
-    """Progressive slices still raise; the CFM prompt cache (every mode),
-    streaming CFM and the bounded re-synthesis window are accepted now."""
+    """The CFM prompt cache (every mode), streaming CFM, the bounded
+    re-synthesis window and now progressive slices are all accepted."""
     for name, value in (("CHATTERBOX_CFM_STREAM", "1"), ("CHATTERBOX_CFM_PROMPT_CACHE", "step"),
                         ("CHATTERBOX_CFM_PROMPT_CACHE", "static"),
                         ("CHATTERBOX_OVERLAP_WINDOW_TOKENS", "64")):
@@ -212,8 +194,8 @@ def test_unported_settings_raise(env, monkeypatch):
     eng = TTSEngine(EngineConfig.tiny_ref(), device="cpu")
     assert eng._cfm_cache_mode() == "static" and eng.overlap_window == 64
     monkeypatch.setenv("CHATTERBOX_PROGRESSIVE_SLICES", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        TTSEngine(EngineConfig.tiny_ref(), device="cpu")
+    TTSEngine(EngineConfig.tiny_ref(), device="cpu")
+    assert teng_mod._progressive_enabled()
 
 
 def test_default_settings_are_the_jax_packages(monkeypatch):

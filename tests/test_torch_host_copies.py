@@ -2,7 +2,8 @@
 their originals on the same inputs.
 
 ``chatterbox_tpu_torch`` keeps its own text frontend, fallback tokenizer,
-PCM/WAV helpers, crossfade, container encoder and serving metrics, so that
+PCM/WAV helpers, crossfade, container encoder, serving metrics, voice store
+and multi-host dispatcher, so that
 the port (and the GPU smoke run) imports nothing of ``chatterbox_tpu``. These tests keep the
 two copies from drifting apart: text and bytes must be identical, and the
 crossfade mix agrees to float32 rounding (the original may take its C++
@@ -184,3 +185,72 @@ def test_voice_manager_matches(tmp_path):
         traces.append(_voice_store_trace(cls(str(user), str(pre)), user, pre))
     assert traces[0] == traces[1]
     assert ("FileExistsError", None) in traces[0] and ("path", "U/shared.wav") in traces[0]
+
+
+def test_dispatcher_matches():
+    """The port's dispatcher is the JAX package's: the same routes, the same
+    backend picks under load and failures, and the same answers proxied
+    and broadcast from backends."""
+    from aiohttp import web
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from chatterbox_tpu.serve import dispatcher as jdisp
+    from chatterbox_tpu_torch.serve import dispatcher as tdisp
+
+    def routes(mod):
+        app = mod.create_dispatcher_app(["http://a:1", "http://b:2"])
+        return sorted((r.method, r.resource.canonical) for r in app.router.routes())
+
+    assert routes(tdisp) == routes(jdisp)
+
+    def picks(mod):
+        d = mod.Dispatcher(["http://a", "http://b", "http://c", "http://d"])
+        out = []
+        for i in range(24):
+            b = d.pick()
+            out.append(b.url)
+            b.active += i % 3 == 0
+            if i == 7:
+                d.backends[1].healthy = False
+            if i == 15:
+                d.backends[3].active = 9
+                d.backends[1].healthy = True
+            if i % 5 == 4:
+                d.backends[i % 4].active = max(0, d.backends[i % 4].active - 1)
+        return out
+
+    assert picks(tdisp) == picks(jdisp)
+
+    async def backend(request: web.Request) -> web.StreamResponse:
+        body = await request.read()
+        return web.json_response({"path": str(request.rel_url), "method": request.method,
+                                  "key": request.headers.get("X-API-Key"), "n": len(body)},
+                                 status=201 if request.method == "POST" else 200)
+
+    async def run():
+        app = web.Application()
+        app.router.add_route("*", "/{tail:.*}", backend)
+        server = TestServer(app)
+        await server.start_server()
+        url = str(server.make_url("")).rstrip("/")
+        answers = []
+        for mod in (tdisp, jdisp):
+            client = TestClient(TestServer(mod.create_dispatcher_app([url, url])))
+            await client.start_server()
+            got = []
+            for method, path, data in (("get", "/tts/generate?text=hi", None),
+                                       ("post", "/tts/generate", b'{"text": "hi"}'),
+                                       ("post", "/voices", b"x" * 100),
+                                       ("delete", "/voices/a.wav", None),
+                                       ("get", "/voices", None)):
+                r = await getattr(client, method)(path, data=data, headers={"X-API-Key": "k"})
+                got.append((r.status, await r.json()))
+            r = await client.get("/dispatcher-status")
+            got.append((r.status, [b["healthy"] for b in (await r.json())["backends"]]))
+            await client.close()
+            answers.append(got)
+        await server.close()
+        return answers
+
+    tgot, jgot = asyncio.run(run())
+    assert tgot == jgot and tgot[0][0] == 200

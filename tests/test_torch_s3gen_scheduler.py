@@ -217,16 +217,15 @@ def test_three_jobs_run_three_lanes(setup):
 
 
 def test_unported_jobs_raise(setup, monkeypatch):
-    """Progressive slices still raise (settings); prompt-cached and
-    streaming jobs are accepted now, and a streaming job the block cannot
-    hold, one without the prompt cache, or one with a window shift, is
-    refused, as is an out-of-range shift."""
+    """Progressive slices are accepted now (settings), as are prompt-cached
+    and streaming jobs; a streaming job the block cannot hold, one without
+    the prompt cache, or one with a window shift, is refused, as is an
+    out-of-range shift."""
     from chatterbox_tpu_torch.settings import check_supported
 
     _, _, params, _, ref = setup
     monkeypatch.setenv("CHATTERBOX_PROGRESSIVE_SLICES", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        check_supported()
+    check_supported()
 
     async def run(**kw):
         sched = S3GenScheduler(params, CFG, state_tokens=STATE_TOKENS)

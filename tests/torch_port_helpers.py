@@ -99,3 +99,45 @@ def prompt_noise(n_mels: int, batch: int = 1) -> torch.Tensor:
     import jax.numpy as jnp
 
     return to_t(jax.random.normal(jax.random.PRNGKey(777), (batch, 2048, n_mels), jnp.float32))
+
+
+def write_conds(path, spk_dim, n_prompt=6, n_feat=14, seed=7):
+    """A seeded conds.pt in the reference format."""
+    rng = np.random.default_rng(seed)
+    t3 = {
+        "speaker_emb": torch.tensor(rng.standard_normal((1, spk_dim)), dtype=torch.float32),
+        "cond_prompt_speech_tokens": torch.tensor(rng.integers(0, 6561, (1, n_prompt))),
+        "emotion_adv": 0.5 * torch.ones(1, 1, 1),
+    }
+    gen = {
+        "prompt_token": torch.tensor(rng.integers(0, 6561, (1, n_prompt))),
+        "prompt_token_len": torch.tensor([n_prompt]),
+        "prompt_feat": torch.tensor(rng.standard_normal((1, n_feat, 80)), dtype=torch.float32),
+        "prompt_feat_len": None,
+        "embedding": torch.tensor(rng.standard_normal((1, 192)), dtype=torch.float32),
+    }
+    torch.save({"t3": t3, "gen": gen}, path)
+
+
+def spy_slices(engine) -> dict:
+    """Record, per request id, the tokens of every slice an engine's T3
+    producer hands to its S3Gen producer (either package's engine: both
+    take the token queue first and the request id tenth) → the record,
+    filled as requests run."""
+    from collections import defaultdict
+
+    out = defaultdict(list)
+    producer = engine._s3gen_producer
+
+    class Spy:
+        def __init__(self, q, slices):
+            self.q, self.slices = q, slices
+
+        async def get(self):
+            item = await self.q.get()
+            if item is not None:
+                self.slices.append(np.asarray(item["tokens"]).tolist())
+            return item
+
+    engine._s3gen_producer = lambda token_q, *a, **kw: producer(Spy(token_q, out[a[8]]), *a, **kw)
+    return out
