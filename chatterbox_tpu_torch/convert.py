@@ -6,13 +6,18 @@ names its counterpart in the other. Only the layouts of weights differ:
 
 * linear ``{"w": [in, out]}`` (``chatterbox_tpu/ops/nn.py`` ``linear``) →
   torch ``[out, in]``;
-* the T3 backbone's layer-stacked projections ``wq wk wv wo w_gate w_up
-  w_down`` ``[L, in, out]`` → ``[L, out, in]``;
+* the layer-stacked projections ``[L, in, out]`` → ``[L, out, in]``: the
+  T3 backbone's ``wq wk wv wo w_gate w_up w_down``, and the DiT stack's
+  MLPs ``w1 w2`` (its encoder, flow and S3Tok) and AdaLN modulation
+  ``ada_w``;
+* the DiT flow's time MLP ``w1 w2`` ``[in, out]`` → ``[out, in]``, as a
+  linear;
 * conv ``{"w": [K, Cin, Cout]}`` (``chatterbox_tpu/ops/conv.py``, NTC) →
   torch ``[Cout, Cin, K]``;
-* transposed conv (the HiFT ``ups`` stages) ``[K, Cin, Cout]`` → torch
-  ``[Cin, Cout, K]``. The JAX ``conv_transpose1d`` flips its kernel to
-  emulate torch's convolution, so here the weight is transposed, not flipped;
+* transposed conv (the HiFT ``ups`` stages, the DiT vocoder's stage ``up``)
+  ``[K, Cin, Cout]`` → torch ``[Cin, Cout, K]``. The JAX
+  ``conv_transpose1d`` flips its kernel to emulate torch's convolution, so
+  here the weight is transposed, not flipped;
 * 2-D conv (CAMPPlus's head) HWIO ``[kH, kW, Cin, Cout]`` → torch OIHW
   ``[Cout, Cin, kH, kW]``;
 * the VoiceEncoder's LSTM weights ``wx`` / ``wh`` ``[in, 4H]`` → torch's
@@ -30,8 +35,9 @@ from typing import Any
 import numpy as np
 import torch
 
-_STACKED_LINEAR = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
-_LINEAR = frozenset({"w", "wx", "wh"})
+_STACKED_LINEAR = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                             "w1", "w2", "ada_w"})
+_LINEAR = frozenset({"w", "wx", "wh", "w1", "w2"})
 
 
 def _perm(key: str, parents: tuple, ndim: int):
@@ -40,7 +46,7 @@ def _perm(key: str, parents: tuple, ndim: int):
     if key in _LINEAR and ndim == 2:
         return (1, 0)
     if key == "w" and ndim == 3:
-        return (1, 2, 0) if "ups" in parents else (2, 1, 0)
+        return (1, 2, 0) if "ups" in parents or parents[-1:] == ("up",) else (2, 1, 0)
     if key == "w" and ndim == 4:
         return (3, 2, 0, 1)
     if key in _STACKED_LINEAR and ndim == 3:

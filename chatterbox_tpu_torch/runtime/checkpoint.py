@@ -2,8 +2,9 @@
 counterpart of ``chatterbox_tpu/runtime/checkpoint.py``).
 
 The files are the JAX package's: one safetensors file per model
-(``t3``, ``s3gen``, ``ve``), float32, its keys the '/'-joined paths of the
-JAX-layout tree (list nodes use numeric segments), and
+(``t3``, ``s3gen``, ``ve``, and ``s3tok`` under the DiT arch), float32,
+its keys the '/'-joined paths of the JAX-layout tree (list nodes use
+numeric segments), and
 ``chatterbox_tpu.json`` recording the format, the models, the S3Gen arch and
 the configs. So the JAX package reads what the port writes and the port
 reads what the JAX package writes: the writer turns the port's layouts back
@@ -22,7 +23,7 @@ import torch
 
 from ..convert import convert_params, unconvert_params
 from ..ops.initializers import ShapeInit
-from .loader import DIT_UNPORTED, param_trees
+from .loader import param_trees
 from .safetensors_io import load_file, save_file
 
 NATIVE_MANIFEST = "chatterbox_tpu.json"
@@ -66,13 +67,17 @@ def save_checkpoint(path, params: Dict, engine_cfg) -> None:
             flat = _flatten(unconvert_params(tree))
             host = {k: v.float().cpu().numpy() for k, v in flat.items()}
         save_file(host, path / f"{name}.safetensors")
+    configs = {"t3": dataclasses.asdict(engine_cfg.t3), "ve": dataclasses.asdict(engine_cfg.ve)}
+    if engine_cfg.s3gen_arch == "ref":
+        configs["s3gen"] = dataclasses.asdict(engine_cfg.s3gen_ref)
+    else:
+        configs["s3gen"] = dataclasses.asdict(engine_cfg.s3gen)
+        configs["s3tok"] = dataclasses.asdict(engine_cfg.s3tok)
     manifest = {
         "format": FORMAT,
         "models": sorted(params.keys()),
-        "s3gen_arch": "ref",
-        "configs": {"t3": dataclasses.asdict(engine_cfg.t3),
-                    "ve": dataclasses.asdict(engine_cfg.ve),
-                    "s3gen": dataclasses.asdict(engine_cfg.s3gen_ref)},
+        "s3gen_arch": engine_cfg.s3gen_arch,
+        "configs": configs,
     }
     (path / NATIVE_MANIFEST).write_text(json.dumps(manifest, indent=2))
 
@@ -83,13 +88,15 @@ def is_native_checkpoint(path) -> bool:
 
 def load_checkpoint(path, engine_cfg, dtype, device) -> Dict:
     """Load a native checkpoint, shape-checked against the configs' trees,
-    into the port's layout on ``device`` in ``dtype``. A checkpoint of the
-    DiT S3Gen stack raises NotImplementedError."""
+    into the port's layout on ``device`` in ``dtype``. A checkpoint of
+    another S3Gen arch than the config's raises ValueError."""
     path = Path(path)
     manifest = json.loads((path / NATIVE_MANIFEST).read_text())
     arch = manifest.get("s3gen_arch", "dit")
-    if arch != "ref":
-        raise NotImplementedError(f"{path}: s3gen_arch={arch!r}: {DIT_UNPORTED}")
+    if arch != engine_cfg.s3gen_arch:
+        raise ValueError(
+            f"checkpoint was saved with s3gen_arch={arch!r} but the engine is "
+            f"configured for {engine_cfg.s3gen_arch!r} (set CHATTERBOX_S3GEN_ARCH={arch})")
     templates = param_trees(engine_cfg, ShapeInit())
     trees = {name: _unflatten_into(template, load_file(path / f"{name}.safetensors"))
              for name, template in templates.items()}

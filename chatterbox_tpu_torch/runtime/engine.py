@@ -30,6 +30,14 @@ of the voice store (``serve.voice_manager``), cloned at its first request by
 ``prepare_conditionals`` (S3TokenizerV2, the VoiceEncoder, CAMPPlus and the
 mel front ends) and cached under its name.
 
+S3Gen comes in the JAX package's two architectures (``EngineConfig.s3gen_arch``):
+"ref", the checkpoint-compatible stack that ``full()`` serves by default, and
+"dit", the DiT redesign with its own speech tokenizer (S3Tok), which
+``tiny()`` and ``CHATTERBOX_S3GEN_ARCH=dit`` select. As in the JAX engine the
+DiT runs without the CFM prompt cache, streaming CFM and the tail-windowed
+vocoder, and ignores ``conds.pt`` (its voices are the neutral voice or
+clones).
+
 Weights come from ``MODEL_PATH``, as in the JAX engine: a native checkpoint
 (``runtime.checkpoint``) first, then the reference safetensors
 (``runtime.loader``), else a random init made on the device from a seeded
@@ -64,6 +72,8 @@ from ..audio.encoding import AudioEncoder
 from ..audio.pcm import float_to_pcm16, read_wav, resample
 from ..convert import convert_params
 from ..logging_config import log
+from ..models.s3gen import S3GenConfig, s3gen_embed_ref, s3gen_inference
+from ..models.s3gen import draw_noise as dit_draw_noise
 from ..models.s3gen_ref import (
     S3GenRefConfig,
     draw_noise,
@@ -74,12 +84,15 @@ from ..models.s3gen_ref import (
     s3gen_ref_prompt_prefill,
 )
 from ..models.s3gen_ref.decoder import cfm_noise_frames, static_prompt_cache
+from ..models.s3gen_ref.features import reflect_tail
 from ..models.s3gen_ref.tokenizer import s3tok_ref_tokenize
+from ..models.s3tok import S3TokConfig, s3tok_tokenize
 from ..models.t3 import T3Config, cond_embeddings, make_decode_state, t3_decode_slice, t3_prefill
 from ..models.tokenizer import TextTokenizer
 from ..models.voice_encoder import VoiceEncoderConfig, voice_embed
 from ..ops import _build
 from ..ops.initializers import DenseInit, make_generator
+from ..ops.spectral import log_mel_spectrogram
 from ..serve.voice_manager import VoiceManager
 from ..settings import check_supported, get_settings, get_tts_config
 from ..text import split_text_into_chunks
@@ -116,25 +129,38 @@ class Conditionals:
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     t3: T3Config
-    s3gen_ref: S3GenRefConfig
+    s3gen: S3GenConfig = S3GenConfig()
+    s3tok: S3TokConfig = S3TokConfig()
     ve: VoiceEncoderConfig = VoiceEncoderConfig()
     text_bucket: int = 16       # pad text token counts to multiples of this
     max_new_tokens: int = 1000  # per-chunk decode cap
     param_dtype: str = "float32"
+    # the token-to-waveform architecture: "ref" (the checkpoint-compatible
+    # stack, ``s3gen_ref``) or "dit" (the DiT redesign, ``s3gen`` + ``s3tok``)
+    s3gen_arch: str = "dit"
+    s3gen_ref: Optional[S3GenRefConfig] = None
 
     @property
-    def gen(self) -> S3GenRefConfig:
-        return self.s3gen_ref
+    def gen(self):
+        """The active token-to-waveform config."""
+        return self.s3gen_ref if self.s3gen_arch == "ref" else self.s3gen
 
     @staticmethod
-    def tiny_ref() -> "EngineConfig":
+    def tiny() -> "EngineConfig":
         return EngineConfig(
             t3=T3Config.tiny(),
-            s3gen_ref=EngineConfig._apply_ref_env_knobs(S3GenRefConfig.tiny()),
+            s3gen=S3GenConfig.tiny(),
+            s3tok=S3TokConfig.tiny(),
             ve=VoiceEncoderConfig.tiny(),
             text_bucket=8,
             max_new_tokens=64,
         )
+
+    @staticmethod
+    def tiny_ref() -> "EngineConfig":
+        return dataclasses.replace(
+            EngineConfig.tiny(), s3gen_arch="ref",
+            s3gen_ref=EngineConfig._apply_ref_env_knobs(S3GenRefConfig.tiny()))
 
     @staticmethod
     def _apply_ref_env_knobs(ref_cfg: S3GenRefConfig) -> S3GenRefConfig:
@@ -156,17 +182,22 @@ class EngineConfig:
 
     @staticmethod
     def full(param_dtype: str = "bfloat16") -> "EngineConfig":
-        """Published widths: T3 30×1024 (H=16, Dh=64), S3Gen ref. KV cache
-        dtype from CHATTERBOX_KV (int8 default, ``native`` = params dtype);
-        per-chunk decode cap from CHATTERBOX_MAX_NEW_TOKENS."""
+        """Published widths: T3 30×1024 (H=16, Dh=64); S3Gen in the arch
+        CHATTERBOX_S3GEN_ARCH names ("ref" by default, else the DiT with
+        S3Tok). KV cache dtype from CHATTERBOX_KV (int8 default, ``native``
+        = params dtype); per-chunk decode cap from
+        CHATTERBOX_MAX_NEW_TOKENS."""
         check_supported()
+        arch = os.environ.get("CHATTERBOX_S3GEN_ARCH", "ref")
         kv = os.environ.get("CHATTERBOX_KV", "int8")
         cap = int(os.environ.get("CHATTERBOX_MAX_NEW_TOKENS", "1000"))
         return EngineConfig(
             t3=T3Config().with_(kv_cache_dtype=kv),
-            s3gen_ref=EngineConfig._apply_ref_env_knobs(S3GenRefConfig()),
             ve=VoiceEncoderConfig(),
             param_dtype=param_dtype,
+            s3gen_arch=arch,
+            s3gen_ref=(EngineConfig._apply_ref_env_knobs(S3GenRefConfig())
+                       if arch == "ref" else None),
             max_new_tokens=max(8, min(cap, 1000)),
         )
 
@@ -292,13 +323,47 @@ def _cond_fn(params: Dict, cfg: EngineConfig, wav24: torch.Tensor, wav24_len: to
     dict). ``wav16`` is one buffer with two valid lengths: the T3 prompt
     tokenizes ``wav16_len_enc`` samples (≤ 6 s), the VoiceEncoder and
     ``embed_ref`` take ``wav16_len_dec`` (≤ 10 s). Runs where the tensors
-    are."""
-    refc = cfg.s3gen_ref
-    tokens, tok_len = s3tok_ref_tokenize(params["s3gen"]["tokenizer"], refc.tokenizer, wav16,
-                                         wav16_len_enc)
+    are. The ref arch tokenizes with S3TokenizerV2 and embeds with
+    ``s3gen_ref_embed_ref``; the DiT, as the JAX engine's ``_jit_cond``
+    does, with S3Tok, then a 16 kHz log-mel (400/160/80) for the x-vector
+    over ``wav16_len_dec // 160`` frames, and its prompt mel is padded to
+    the static ``max_prompt_mel`` window (zeros, which the packing ignores)
+    so voices stack in one batch."""
+    if cfg.s3gen_arch == "ref":
+        refc = cfg.s3gen_ref
+        tokens, tok_len = s3tok_ref_tokenize(params["s3gen"]["tokenizer"], refc.tokenizer, wav16,
+                                             wav16_len_enc)
+    else:
+        tokens, tok_len = s3tok_tokenize(params["s3tok"], cfg.s3tok, wav16, wav16_len_enc)
     spk = voice_embed(params["ve"], cfg.ve, wav16, wav16_len_dec)
     lanes = _t3_lanes(params["t3"], cfg.t3, spk, tokens, tok_len, exaggeration)
-    return lanes, s3gen_ref_embed_ref(params["s3gen"], refc, wav24, wav24_len, wav16, wav16_len_dec)
+    if cfg.s3gen_arch == "ref":
+        return lanes, s3gen_ref_embed_ref(params["s3gen"], refc, wav24, wav24_len, wav16,
+                                          wav16_len_dec)
+    s3c = cfg.s3gen
+    P = cfg.t3.speech_cond_prompt_len
+    prompt = F.pad(tokens[:, :P], (0, max(0, P - tokens.shape[1])))
+    fbank = log_mel_spectrogram(wav16, S3_SR, 400, 160, 80)
+    ref = s3gen_embed_ref(params["s3gen"], s3c, reflect_tail(wav24, wav24_len), fbank,
+                          prompt[:, : s3c.max_prompt_tokens],
+                          tok_len.clamp_max(s3c.max_prompt_tokens),
+                          fbank_len=wav16_len_dec // 160)
+    mel = ref["prompt_mel"]
+    ref["prompt_mel"] = F.pad(mel, (0, 0, 0, s3c.max_prompt_mel - mel.shape[1]))
+    return lanes, ref
+
+
+def _ref_infer(cfg: S3GenRefConfig, params, tokens, token_len, ref, src, cache_len, noise,
+               cache=None):
+    return s3gen_ref_inference(params, cfg, tokens, token_len, ref, src, cache_len, noise,
+                               cfm_cache=cache)
+
+
+def _dit_infer(cfg: S3GenConfig, params, tokens, token_len, ref, src, cache_len, noise,
+               cache=None):
+    if cache is not None:
+        raise ValueError("the CFM prompt cache is a ref-arch feature")
+    return s3gen_inference(params, cfg, tokens, token_len, ref, src, cache_len, noise)
 
 
 def _resolve_device(device) -> torch.device:
@@ -318,8 +383,13 @@ class TTSEngine:
         settings = get_settings()
         check_supported()
         if engine_cfg is None:
-            engine_cfg = (EngineConfig.tiny_ref() if os.environ.get("CHATTERBOX_TINY_MODEL")
-                          else EngineConfig.full(settings.DTYPE_POLICY))
+            if os.environ.get("CHATTERBOX_TINY_MODEL"):
+                # the JAX engine's choice: the DiT unless the ref arch is named
+                engine_cfg = (EngineConfig.tiny_ref()
+                              if os.environ.get("CHATTERBOX_S3GEN_ARCH", "dit") == "ref"
+                              else EngineConfig.tiny())
+            else:
+                engine_cfg = EngineConfig.full(settings.DTYPE_POLICY)
             if settings.KV_CACHE_DTYPE != "native":
                 engine_cfg = dataclasses.replace(
                     engine_cfg, t3=engine_cfg.t3.with_(kv_cache_dtype=settings.KV_CACHE_DTYPE))
@@ -328,6 +398,15 @@ class TTSEngine:
         self.device = _resolve_device(device)
         self.gen_cfg = engine_cfg.gen
         self.sr = self.gen_cfg.sample_rate
+        # the arch's chunk inference, (params, tokens, token_len, ref, src,
+        # cache_len, noise, cache=None) → (wav, new_src), and its noise
+        # draw, (cfg, batch, T, generator, device) → noise
+        if engine_cfg.s3gen_arch == "ref":
+            self._infer = functools.partial(_ref_infer, engine_cfg.s3gen_ref)
+            self._draw_noise = draw_noise
+        else:
+            self._infer = functools.partial(_dit_infer, engine_cfg.s3gen)
+            self._draw_noise = dit_draw_noise
         self.voice_manager = VoiceManager()
         self.voice_cache: Dict[str, Conditionals] = {}
         self.params: Optional[Dict] = params
@@ -430,22 +509,24 @@ class TTSEngine:
         """The batched T3 decoder and the S3Gen micro-batcher, with the
         first-audio gate between them (``CHATTERBOX_FIRST_AUDIO_GATE``: "0"
         turns it off, a float sets its bounded wait in seconds, default 0.25)
-        and the tail-windowed vocoder unless ``CHATTERBOX_TAIL_VOCODE=0``."""
+        and, for the ref arch, the tail-windowed vocoder unless
+        ``CHATTERBOX_TAIL_VOCODE=0`` (the DiT vocodes in full and slices)."""
         settings = get_settings()
         self.decoder = BatchedT3Decoder(
             self.params["t3"], self.cfg.t3, n_slots=settings.MAX_DECODE_SLOTS,
             slice_size=get_tts_config().AUDIO_TOKENS_PER_SLICE)
         rc = self.cfg.s3gen_ref
         tail_infer = None
-        if os.environ.get("CHATTERBOX_TAIL_VOCODE", "1") == "1":
+        if self.cfg.s3gen_arch == "ref" and os.environ.get("CHATTERBOX_TAIL_VOCODE", "1") == "1":
             def tail_infer(p, tk, tl, rf, sr, cl, nz, start, tail_len, cache=None):
                 return s3gen_ref_inference_tail(p, rc, tk, tl, rf, sr, cl, nz, start, tail_len,
                                                 cfm_cache=cache)
         # the source row holds the largest bucket plus the largest per-slice
         # window shift (≤ slice + EOS ≤ MAX_TAIL_TOKENS)
         self.s3gen_scheduler = S3GenScheduler(
-            self.params["s3gen"], rc,
-            state_tokens=self._reachable_token_cap() + MAX_TAIL_TOKENS, tail_infer=tail_infer)
+            self.params["s3gen"], self.gen_cfg, infer=self._infer,
+            state_tokens=self._reachable_token_cap() + MAX_TAIL_TOKENS, tail_infer=tail_infer,
+            noise_fn=self._draw_noise)
         gate_env = os.environ.get("CHATTERBOX_FIRST_AUDIO_GATE", "1")
         if gate_env != "0":
             timeout = 0.25 if gate_env == "1" else float(gate_env)
@@ -470,11 +551,13 @@ class TTSEngine:
         return min(self.cfg.t3.max_speech_tokens + 8, self.cfg.max_new_tokens + 2)
 
     # ------------------------------------------------------ CFM prompt cache
-    @staticmethod
-    def _cfm_cache_mode() -> str:
+    def _cfm_cache_mode(self) -> str:
         """CHATTERBOX_CFM_PROMPT_CACHE: "step" (the default: the frozen prompt
         context of every Euler step), "static" (the last step's, reused at
-        every step: 10x smaller) or "0" (off: the uncached re-solve)."""
+        every step: 10x smaller) or "0" (off: the uncached re-solve). Always
+        "0" for the DiT arch, whose flow has no prompt cache."""
+        if self.cfg.s3gen_arch != "ref":
+            return "0"
         v = os.environ.get("CHATTERBOX_CFM_PROMPT_CACHE", "step").lower()
         if v in ("1", "step"):
             return "step"
@@ -547,11 +630,15 @@ class TTSEngine:
     def _default_conditionals(self) -> Conditionals:
         """The no-voice_id conditionals: the snapshot's default voice
         (``MODEL_PATH/conds.pt``) when present and readable; the neutral
-        voice, built from 2 s of zeros, otherwise."""
+        voice, built from 2 s of zeros, otherwise. The DiT arch ignores
+        ``conds.pt``, with a warning, as the JAX engine does."""
         if "default" not in self.voice_cache:
             conds = None
             conds_file = Path(get_settings().MODEL_PATH) / "conds.pt"
-            if conds_file.exists():
+            if conds_file.exists() and self.cfg.s3gen_arch != "ref":
+                log.warning("conds.pt found but s3gen_arch='dit' uses its own conditioning "
+                            "format; using the neutral default voice.")
+            elif conds_file.exists():
                 try:
                     conds = self._conds_from_default_file(load_default_conds(conds_file))
                     log.info("Default voice loaded from %s", conds_file)
@@ -1030,9 +1117,9 @@ class TTSEngine:
                             cache_len=cache_len, seed=chunk_seed, T=T):
                         with torch.inference_mode():
                             noise_gen.manual_seed(seed)
-                            noise = draw_noise(s3c, 1, T, noise_gen, dev)
-                            w, ns = s3gen_ref_inference(
-                                s3p, s3c, torch.as_tensor(tokens, device=dev),
+                            noise = self._draw_noise(s3c, 1, T, noise_gen, dev)
+                            w, ns = self._infer(
+                                s3p, torch.as_tensor(tokens, device=dev),
                                 torch.tensor([n_valid], device=dev), conds.gen_ref,
                                 torch.as_tensor(src, device=dev),
                                 torch.tensor([cache_len], device=dev), noise, cfm_cache)

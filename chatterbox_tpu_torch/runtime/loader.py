@@ -14,6 +14,9 @@ where layouts change:
 * VoiceEncoder: the LSTM and its projection map 1:1;
 * S3Gen (ref): ``models/s3gen_ref/convert.py`` maps the tokenizer, CAMPPlus,
   the conformer and CFM flow and HiFT, with both weight-norm spellings.
+  With ``s3gen_arch="dit"`` ``s3gen.safetensors`` is not loaded (a warning
+  says so): the DiT stack and S3Tok have no reference weights and keep the
+  random init.
 
 Files are read by ``safetensors_io`` (no ``safetensors`` package needed). A
 file that is present but unreadable raises; a tensor the files lack keeps
@@ -31,22 +34,28 @@ import torch
 
 from ..convert import convert_params
 from ..logging_config import log
+from ..models.s3gen import s3gen_param_tree
 from ..models.s3gen_ref.convert import convert_s3gen_ref
 from ..models.s3gen_ref.model import s3gen_ref_param_tree
+from ..models.s3tok import s3tok_param_tree
 from ..models.t3.model import t3_param_tree
 from ..models.voice_encoder.model import voice_encoder_param_tree
 from ..ops.initializers import DenseInit, ShapeInit, make_generator
 from .manifest import log_manifest_diff
 from .safetensors_io import load_file
 
-DIT_UNPORTED = "the DiT S3Gen stack (s3gen_arch='dit') is ROADMAP.md Queue 1 item 11"
-
 
 def param_trees(engine_cfg, init) -> Dict:
-    """The JAX-layout trees of the three models, drawn by ``init`` in the
-    order the engine draws them (T3, S3Gen, VoiceEncoder)."""
+    """The JAX-layout trees of the engine's models, drawn by ``init`` in the
+    order the engine draws them: T3, S3Gen, VoiceEncoder for the ref arch;
+    T3, S3Gen, S3Tok, VoiceEncoder for the DiT."""
+    if engine_cfg.s3gen_arch == "ref":
+        return {"t3": t3_param_tree(engine_cfg.t3, init),
+                "s3gen": s3gen_ref_param_tree(engine_cfg.s3gen_ref, init),
+                "ve": voice_encoder_param_tree(engine_cfg.ve, init)}
     return {"t3": t3_param_tree(engine_cfg.t3, init),
-            "s3gen": s3gen_ref_param_tree(engine_cfg.s3gen_ref, init),
+            "s3gen": s3gen_param_tree(engine_cfg.s3gen, init),
+            "s3tok": s3tok_param_tree(engine_cfg.s3tok, init),
             "ve": voice_encoder_param_tree(engine_cfg.ve, init)}
 
 
@@ -220,14 +229,14 @@ def load_reference_checkpoint(model_dir: Path, engine_cfg, dtype, device, seed: 
                               report: Optional[Dict] = None) -> Optional[Dict]:
     """Load what the model directory holds → the port's parameters on
     ``device`` in ``dtype``, or None when it holds none of the three files.
+    Under the DiT arch ``s3gen.safetensors`` counts as found but is not
+    read (``report["skipped"]`` names it).
 
     Leaves the files do not fill keep the random init that
     ``TTSEngine(seed=seed)`` draws on ``device``, and a warning names them.
     ``report`` (optional dict) receives, per file, its key count and bytes,
     the manifest diff, and the mismatched, missing and unused lists; then
     the load's wall seconds and total bytes."""
-    if getattr(engine_cfg, "s3gen_arch", "ref") != "ref":
-        raise NotImplementedError(DIT_UNPORTED)
     t0 = time.perf_counter()
     report = {} if report is None else report
     trees = param_trees(engine_cfg, ShapeInit())
@@ -253,7 +262,13 @@ def load_reference_checkpoint(model_dir: Path, engine_cfg, dtype, device, seed: 
         files[name].update(mismatched=mismatched, missing=_unset_paths(trees[model]),
                            unused=sorted(set(raw) - used))
         log.info("Loaded %s weights from %s", model, Path(model_dir) / name)
-    raw = read("s3gen.safetensors")
+    s3_file = Path(model_dir) / "s3gen.safetensors"
+    if engine_cfg.s3gen_arch != "ref" and s3_file.exists():
+        log.warning("s3gen.safetensors found, but s3gen_arch='dit' serves the DiT redesign, "
+                    "which has its own weights; set CHATTERBOX_S3GEN_ARCH=ref to serve the "
+                    "pretrained stack.")
+        report["skipped"] = [s3_file.name]
+    raw = read(s3_file.name) if engine_cfg.s3gen_arch == "ref" else None
     if raw is not None:
         result = convert_s3gen_ref(raw, trees["s3gen"], engine_cfg.s3gen_ref)
         trees["s3gen"] = result["params"]
@@ -267,7 +282,7 @@ def load_reference_checkpoint(model_dir: Path, engine_cfg, dtype, device, seed: 
                 (result["mismatched"] + result["missing"] + result["unused"])[:10])
         else:
             log.info("Loaded S3Gen weights from %s (clean conversion)", Path(model_dir) / "s3gen.safetensors")
-    if not files:
+    if not files and not report.get("skipped"):
         return None
     unset = _unset_paths(trees)
     if unset:

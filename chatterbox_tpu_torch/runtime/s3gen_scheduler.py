@@ -20,8 +20,10 @@ and returns the updated rows. Only the new audio tail (``prev_rel`` → at
 most ``MAX_TAIL_TOKENS`` tokens of samples) is copied to the host.
 
 Noise: each job draws its CFM and source noise from its own generator seeded
-with the job's seed (``draw_noise``), so a request's audio is the same solo
-or co-batched.
+with the job's seed (the arch's ``draw_noise``), so a request's audio is the
+same solo or co-batched. The DiT arch runs its ``infer`` with a full vocode
+and slices the tail (no ``tail_infer``, no streaming), as the JAX package
+does.
 
 Two deliberate differences from the JAX scheduler:
 
@@ -91,10 +93,13 @@ class _Job:
 
 class S3GenScheduler:
     def __init__(self, params: Dict, cfg, max_batch: int = 16, infer=None,
-                 state_tokens: int = 1032, tail_infer=None):
+                 state_tokens: int = 1032, tail_infer=None, noise_fn=draw_noise):
         """``infer(params, tokens, token_len, ref, src, cache_len, noise)`` →
         (wav [B, T·spt], new_src [B, T·spt]): the batched chunk inference
-        (default ``s3gen_ref_inference``).
+        (default ``s3gen_ref_inference``); ``noise_fn(cfg, batch, T,
+        generator, device, stream=...)`` draws its ``noise`` (default the
+        ref arch's ``draw_noise``; ``stream`` is passed only for streaming
+        jobs).
 
         ``tail_infer``: optional windowed-vocoder variant (… same args …,
         start [B], tail_len) → (tail [B, tail_len], new_src), which vocodes
@@ -110,11 +115,15 @@ class S3GenScheduler:
         # memory guard: flow activations grow with batch × bucket
         self.batch_token_budget = int(os.environ.get("CHATTERBOX_S3GEN_BATCH_TOKENS", "4096"))
         self.state_len = state_tokens * cfg.samples_per_token
-        self.device = params["flow"]["input_emb"].device
+        leaf = params
+        while not isinstance(leaf, torch.Tensor):
+            leaf = next(iter(leaf.values())) if isinstance(leaf, dict) else leaf[0]
+        self.device = leaf.device
         self._infer = infer or (
             lambda p, tk, tl, rf, sr, cl, nz, cache=None: s3gen_ref_inference(
                 p, cfg, tk, tl, rf, sr, cl, nz, cfm_cache=cache))
         self._tail_infer = tail_infer
+        self._noise_fn = noise_fn
         self._noise_gen = torch.Generator(device=self.device)
         self._queues: Dict[tuple, List[_Job]] = {}
         self._wake = asyncio.Event()
@@ -243,7 +252,8 @@ class S3GenScheduler:
         draws = []
         for j in jobs:
             self._noise_gen.manual_seed(j.seed)
-            draws.append(draw_noise(self.cfg, 1, T, self._noise_gen, dev, stream=streaming))
+            stream_kw = {"stream": True} if streaming else {}
+            draws.append(self._noise_fn(self.cfg, 1, T, self._noise_gen, dev, **stream_kw))
         noise = {k: torch.cat([d[k] for d in draws]) for k in draws[0]}
         starts_host = [min(max(j.prev_rel, 0), max(0, n - tail)) for j in jobs]
         starts = torch.as_tensor(starts_host, device=dev)

@@ -11,8 +11,8 @@ directory, overridden by the process environment. Booleans read "1", "true",
 JAX package: 16 decode slots (``MAX_DECODE_SLOTS=1`` serves per request),
 the CFM prompt cache in "step" mode and streaming CFM on.
 ``check_supported`` raises ``NotImplementedError`` naming the ROADMAP.md
-item when a path the port does not have is asked for (the DiT S3Gen stack),
-instead of quietly ignoring it.
+item when a path the port does not have is asked for (tensor parallelism,
+``CHATTERBOX_TP`` > 1), instead of quietly ignoring it.
 """
 from __future__ import annotations
 
@@ -109,10 +109,10 @@ def get_tts_config() -> TTSSettings:
     return _fill(TTSSettings, "TTS_")
 
 
-# (env name, port default, value(s) that ask for a path the port lacks, item)
+# (env name, port default, whether a value asks for a path the port lacks, item)
 _UNPORTED = (
-    ("CHATTERBOX_S3GEN_ARCH", "ref", ("dit",),
-     "ROADMAP.md Queue 1 item 11 (the DiT S3Gen stack)"),
+    ("CHATTERBOX_TP", "0", lambda v: int(v or 0) > 1,
+     "ROADMAP.md Queue 1 item 11 (tensor parallelism, chatterbox_tpu/parallel/)"),
 )
 
 
@@ -120,5 +120,5 @@ def check_supported() -> None:
     """Raise for a setting that selects a path the port does not have."""
     for name, default, unported, item in _UNPORTED:
         value = os.environ.get(name, default).lower()
-        if value in unported:
+        if unported(value):
             raise NotImplementedError(f"{name}={value}: not ported — {item}")

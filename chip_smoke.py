@@ -86,19 +86,39 @@ the script exits non-zero without printing the final line:
    of 210 tokens (WAVs checked, K1's int8 body and both K2 forms launched,
    a slice past 35 tokens, every slice streamed), with each request's slice
    sizes, TTFA and RTF; then the engine's parameters saved as a native
-   checkpoint and loaded back on the card, bitwise equal;
-9. the kernels' JSON summary, the GPU line, then the final JSON line.
+   checkpoint and loaded back on the card, bitwise equal. The directory also
+   holds a tokenizer.json (write_tokenizer_json): the boot must read it with
+   the port's BPE reader and give TOKENIZER_IDS for TOKENIZER_SENTENCE;
+9. the DiT S3Gen configuration (CHATTERBOX_S3GEN_ARCH=dit, EngineConfig.full():
+   the DiT stack and S3Tok at their published widths, bf16, int8 KV, random
+   weights), on a MODEL_PATH holding a seeded conds.pt: (a) the engine warns
+   and builds the neutral default voice, held against the CPU; (b) one
+   batched S3Gen call (16 jobs, 128-token bucket, 105 tokens) with its
+   device time and its device time by kernel, then 2 jobs in the 64-token
+   bucket on a conditioned float32 copy of the weights, card against CPU
+   (DIT_TOL: the mel, the f0 and the excitation from the same f0 held; the
+   whole chain's excitation and the waveform reported, with its clipped
+   share); (c) prepare_conditionals on the demo voice, held against
+   the CPU (DIT_CLONE_TOL), with wall and device time; (d) 8 concurrent
+   one-chunk requests at 16 slots and a 70-token cap (WAVs checked, S3Gen
+   batching 2 or more jobs, K1's int8 body launched; K2's launches reported,
+   expected 0), then one two-chunk request per request (MAX_DECODE_SLOTS=1),
+   with TTFA and RTF; (e) the engine's native checkpoint saved and loaded
+   back on the card, bitwise equal;
+10. the kernels' JSON summary, the GPU line, then the final JSON line.
 
 K1 and K2 report the launches of the batched serving phase (the main path),
 K2 once per form; K3, which no serving path calls, reports its launches in
 phases 3 and 7. Each kernel also reports its launches while phase 8 served
-the loaded checkpoint (``launches_loaded_checkpoint``).
+the loaded checkpoint (``launches_loaded_checkpoint``) and while phase 9
+served the DiT (``launches_dit``).
 """
 from __future__ import annotations
 
 import asyncio
 import gc
 import json
+import logging
 import os
 import re
 import statistics
@@ -728,10 +748,15 @@ async def start_engine():
     from chatterbox_tpu_torch.runtime.engine import EngineConfig, TTSEngine
 
     cfg = EngineConfig.full()
+    if cfg.s3gen_arch == "ref":
+        s3gen = (f"S3Gen conformer {cfg.s3gen_ref.flow.input_size} ({cfg.s3gen_ref.flow.num_blocks}"
+                 f"+{cfg.s3gen_ref.flow.num_up_blocks} blocks), HiFT {cfg.s3gen_ref.hift.base_channels}")
+    else:
+        c = cfg.s3gen
+        s3gen = (f"S3Gen DiT: encoder {c.enc_dim}x{c.enc_layers}, DiT {c.dit_dim}x{c.dit_layers} "
+                 f"H={c.dit_heads}, vocoder {c.voc_channels}; S3Tok {cfg.s3tok.dim}x{cfg.s3tok.layers}")
     print(f"  config: T3 {cfg.t3.num_layers}x{cfg.t3.hidden_size} H={cfg.t3.num_heads} "
-          f"kv={cfg.t3.kv_cache_dtype}, S3Gen conformer {cfg.s3gen_ref.flow.input_size} "
-          f"({cfg.s3gen_ref.flow.num_blocks}+{cfg.s3gen_ref.flow.num_up_blocks} blocks), "
-          f"HiFT {cfg.s3gen_ref.hift.base_channels}, params {cfg.param_dtype}, "
+          f"kv={cfg.t3.kv_cache_dtype}, {s3gen}, params {cfg.param_dtype}, "
           f"max_new_tokens {cfg.max_new_tokens}, MAX_DECODE_SLOTS {os.environ['MAX_DECODE_SLOTS']}",
           flush=True)
     t0 = time.perf_counter()
@@ -1388,6 +1413,41 @@ LOADED_NEW_TOKENS = "210"
 CHECKPOINT_SEED = 0
 
 
+# a tokenizer.json in the model directory, written here from a small
+# vocabulary and merge list (the format scripts/train_tokenizer.py writes;
+# merges as "a b" strings, as older files hold them): the boot reads it with
+# the port's own BPE reader, and TOKENIZER_SENTENCE must give TOKENIZER_IDS,
+# which tests/test_torch_tokenizer.py holds to the `tokenizers` package's
+# ids for the same file
+TOKENIZER_SPECIALS = ("[STOP]", "[UNK]", "[SPACE]")
+TOKENIZER_MERGES = (("t", "h"), ("th", "e"), ("i", "n"), ("in", "g"), ("e", "r"),
+                    ("a", "n"), ("an", "d"), ("o", "n"), ("r", "e"), ("e", "s"),
+                    ("o", "u"), ("a", "t"), ("e", "n"), ("o", "r"), ("s", "t"),
+                    ("h", "e"), ("q", "u"), ("qu", "i"), ("c", "k"), ("l", "l"))
+TOKENIZER_SENTENCE = "The quick brown fox, 42 things! Hello?"
+TOKENIZER_IDS = [51, 2, 67, 68, 2, 4, 20, 17, 25, 16, 2, 8, 17, 26, 40, 2, 33, 31, 2, 50, 53,
+                 21, 41, 2, 65, 69, 17, 42]
+
+
+def write_tokenizer_json(path: Path) -> None:
+    tokens = list(TOKENIZER_SPECIALS) + list("abcdefghijklmnopqrstuvwxyz0123456789.,!?'-:;\"()")
+    tokens += [a + b for a, b in TOKENIZER_MERGES]
+    vocab = {t: i for i, t in enumerate(tokens)}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": t, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for i, t in enumerate(TOKENIZER_SPECIALS)],
+        "normalizer": None, "pre_tokenizer": {"type": "Whitespace"}, "post_processor": None,
+        "decoder": None,
+        "model": {"type": "BPE", "dropout": None, "unk_token": "[UNK]",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": [f"{a} {b}" for a, b in TOKENIZER_MERGES]},
+    }
+    path.write_text(json.dumps(spec, indent=2))
+
+
 def write_reference_checkpoint(model_dir: Path) -> dict:
     """The three reference safetensors files at full size from the port's
     schemas (every key of the manifest, seeded values), with the port's
@@ -1416,6 +1476,7 @@ def write_reference_checkpoint(model_dir: Path) -> dict:
               f"{info[name]['bytes'] / 2**30:.3f} GiB", flush=True)
         del raw
     write_conds(model_dir / "conds.pt")
+    write_tokenizer_json(model_dir / "tokenizer.json")
     total = sum(f["bytes"] for f in info.values())
     print(f"  {sum(f['keys'] for f in info.values())} keys, {total / 2**30:.2f} GiB: values drawn in "
           f"{synth_s:.2f} s, written in {write_s:.2f} s ({total / write_s / 1e9:.2f} GB/s)", flush=True)
@@ -1454,6 +1515,12 @@ async def serve_loaded_checkpoint(model_dir: Path, native_dir: Path, out: dict) 
 
     out["written"] = write_reference_checkpoint(model_dir)
     engine = await start_engine()
+    ids = engine.tokenizer.text_to_tokens(TOKENIZER_SENTENCE)[0].tolist()
+    print(f"  tokenizer.json read by the port's BPE reader: {TOKENIZER_SENTENCE!r} -> {ids}",
+          flush=True)
+    if not engine.tokenizer.is_pretrained or ids != TOKENIZER_IDS:
+        raise AssertionError(f"the boot did not read tokenizer.json as expected: {ids}")
+    out["tokenizer_ids"] = ids
     report = engine.load_report
     dtype = engine.params["t3"]["text_emb"].dtype
     print(f"  load: {report['bytes'] / 2**30:.2f} GiB read and converted to the card in "
@@ -1517,6 +1584,362 @@ async def serve_loaded_checkpoint(model_dir: Path, native_dir: Path, out: dict) 
                native_bytes=native_bytes, round_trip=round_trip,
                slices={rid: st["slice_tokens"] for (rid, _), st in zip(results, stats)},
                ttfa_s=[st["ttfa_s"] for st in stats])
+    engine.shutdown()
+    return launches
+
+
+# ------------------------------------------------------------ the DiT phase
+# Phase 9 serves the DiT S3Gen configuration (CHATTERBOX_S3GEN_ARCH=dit):
+# EngineConfig.full() with the DiT stack and S3Tok at their published widths,
+# bf16 params, the int8 KV cache, random weights from the engine's seed.
+# Requests decode at most DIT_NEW_TOKENS per chunk.
+DIT_NEW_TOKENS = "70"
+# A DiT chunk on the card against the CPU in float32 (TF32 off), 2 jobs in the
+# 64-token bucket with the same tokens, voice and noise, on a float32 copy of
+# the weights conditioned as the CPU tests condition the JAX tree
+# (condition_dit): AdaLN-zero leaves drawn, else the flow returns its noise;
+# the vocoder's resblocks scaled by DIT_RES_SCALE, else ~70 % of the waveform
+# sits on the ±1 clip. Held: the mel relative to its peak (float32 summation
+# order through 10 Euler steps; 7.9e-7 against float64 in a CPU rehearsal at
+# this shape), the f0 predicted from the CPU's mel relative to its peak, and
+# the excitation made from the CPU's f0 and noise on each side (|source| <
+# 1). Its phase is a cumsum of f0/sr over the chunk, times k up to 8: at
+# these weights' f0 peak of 2.5 kHz the 8th harmonic's argument reaches
+# 3.2e5 rad after 61,440 samples, where one float32 ulp is 0.031 rad, and
+# 5.0e3 rad after the first token (ulp 4.9e-4). torch sums in float64 on
+# the CPU and in float32 on the card, so the excitation is held at 1e-4
+# over its first token (2.8e-5 on the card) and at 2e-2 over the chunk
+# (5.7e-3 on the card). The excitation of the whole chain is
+# reported, not held (its f0 differs by float32 order too, 1.5e-2 on the
+# card), and so are the waveform's difference and clipped share.
+DIT_TOL = {"mel": 1e-4, "f0": 1e-4, "source_head": 1e-4, "source": 2e-2}
+DIT_RES_SCALE = 0.1
+# The DiT's voice on the card against the CPU: CLONE_TOL, but its x-vector
+# (a 512-channel TDNN in bf16 on the card, the same width in every config)
+# is held at cosine 0.995: bf16 against float32 on the CPU gave 0.99903 on
+# the demo voice and 0.99908 on the neutral one, and 7e-3 of its peak.
+DIT_CLONE_TOL = {**CLONE_TOL, "spk_cos": 0.995}
+
+
+def to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_dev(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_dev(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def condition_dit(params: dict, seed: int) -> dict:
+    """A float32 CPU copy of DiT S3Gen parameters (the port's layout),
+    conditioned as tests/torch_port_helpers.py ``conditioned_dit_params``
+    conditions the JAX tree."""
+    g = torch.Generator().manual_seed(seed)
+    q = f32_cpu(params)
+    lay, out = q["flow"]["layers"], q["flow"]["out_proj"]
+    D = lay["ada_w"].shape[2]   # [L, 6D, D]
+    lay["ada_w"] = torch.randn(lay["ada_w"].shape, generator=g) / D ** 0.5
+    lay["ada_b"] = torch.randn(lay["ada_b"].shape, generator=g) * 0.1
+    out["w"] = torch.randn(out["w"].shape, generator=g) / D ** 0.5
+    for stage in q["vocoder"]["stages"]:
+        for block in stage["res"]:
+            for unit in block:
+                unit["c2"]["w"] = unit["c2"]["w"] * DIT_RES_SCALE
+    return q
+
+
+def dit_batch(cfg, ref1: dict, B: int, T: int, acc: int, seed: int, dev) -> tuple:
+    """``s3gen_mel_and_source``'s inputs after params and cfg: B jobs of
+    ``acc`` random tokens in bucket T, the voice ``ref1`` stacked, no
+    excitation cache, noise from a generator seeded ``seed`` on ``dev``."""
+    from chatterbox_tpu_torch.models.s3gen import draw_noise
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.full((B, T), cfg.vocab_size, dtype=torch.int64, device=dev)
+    tokens[:, :acc] = torch.randint(0, cfg.vocab_size, (B, acc), generator=g, device=dev)
+    ref = {k: torch.cat([v] * B).to(dev) for k, v in ref1.items()}
+    zeros = torch.zeros((B,), dtype=torch.int64, device=dev)
+    return (tokens, torch.full((B,), acc, device=dev), ref,
+            torch.zeros((B, T * cfg.samples_per_token), device=dev), zeros,
+            draw_noise(cfg, B, T, g, dev))
+
+
+@torch.inference_mode()
+def dit_s3gen_call(engine, T: int = 128, acc: int = 105) -> dict:
+    """(b) One batched DiT S3Gen call at the batched path's shape (16 jobs,
+    the 128-token bucket, 105 tokens) on the engine's bf16 weights: device
+    time, by kernel, and host wall. Then the float32 check against the CPU
+    (DIT_TOL)."""
+    from chatterbox_tpu_torch.models.s3gen import s3gen_inference, s3gen_mel_and_source
+    from chatterbox_tpu_torch.models.s3gen.vocoder import make_source, predict_f0, vocode
+
+    cfg, p, dev = engine.cfg.s3gen, engine.params["s3gen"], engine.device
+    ref1 = engine.voice_cache["default"].gen_ref
+    args = dit_batch(cfg, ref1, SLOTS, T, acc, 5, dev)
+    reset_launches()
+    with profiler() as prof:
+        wav, _ = s3gen_inference(p, cfg, *args)
+        torch.cuda.synchronize()
+    summed, busy, kernels, n_device = device_ms(prof, top=8)
+    launches = read_launches()
+    t0 = time.perf_counter()
+    s3gen_inference(p, cfg, *args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not torch.isfinite(wav).all():
+        raise AssertionError("DiT batched call: non-finite waveform")
+    print(f"  DiT S3Gen batched call B={SLOTS} bucket {T}, {acc} tokens: device {summed:.1f} ms "
+          f"(busy {busy:.1f} ms) over {n_device} device activities, host wall {1e3 * wall:.1f} ms; "
+          f"launches {launches}; device ms by kernel {kernels}", flush=True)
+    out = {"device_ms": summed, "busy_ms": busy, "host_wall_ms": 1e3 * wall,
+           "device_activities": n_device, "launches": launches, "top_kernels": kernels}
+
+    q = condition_dit(p, seed=3)
+    cpu_args = dit_batch(cfg, f32_cpu(ref1), 2, 64, 50, 9, "cpu")
+    t0 = time.perf_counter()
+    mel_c, src_c = s3gen_mel_and_source(q, cfg, *cpu_args)
+    wav_c = vocode(q["vocoder"], cfg, mel_c, src_c)
+    cpu_s = time.perf_counter() - t0
+    qd = to_dev(q, dev)
+    mel_g, src_g = s3gen_mel_and_source(qd, cfg, *to_dev(list(cpu_args), dev))
+    wav_g = vocode(qd["vocoder"], cfg, mel_g, src_g).cpu()
+    mel_g, src_g = mel_g.cpu(), src_g.cpu()
+    f0_c = predict_f0(q["vocoder"], mel_c)
+    f0_g = predict_f0(qd["vocoder"], mel_c.to(dev)).cpu()
+    noise = cpu_args[5]["source"]
+    exc_c = make_source(q["vocoder"], cfg, f0_c, noise)
+    exc_g = make_source(qd["vocoder"], cfg, f0_c.to(dev), noise.to(dev)).cpu()
+    peak, f0_peak = mel_c.abs().max().item(), f0_c.abs().max().item()
+    spt = cfg.samples_per_token
+    errs = {"mel": compare("DiT mel, float32, card against the CPU (relative to its peak)",
+                           mel_g / peak, mel_c / peak, DIT_TOL["mel"]),
+            "f0": compare("DiT f0 from the CPU's mel (relative to its peak)", f0_g / f0_peak,
+                          f0_c / f0_peak, DIT_TOL["f0"]),
+            "source_head": compare("DiT excitation from the CPU's f0 and noise, first token",
+                                   exc_g[:, :spt], exc_c[:, :spt], DIT_TOL["source_head"]),
+            "source": compare("DiT excitation from the CPU's f0 and noise", exc_g, exc_c,
+                              DIT_TOL["source"]),
+            "source_chain": compare("DiT excitation of the whole chain (not held)", src_g, src_c,
+                                    float("inf")),
+            "wav": compare("DiT waveform, float32, card against the CPU (not held)", wav_g, wav_c,
+                           float("inf"))}
+    clipped = (wav_c.abs() >= 1.0).float().mean().item()
+    print(f"  mel peak {peak:.3f}, f0 peak {f0_peak:.2f} Hz; waveform peak {wav_c.abs().max().item():.3f}, clipped share "
+          f"{clipped:.4f}; the CPU's float32 run took {cpu_s:.2f} s", flush=True)
+    out["against_cpu"] = {"max_abs_err": errs, "tol": DIT_TOL, "mel_peak": peak,
+                          "clipped_share": clipped, "cpu_s": cpu_s}
+    return out
+
+
+def dit_token_check(card: torch.Tensor, z: torch.Tensor, n: int, cfg) -> dict:
+    """S3Tok's tokens [n] on the card against the CPU's FSQ input z = tanh(·)
+    [n, dims]: the share that agree, and the digits more than digit_margin
+    from the ±0.5 rounding boundary on the CPU, which must all agree."""
+    z = z[:n].float()
+    want = torch.round(z).long() + 1
+    powers = cfg.fsq_levels ** torch.arange(cfg.fsq_dims)
+    got = (card[:n].cpu()[:, None] // powers) % cfg.fsq_levels
+    decisive = (z.abs() - 0.5).abs() > CLONE_TOL["digit_margin"]
+    codes = (want * powers).sum(-1)
+    return {"n": n, "share": (card[:n].cpu() == codes).float().mean().item() if n else 1.0,
+            "digits": n * cfg.fsq_dims, "decisive": int(decisive.sum()),
+            "decisive_differ": int(((got != want) & decisive).sum())}
+
+
+@torch.inference_mode()
+def compare_dit_conditionals(engine, conds, inputs, what: str) -> dict:
+    """The DiT engine's ``conds``, built on the card from ``inputs``, against
+    ``_cond_fn`` on the CPU over an f32 copy of the weights it reads, with
+    DIT_CLONE_TOL: S3Tok's decisive digits (the T3 prompt's row, whose first
+    prompt_len tokens the S3Gen prompt holds), the VoiceEncoder and x-vector
+    embeddings, the prompt mel, and the T3 lanes on the card's tokens."""
+    from chatterbox_tpu_torch.models.s3tok import s3tok_fsq, s3tok_tokenize
+    from chatterbox_tpu_torch.models.voice_encoder import voice_embed
+    from chatterbox_tpu_torch.runtime.engine import _cond_fn, _t3_lanes
+    from chatterbox_tpu_torch.settings import get_tts_config
+
+    p, cfg, dev = engine.params, engine.cfg, engine.device
+    cpu = {"t3": f32_cpu({k: p["t3"][k] for k in ("cond", "speech_emb")}),
+           "s3gen": {"xvector": f32_cpu(p["s3gen"]["xvector"])},
+           "s3tok": f32_cpu(p["s3tok"]), "ve": f32_cpu(p["ve"])}
+    exag = torch.tensor([get_tts_config().VOICE_EXAGGERATION_FACTOR])
+    t0 = time.perf_counter()
+    lanes, ref = _cond_fn(cpu, cfg, *inputs, exag)
+    cpu_s = time.perf_counter() - t0
+    w16, enc_len, dec_len = inputs[2], inputs[3], inputs[4]
+    gref = {k: v.cpu() for k, v in conds.gen_ref.items()}
+    z, valid = s3tok_fsq(cpu["s3tok"], cfg.s3tok, w16, enc_len)
+    card, n_card = s3tok_tokenize(p["s3tok"], cfg.s3tok, w16.to(dev), enc_len.to(dev))
+    n = int(valid[0].sum())
+    if int(n_card[0]) != n:
+        raise AssertionError(f"{what}: token counts {int(n_card[0])} (card), {n} (CPU)")
+    # the S3Gen prompt: the T3 prompt window's first tokens (padded with
+    # vocab_size past a shorter T3 window, as in the JAX engine)
+    m, P = int(gref["prompt_len"][0]), cfg.t3.speech_cond_prompt_len
+    row = F.pad(card[0, :P].cpu(), (0, max(0, m - P)), value=cfg.s3gen.vocab_size)
+    if m != min(n, cfg.s3gen.max_prompt_tokens) or not torch.equal(
+            gref["prompt_tokens"][0, :m], row[:m]):
+        raise AssertionError(f"{what}: the S3Gen prompt is not the T3 prompt's first {m} tokens")
+    ve = [voice_embed(pp, cfg.ve, w16.to(d), dec_len.to(d))
+          for pp, d in ((p["ve"], dev), (cpu["ve"], "cpu"))]
+    lanes_card_tokens = _t3_lanes(cpu["t3"], cfg.t3, ve[1], card.cpu(), n_card.cpu(), exag)
+
+    def max_abs(a, b):
+        return (a.float().cpu() - b.float()).abs().max().item()
+
+    out = {
+        "tokens": dit_token_check(card[0], z[0], n, cfg.s3tok),
+        "ve_cos": cosine(ve[0], ve[1]), "ve_abs": max_abs(ve[0], ve[1]),
+        "mel_abs": max_abs(gref["prompt_mel"], ref["prompt_mel"]),
+        "spk_cos": cosine(gref["spk_emb"], ref["spk_emb"]),
+        "spk_rel": max_abs(gref["spk_emb"], ref["spk_emb"]) / (1 + ref["spk_emb"].abs().max().item()),
+        "lanes_rel": max_abs(conds.t3_cond_lanes, lanes_card_tokens)
+        / (1 + lanes_card_tokens.abs().max().item()),
+        "lanes_rel_cpu_tokens": max_abs(conds.t3_cond_lanes, lanes) / (1 + lanes.abs().max().item()),
+        "mel_len": [int(gref["prompt_mel_len"][0]), int(ref["prompt_mel_len"][0])],
+        "cpu_s": cpu_s,
+    }
+    print(f"  {what}, card against the CPU (f32 copy): {json.dumps(out)}; tolerances "
+          f"{json.dumps(DIT_CLONE_TOL)}", flush=True)
+    bad = ["tokens"] if out["tokens"]["decisive_differ"] else []
+    bad += [k for k in ("ve_cos", "spk_cos") if not out[k] >= DIT_CLONE_TOL[k]]
+    bad += [k for k in ("ve_abs", "mel_abs", "spk_rel", "lanes_rel")
+            if not out[k] <= DIT_CLONE_TOL[k]]
+    if out["mel_len"][0] != out["mel_len"][1]:
+        bad.append("mel_len")
+    if bad:
+        raise AssertionError(f"{what}: outside CLONE_TOL: {bad}")
+    return out
+
+
+class WarningRecords(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+async def dit_phase(tmp: Path, out: dict) -> dict:
+    """Phase 9 → the K1/K2/K3 launches of (d). (a) the default voice with a
+    seeded conds.pt present: the engine warns and builds the neutral voice,
+    held against the CPU; (b) dit_s3gen_call; (c) prepare_conditionals on
+    CLONE_VOICE, held against the CPU; (d) 8 concurrent one-chunk requests
+    at 16 slots (S3Gen must batch 2 or more jobs, K1's int8 body must run),
+    then one two-chunk request per request (MAX_DECODE_SLOTS=1); (e) the
+    engine's native checkpoint saved and loaded back on the card, bitwise
+    equal."""
+    from chatterbox_tpu_torch.runtime.checkpoint import (NATIVE_MANIFEST, load_checkpoint,
+                                                         save_checkpoint)
+    from chatterbox_tpu_torch.runtime.engine import neutral_inputs, reference_inputs
+    from chatterbox_tpu_torch.audio.pcm import read_wav
+
+    model_dir, native_dir = tmp / "models-dit", tmp / "models-dit-native"
+    model_dir.mkdir()
+    write_conds(model_dir / "conds.pt")
+    os.environ.update(MODEL_PATH=str(model_dir), CHATTERBOX_S3GEN_ARCH="dit",
+                      MAX_DECODE_SLOTS=str(SLOTS), CHATTERBOX_MAX_NEW_TOKENS=DIT_NEW_TOKENS)
+    records = WarningRecords()
+    logging.getLogger("chatterbox_tpu_torch").addHandler(records)
+    try:
+        engine = await start_engine()
+    finally:
+        logging.getLogger("chatterbox_tpu_torch").removeHandler(records)
+    s3 = engine.s3gen_scheduler
+    if engine.cfg.s3gen_arch != "dit" or "s3tok" not in engine.params:
+        raise AssertionError("CHATTERBOX_S3GEN_ARCH=dit did not build the DiT engine")
+    if engine._cfm_cache_mode() != "0" or engine._streaming() or s3._tail_infer is not None:
+        raise AssertionError("the DiT engine runs a prompt cache, streaming CFM or the tail vocoder")
+    if not any("conds.pt found but s3gen_arch='dit'" in m for m in records.messages):
+        raise AssertionError(f"no warning for conds.pt under the DiT: {records.messages}")
+    print("  (a) conds.pt present: the engine warned and built the neutral voice", flush=True)
+    out["neutral_voice"] = compare_dit_conditionals(engine, engine.voice_cache["default"],
+                                                    neutral_inputs(), "DiT neutral default voice")
+    out["s3gen_call"] = dit_s3gen_call(engine)
+
+    path = engine.voice_manager.get_voice_path(CLONE_VOICE)
+    walls = []
+    for cold in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cold:
+            engine.prepare_conditionals(path)
+        else:
+            with profiler() as prof:
+                engine.prepare_conditionals(path)
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    summed, busy, kernels, n_device = device_ms(prof, top=6)
+    print(f"  (c) prepare_conditionals({CLONE_VOICE}): wall {walls[0]:.3f} s cold, {walls[1]:.3f} s "
+          f"warm; warm device time {summed:.2f} ms (busy {busy:.2f} ms) over {n_device} device "
+          f"activities; device ms by kernel {kernels}", flush=True)
+    out["clone"] = {"prepare_wall_s": walls, "prepare_device_ms": summed, "prepare_busy_ms": busy,
+                    "against_cpu": compare_dit_conditionals(
+                        engine, engine.voice_cache[CLONE_VOICE],
+                        reference_inputs(*read_wav(path)), f"DiT clone of {CLONE_VOICE}")}
+
+    texts = [f"Voice {i}. {TEXTS[2 * (i % 2)]}" for i in range(8)]
+    s3.max_batch_seen = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    results = await run_requests(engine, texts, "dit-batched")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    audio = report_requests(engine, results, two_chunks=False)
+    print(f"  (d) {len(texts)} concurrent requests at {SLOTS} slots: {audio:.2f} s of audio in "
+          f"{wall:.3f} s of wall; S3Gen max_batch_seen {s3.max_batch_seen}; launches {launches}",
+          flush=True)
+    if s3.max_batch_seen < 2:
+        raise AssertionError("the DiT S3Gen never batched two jobs")
+    if launches["decode_attention"]["int8"] == 0:
+        raise AssertionError("the DiT serving path did not run K1's int8 body")
+    stats = [engine.request_stats[rid] for rid, _ in results]
+    out["batched"] = {"requests": len(texts), "wall_s": wall, "audio_s": audio,
+                      "s3gen_max_batch": s3.max_batch_seen, "launches": launches,
+                      "ttfa_s": [st["ttfa_s"] for st in stats],
+                      "rtf": [st["wall_s"] * engine.sr / max(1, st["samples"]) for st in stats]}
+    engine.shutdown()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    os.environ["MAX_DECODE_SLOTS"] = "1"
+    engine = await start_engine()
+    reset_launches()
+    results = await run_requests(engine, [TEXTS[1]], "dit-single")
+    single = read_launches()
+    report_requests(engine, results)
+    st = engine.request_stats[results[0][0]]
+    print(f"  (d) per request: launches {single}", flush=True)
+    if engine.decoder is not None or single["decode_attention"]["int8"] == 0:
+        raise AssertionError("the DiT per-request path did not run as asked")
+    out["per_request"] = {"launches": single, "ttfa_s": st["ttfa_s"],
+                          "rtf": st["wall_s"] * engine.sr / max(1, st["samples"])}
+    for k, v in single.items():
+        for form, n in v.items():
+            launches[k][form] += n
+
+    dtype = engine.params["t3"]["text_emb"].dtype
+    t0 = time.perf_counter()
+    save_checkpoint(native_dir, engine.params, engine.cfg)
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    manifest = json.loads((native_dir / NATIVE_MANIFEST).read_text())
+    if manifest["s3gen_arch"] != "dit" or manifest["models"] != ["s3gen", "s3tok", "t3", "ve"]:
+        raise AssertionError(f"native manifest: {manifest['s3gen_arch']}, {manifest['models']}")
+    t0 = time.perf_counter()
+    native = load_checkpoint(native_dir, engine.cfg, dtype, engine.device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    native_bytes = sum(f.stat().st_size for f in native_dir.glob("*.safetensors"))
+    print(f"  (e) native DiT checkpoint: {native_bytes / 2**30:.2f} GiB (float32) written in "
+          f"{save_s:.2f} s, read back to the card in {load_s:.2f} s", flush=True)
+    out["native"] = {"bytes": native_bytes, "save_s": save_s, "load_s": load_s,
+                     "round_trip": compare_params(native, engine.params,
+                                                  "DiT native round trip against the engine")}
+    del native
     engine.shutdown()
     return launches
 
@@ -1643,7 +2066,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         done(t0, walls, "loaded_checkpoint")
 
-    print("== 9. summary", flush=True)
+        t0 = phase("9. the DiT S3Gen configuration (CHATTERBOX_S3GEN_ARCH=dit) at full width: "
+                   "the default voice, one batched call, cloning, both serving paths, the native "
+                   "round trip")
+        serving["dit"] = {}
+        try:
+            dit_launches = asyncio.run(dit_phase(Path(tmp), serving["dit"]))
+        finally:
+            del os.environ["CHATTERBOX_S3GEN_ARCH"]
+            os.environ["CHATTERBOX_MAX_NEW_TOKENS"] = MAX_NEW_TOKENS
+        gc.collect()
+        torch.cuda.empty_cache()
+        done(t0, walls, "dit")
+
+    print("== 10. summary", flush=True)
     rounded = {k: round(v, 1) for k, v in walls.items()}
     print(f"  phase walls (s): {json.dumps(rounded)}", flush=True)
     # ms / plain_ms / library_ms: device time per call; call_ms: with the
@@ -1655,6 +2091,7 @@ def main() -> int:
         dict(name="decode_attention", route="cuda", **KERNELS["decode_attention"],
              launches=launches["decode_attention"]["int8"], body="int8", **k1[f"int8_B{LANES}"],
              launches_loaded_checkpoint=loaded_launches["decode_attention"]["int8"],
+             launches_dit=dit_launches["decode_attention"]["int8"],
              other_bodies={"bfloat16": k1[f"bfloat16_B{LANES}"], "B2_checks": {
                  c: k1[c] for c in ("int8", "bfloat16", "float32")}, "slice_edge_checks": {
                  c: k1[f"slice_edges_B{LANES}_{c}"] for c in ("int8", "bfloat16", "float32")},
@@ -1663,17 +2100,20 @@ def main() -> int:
         dict(name="flash_mha", route="cuda", **KERNELS["flash_mha"],
              launches=launches["flash_mha"]["float32"], body="float32, self form",
              launches_loaded_checkpoint=loaded_launches["flash_mha"]["float32"],
+             launches_dit=dit_launches["flash_mha"]["float32"],
              launches_from="phase 4: the default voice's prompt prefill", **k2["float32"],
              other_bodies={"bfloat16": k2["bfloat16"], "other_head_dims": {
                  c: k2[f"other_dh_{c}"] for c in ("float32", "bfloat16")}}),
         dict(name="flash_mha_context", route="cuda", **KERNELS["flash_mha"],
              launches=launches["flash_mha"]["float32_ctx"], body="float32, context form",
              launches_loaded_checkpoint=loaded_launches["flash_mha"]["float32_ctx"],
+             launches_dit=dit_launches["flash_mha"]["float32_ctx"],
              launches_from="phase 4: every cached and streaming estimator evaluation",
              **k2c["float32"], other_bodies={"bfloat16": k2c["bfloat16"]}),
         dict(name="decode_attention_pipelined", route="cuda",
              **KERNELS["decode_attention_pipelined"], launches=k3_launches, body="bfloat16",
              launches_loaded_checkpoint=loaded_launches["decode_attention_pipelined"]["native"],
+             launches_dit=dit_launches["decode_attention_pipelined"]["native"],
              launches_from="phases 3 and 7 (no serving path calls it)", **k3_main,
              slice_rows=k3["edges_bfloat16"]["slice_rows"],
              other_bodies={"float32": k3["float32"], "edge_checks": {

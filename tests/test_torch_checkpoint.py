@@ -434,14 +434,17 @@ def test_partial_checkpoint_keeps_the_random_init(tmp_path, monkeypatch, caplog)
 @pytest.mark.parametrize("fault", ["malformed", "dit_checkpoint", "dit_setting"])
 def test_engine_refuses_what_it_cannot_load(tmp_path, monkeypatch, fault):
     """A present but unreadable t3_cfg.safetensors raises from ainit (no
-    random init over it); so does a native checkpoint of the DiT stack, and
-    CHATTERBOX_S3GEN_ARCH=dit at construction, each naming its item."""
+    random init over it); so does a native checkpoint of the DiT stack under
+    a ref config, with the JAX loader's ValueError. CHATTERBOX_S3GEN_ARCH=dit
+    is no fault: it builds the DiT config at the published widths."""
     monkeypatch.setenv("MODEL_PATH", str(tmp_path))
     monkeypatch.setenv("MAX_DECODE_SLOTS", "1")
     if fault == "dit_setting":
         monkeypatch.setenv("CHATTERBOX_S3GEN_ARCH", "dit")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-            TTSEngine(EngineConfig.tiny_ref(), device="cpu")
+        eng = TTSEngine(device="cpu")
+        assert eng.cfg.s3gen_arch == JEngineConfig.full().s3gen_arch == "dit"
+        assert eng.cfg.gen is eng.cfg.s3gen and eng.cfg.s3gen_ref is None
+        assert eng.cfg.s3gen.dit_layers == 8 and eng.cfg.s3tok.layers == 4
         return
     if fault == "malformed":
         (tmp_path / "t3_cfg.safetensors").write_bytes((1 << 40).to_bytes(8, "little") + b"{}")
@@ -449,11 +452,49 @@ def test_engine_refuses_what_it_cannot_load(tmp_path, monkeypatch, fault):
     else:
         (tmp_path / ckpt.NATIVE_MANIFEST).write_text(json.dumps({"format": "chatterbox_tpu/v1",
                                                                 "s3gen_arch": "dit"}))
-        err, match = NotImplementedError, "ROADMAP.md Queue 1 item 11"
+        err, match = ValueError, "saved with s3gen_arch='dit' but the engine is configured for 'ref'"
+        with pytest.raises(err, match=match):
+            jckpt.load_checkpoint(tmp_path, JCFG, jnp.float32)
     eng = TTSEngine(EngineConfig.tiny_ref(), device="cpu")
     with pytest.raises(err, match=match):
         asyncio.run(eng.ainit())
     assert eng.get_initialization_status()["state"] == "error" and eng.params is None
+
+
+DIT_CFG, DIT_JCFG = EngineConfig.tiny(), JEngineConfig.tiny()
+
+
+def _jax_dit_params() -> dict:
+    from chatterbox_tpu.models.s3gen import init_s3gen_params
+    from chatterbox_tpu.models.s3tok import init_s3tok_params
+
+    k = jax.random.split(jax.random.PRNGKey(12), 4)
+    return {"t3": jinit_t3(k[0], DIT_JCFG.t3), "s3gen": init_s3gen_params(k[1], DIT_JCFG.s3gen),
+            "s3tok": init_s3tok_params(k[2], DIT_JCFG.s3tok), "ve": jinit_ve(k[3], DIT_JCFG.ve)}
+
+
+def test_native_dit_checkpoint_round_trip(tmp_path, monkeypatch):
+    """The DiT arch's native checkpoint (t3, s3gen, s3tok, ve): what the JAX
+    package writes loads in the port bit for bit, the port writes the JAX
+    package's manifest and files, and an engine boots from them."""
+    params = _jax_dit_params()
+    jckpt.save_checkpoint(tmp_path / "jax", params, DIT_JCFG)
+    got = ckpt.load_checkpoint(tmp_path / "jax", DIT_CFG, torch.float32, "cpu")
+    assert sorted(got) == ["s3gen", "s3tok", "t3", "ve"]
+    _assert_leaves_equal(params, got, torch.float32)
+    ckpt.save_checkpoint(tmp_path / "port", got, DIT_CFG)
+    assert (tmp_path / "port" / ckpt.NATIVE_MANIFEST).read_text() == \
+        (tmp_path / "jax" / jckpt.NATIVE_MANIFEST).read_text()
+    back = jckpt.load_checkpoint(tmp_path / "port", DIT_JCFG, jnp.float32)
+    for name in params:
+        for a, b in zip(jax.tree.leaves(params[name]), jax.tree.leaves(back[name])):
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+    with pytest.raises(ValueError, match="saved with s3gen_arch='dit'"):
+        ckpt.load_checkpoint(tmp_path / "port", CFG, torch.float32, "cpu")
+    monkeypatch.setenv("MODEL_PATH", str(tmp_path / "port"))
+    eng = TTSEngine(DIT_CFG, device="cpu")
+    eng._init_models()
+    _assert_leaves_equal(params, eng.params, torch.float32)
 
 
 BLOCKED = ("aiohttp", "pydantic", "safetensors", "tokenizers", "jax", "chatterbox_tpu")
@@ -489,3 +530,40 @@ print("ok", eng.get_initialization_status()["state"])
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split()[-2:] == ["ok", "ready"]
+
+
+def test_port_reads_tokenizer_json_without_tokenizers(tmp_path):
+    """A model directory with a trained tokenizer.json: a fresh interpreter
+    with `tokenizers` (and the rest of BLOCKED) blocked boots the DiT engine
+    from it on the CPU, and its tokenizer gives `tokenizers`' ids."""
+    import subprocess
+    import sys
+
+    from tokenizers import Tokenizer
+
+    from torch_port_helpers import train_tokenizer_json
+
+    model_dir = tmp_path / "model"
+    model_dir.mkdir()
+    tok = train_tokenizer_json(model_dir)
+    text = "Hello, quick voice! 123 streaming?"
+    want = Tokenizer.from_file(tok).encode(text.lower().replace(" ", "[SPACE]")).ids
+    code = f"""
+import asyncio, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+from chatterbox_tpu_torch.runtime.engine import EngineConfig, TTSEngine
+eng = TTSEngine(EngineConfig.tiny(), device="cpu")
+asyncio.run(eng.ainit())
+assert eng.tokenizer.is_pretrained
+print(eng.tokenizer.text_to_tokens({text!r})[0].tolist())
+print("ok", eng.get_initialization_status()["state"])
+"""
+    env = {**os.environ, "MODEL_PATH": str(model_dir), "MAX_DECODE_SLOTS": "1",
+           "PYTHONPATH": os.pathsep.join(p for p in sys.path if p)}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "ok ready"
+    assert json.loads(lines[-2]) == want

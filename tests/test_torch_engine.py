@@ -206,9 +206,11 @@ def test_default_settings_are_the_jax_packages(monkeypatch):
     monkeypatch.delenv("CHATTERBOX_CFM_PROMPT_CACHE", raising=False)
     jeng = J.__new__(J)
     jeng.cfg = JEngineConfig.tiny_ref()
-    assert TTSEngine._cfm_cache_mode() == jeng._cfm_cache_mode() == "step"
+    teng = TTSEngine.__new__(TTSEngine)
+    teng.cfg = EngineConfig.tiny_ref()
+    assert teng._cfm_cache_mode() == jeng._cfm_cache_mode() == "step"
     monkeypatch.setenv("CHATTERBOX_CFM_PROMPT_CACHE", "0")
-    assert TTSEngine._cfm_cache_mode() == jeng._cfm_cache_mode() == "0"
+    assert teng._cfm_cache_mode() == jeng._cfm_cache_mode() == "0"
 
 
 def _metrics_delta(before, after):

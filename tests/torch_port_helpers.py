@@ -141,3 +141,56 @@ def spy_slices(engine) -> dict:
 
     engine._s3gen_producer = lambda token_q, *a, **kw: producer(Spy(token_q, out[a[8]]), *a, **kw)
     return out
+
+
+# The DiT stack's random init leaves its AdaLN modulation and output
+# projection at zero (AdaLN-zero), so the estimator returns 0 and the mel is
+# the initial noise; and its vocoder's resblocks grow the activations to
+# ~1e5, so ~70 % of the waveform sits on the ±1 clip. ``conditioned_dit_params``
+# draws the zero leaves of the flow (``ada_w`` ~ N(0, 1/D), ``ada_b`` ~
+# N(0, 0.01), ``out_proj.w`` ~ N(0, 1/D)) and scales each resblock's second
+# conv by DIT_RES_SCALE (no clipped sample at tiny(), ~1 % at full width).
+DIT_RES_SCALE = 0.1
+
+
+def conditioned_dit_params(jp, seed: int = 0):
+    """A JAX DiT S3Gen tree (numpy leaves) conditioned as above; a copy."""
+    import copy
+
+    rng = np.random.default_rng(seed)
+    jp = copy.deepcopy(jp)
+    lay, out = jp["flow"]["layers"], jp["flow"]["out_proj"]
+    D = lay["ada_w"].shape[1]
+    lay["ada_w"] = (rng.standard_normal(lay["ada_w"].shape) / np.sqrt(D)).astype(np.float32)
+    lay["ada_b"] = (rng.standard_normal(lay["ada_b"].shape) * 0.1).astype(np.float32)
+    out["w"] = (rng.standard_normal(out["w"].shape) / np.sqrt(D)).astype(np.float32)
+    for stage in jp["vocoder"]["stages"]:
+        for block in stage["res"]:
+            for unit in block:
+                unit["c2"]["w"] = unit["c2"]["w"] * DIT_RES_SCALE
+    return jp
+
+
+TOKENIZER_WORDS = ("hello", "world", "the", "quick", "brown", "fox", "speech", "token", "voice",
+                   "streaming", "synthesis", "model", "is", "a", "of", "and", "port", "card")
+
+
+def train_tokenizer_json(directory, seed: int = 0) -> str:
+    """A BPE tokenizer.json trained with `tokenizers` as
+    scripts/train_tokenizer.py trains one, on a seeded corpus the function
+    writes (words, digits, punctuation) → its path."""
+    import random
+    from pathlib import Path
+
+    from scripts.train_tokenizer import train
+
+    rng = random.Random(seed)
+    directory = Path(directory)
+    corpus = directory / "corpus.txt"
+    with open(corpus, "w", encoding="utf-8") as fh:
+        for _ in range(400):
+            words = [rng.choice(TOKENIZER_WORDS) for _ in range(rng.randint(3, 10))]
+            fh.write(" ".join(words) + rng.choice([".", "!", "?", ","]) + f" {rng.randint(0, 999)}\n")
+    out = directory / "tokenizer.json"
+    train(str(corpus), str(out), 200)
+    return str(out)
