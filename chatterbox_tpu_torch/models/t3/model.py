@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ...convert import convert_params
 from ...ops.decode_attention import decode_attention
@@ -167,16 +168,24 @@ def _maybe_repeat_kv(k: torch.Tensor, cfg: T3Config) -> torch.Tensor:
     return k.repeat_interleave(cfg.num_heads // cfg.num_kv_heads, dim=2)
 
 
-def _backbone_prefill(params: Params, cfg: T3Config, h: torch.Tensor, valid: torch.Tensor):
-    """All layers over [B, S, D] → (hidden, k_all, v_all [L, B, S, Hk, Dh])."""
+def _backbone_prefill(params: Params, cfg: T3Config, h: torch.Tensor, valid: torch.Tensor, *,
+                      collect_kv: bool = True, remat: bool = False):
+    """All layers over [B, S, D] → (hidden, k_all, v_all [L, B, S, Hk, Dh]).
+
+    ``collect_kv=False`` stacks no K/V and returns (hidden, None, None): the
+    training pass decodes nothing from it. ``remat=True`` runs each layer
+    under ``torch.utils.checkpoint`` so the backward pass recomputes the
+    layer's activations instead of keeping every layer's alive. The layer
+    reads its weights from the stacked tree, outside its explicit inputs:
+    only the non-reentrant form gives those weights their gradients."""
     B, S, _ = h.shape
     Dh = cfg.head_dim
     cos, sin = rope_frequencies(Dh, cfg.max_seq_len, cfg.rope_theta, h.device)
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     causal = torch.ones((S, S), dtype=torch.bool, device=h.device).tril()
     mask = causal[None, None] & valid[:, None, None, :]
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
+
+    def layer(h, i):
         lp = _layer(params, i)
         x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
         q = apply_rope(linear(x, lp["wq"]).reshape(B, S, cfg.num_heads, Dh), cos, sin, positions)
@@ -186,10 +195,24 @@ def _backbone_prefill(params: Params, cfg: T3Config, h: torch.Tensor, valid: tor
         h = h + linear(o.reshape(B, S, -1), lp["wo"])
         x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
         h = h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
-        ks.append(k)
-        vs.append(v)
+        return (h, k, v) if collect_kv else h
+
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        if remat:
+            out = torch.utils.checkpoint.checkpoint(layer, h, i, use_reentrant=False)
+        else:
+            out = layer(h, i)
+        if collect_kv:
+            h, k, v = out
+            ks.append(k)
+            vs.append(v)
+        else:
+            h = out
     h = rms_norm(h, params["backbone"]["final_norm"], cfg.rms_eps)
-    return h, torch.stack(ks), torch.stack(vs)
+    if collect_kv:
+        return h, torch.stack(ks), torch.stack(vs)
+    return h, None, None
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -375,3 +398,39 @@ def t3_decode_slice(
         state["last_token"] = token
         tokens.append(token)
     return torch.stack(tokens, dim=1)
+
+
+# ---------------------------------------------------------------- training
+def t3_forward_train(
+    params: Params,
+    cfg: T3Config,
+    cond: torch.Tensor,           # [B, C, D]
+    text_tokens: torch.Tensor,    # [B, T]
+    speech_tokens: torch.Tensor,  # [B, S] target speech tokens (BOS-shifted inputs)
+    text_len: Optional[torch.Tensor] = None,  # [B] valid text lengths
+    remat: bool = True,
+) -> torch.Tensor:
+    """Teacher-forced forward pass → speech logits [B, S, V_speech] float32.
+
+    Input: ``[pad | cond | text]`` left-packed as serving's prefill packs it
+    (so the RoPE distance from the last text token to speech BOS is the
+    same in training and inference), then BOS and ``speech[:-1]``. The
+    hidden state takes the params' dtype, as serving's prefill does.
+    ``remat=True`` (default) recomputes each layer in the backward pass;
+    no K/V is stacked."""
+    B, T = text_tokens.shape
+    S = speech_tokens.shape[1]
+    dev = cond.device
+    bos = torch.full((B, 1), cfg.start_speech_token, dtype=torch.long, device=dev)
+    speech_in = torch.cat([bos, speech_tokens[:, :-1].long()], 1)
+    speech_emb = params["speech_emb"][speech_in]
+    if cfg.learned_pos_emb:
+        speech_emb = speech_emb + params["speech_pos"][:S][None]
+    if text_len is None:
+        text_len = torch.full((B,), T, dtype=torch.int32, device=dev)
+    prefix, prefix_valid, _ = _left_pack_prefix(params, cfg, cond, text_tokens, text_len)
+    h = torch.cat([prefix, speech_emb.to(prefix.dtype)], 1).to(params["text_emb"].dtype)
+    valid = torch.cat([prefix_valid, torch.ones((B, S), dtype=torch.bool, device=dev)], 1)
+    hidden, _, _ = _backbone_prefill(params, cfg, h, valid, collect_kv=False, remat=remat)
+    return linear(hidden[:, cond.shape[1] + T:], params["speech_head"]["w"],
+                  params["speech_head"]["b"]).float()

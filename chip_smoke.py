@@ -105,13 +105,27 @@ the script exits non-zero without printing the final line:
    expected 0), then one two-chunk request per request (MAX_DECODE_SLOTS=1),
    with TTFA and RTF; (e) the engine's native checkpoint saved and loaded
    back on the card, bitwise equal;
-10. the kernels' JSON summary, the GPU line, then the final JSON line.
+10. T3 training at full width (CHATTERBOX_S3GEN_ARCH=dit, EngineConfig.full():
+   T3 30 x 1024, bf16, random weights): (a) a manifest of 4 clips cut from
+   the demo voice featurized on the card by T3FeatureExtractor, two of them
+   (both prompt branches) held against the CPU's extractor over an f32 copy
+   of the weights; (b) one adamw step on T3 cut to 2 layers in float32,
+   card against CPU (TRAIN_STEP_TOL: loss, gradient norm, every gradient
+   leaf and every parameter after the step); (c) the entry point,
+   ``train_t3.main --batch 4 --steps 10`` (text 160, speech 1024), then two
+   timed steps each with and without recomputation (device ms, host wall,
+   peak memory, the share of elements a bf16 step changes, device time by
+   kernel) and 8 steps at lr 1e-3 on one batch, whose loss must fall; (d)
+   an engine booted from the trained checkpoint, its T3 bitwise the trained
+   leaves, serving one request (K1's int8 body launched);
+11. the kernels' JSON summary, the GPU line, then the final JSON line.
 
 K1 and K2 report the launches of the batched serving phase (the main path),
 K2 once per form; K3, which no serving path calls, reports its launches in
 phases 3 and 7. Each kernel also reports its launches while phase 8 served
-the loaded checkpoint (``launches_loaded_checkpoint``) and while phase 9
-served the DiT (``launches_dit``).
+the loaded checkpoint (``launches_loaded_checkpoint``), while phase 9
+served the DiT (``launches_dit``) and from the start of phase 10's training
+to the end of its closing request (``launches_training``).
 """
 from __future__ import annotations
 
@@ -1944,6 +1958,329 @@ async def dit_phase(tmp: Path, out: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ the training phase
+# Phase 10 trains T3 at full width (CHATTERBOX_S3GEN_ARCH=dit: featurizing
+# needs S3Tok) on a manifest of TRAIN_CLIPS clips cut from CLONE_VOICE.
+TRAIN_SEED = 11
+TRAIN_TEXTS = ["The port trains its decoder on one card.",
+               "A short clip.",
+               "Gains and cuts of one voice make a small manifest.",
+               "Fifteen seconds of the same voice, louder and softer, take the long prompt branch."]
+# (b) One adamw step at TRAIN_CHECK_LR on the card against the CPU: T3 at
+# full width cut to 2 layers, float32, TF32 off, one batch of 2 at
+# max_speech 256, the same inputs. Held: the loss and the gradient norm
+# (relative), every gradient leaf within grad_rel of its largest magnitude
+# plus grad_floor of the tree's largest (the CPU tests' bounds against JAX:
+# float32 GEMMs over 1024-4096-wide reductions and 900 positions, summed in
+# another order, should differ by ~1e-6 of a leaf's largest), and every
+# parameter within param_lr · lr. Adam's first step is lr · g/(|g| + eps)
+# (eps 1e-8), which moves by eps·|Δg|/g² where the sides' gradients differ
+# by Δg: an element whose gradient has another sign on each side, or whose
+# CPU gradient is nonzero and below uncertain_below (100 eps; rounding
+# noise, as in a bias the softmax cancels), may step either way on either
+# side and is held within param_lr_uncertain · lr.
+TRAIN_CHECK_LR = 1e-5
+TRAIN_STEP_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4, "grad_rel": 1e-4, "grad_floor": 1e-6,
+                  "param_lr": 1e-2, "param_lr_uncertain": 2.01, "uncertain_below": 1e-6}
+TRAIN_STEPS = 10        # (c): the entry point at --batch 4, the JAX script's shapes
+TRAIN_FALL_LR = 1e-4    # (c): from the initial weights, the loss must fall over
+TRAIN_FALL_STEPS = 8    # TRAIN_FALL_STEPS on one batch
+TRAINED_NEW_TOKENS = "35"   # (d): the closing request's decode cap
+
+
+def write_train_manifest(tmp: Path) -> Path:
+    """A manifest of 4 clips: CLONE_VOICE as it is, two seeded cuts of it at
+    seeded gains, and five seeded gains of it end to end (15 s: the long
+    prompt branch)."""
+    from chatterbox_tpu_torch.audio.pcm import read_wav, write_wav
+
+    wav, sr = read_wav(str(Path(__file__).resolve().parent / "preloaded-voices" / CLONE_VOICE))
+    rng = np.random.default_rng(TRAIN_SEED)
+    clips = [wav]
+    for _ in range(2):
+        a, b = int(rng.integers(0, len(wav) // 3)), int(rng.integers(2 * len(wav) // 3, len(wav)))
+        clips.append(wav[a:b] * rng.uniform(0.5, 1.0))
+    clips.append(np.concatenate([wav * rng.uniform(0.5, 1.0) for _ in range(5)]))
+    lines = []
+    for i, (clip, text) in enumerate(zip(clips, TRAIN_TEXTS)):
+        path = tmp / f"train-{i}.wav"
+        write_wav(str(path), clip.astype(np.float32), sr)
+        lines.append(f"{path}\t{text}\n")
+    manifest = tmp / "train.tsv"
+    manifest.write_text("".join(lines))
+    return manifest
+
+
+def train_featurize_check(engine, manifest: Path) -> tuple:
+    """(a) → (the card's Examples, results): the manifest featurized on the
+    card by T3FeatureExtractor; the short clip 0 and the long clip 3 held
+    against the CPU's extractor over an f32 copy of the weights (DIT_CLONE_TOL:
+    S3Tok's decisive digits, the VoiceEncoder's cosine and error; the text
+    ids and the prompt/target split exactly)."""
+    from chatterbox_tpu_torch.audio.pcm import read_wav, resample
+    from chatterbox_tpu_torch.models.s3tok import s3tok_fsq
+    from chatterbox_tpu_torch.training.data import T3FeatureExtractor, load_manifest
+
+    pairs = load_manifest(str(manifest))
+    extractor = T3FeatureExtractor(engine.params, engine.cfg, engine.tokenizer)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    examples = [extractor.extract(w, t) for w, t in pairs]
+    wall = time.perf_counter() - t0
+    cpu = {"s3tok": f32_cpu(engine.params["s3tok"]), "ve": f32_cpu(engine.params["ve"])}
+    cpu_x = T3FeatureExtractor(cpu, engine.cfg, engine.tokenizer)
+    P = engine.cfg.t3.speech_cond_prompt_len
+    out = {"featurize_s": wall, "speech_tokens": [len(e.speech_tokens) for e in examples]}
+    for i in (0, 3):
+        got, want = examples[i], cpu_x.extract(*pairs[i])
+        wav, sr = read_wav(pairs[i][0])
+        w16 = torch.from_numpy(resample(wav, sr, 16000)[None])
+        with torch.inference_mode():
+            z, valid = s3tok_fsq(cpu["s3tok"], engine.cfg.s3tok, w16, torch.tensor([w16.shape[1]]))
+        n = int(valid[0].sum())
+        if len(got.speech_tokens) != len(want.speech_tokens) or not (
+                np.array_equal(got.text_tokens, want.text_tokens)):
+            raise AssertionError(f"clip {i}: the card's split or text ids differ from the CPU's")
+        # the clip's tokens: the target, then the prompt's valid tokens
+        tokens = np.concatenate([got.speech_tokens, got.prompt_tokens[: n - len(got.speech_tokens)]])
+        spk = [torch.from_numpy(e.speaker_emb) for e in (got, want)]
+        out[f"clip{i}"] = {
+            "branch": "tail" if len(got.speech_tokens) > P else "half",
+            "tokens": dit_token_check(torch.from_numpy(tokens).long(), z[0], n, engine.cfg.s3tok),
+            "ve_cos": cosine(*spk), "ve_abs": (spk[0] - spk[1]).abs().max().item(),
+            "text_ids": len(got.text_tokens)}
+        r = out[f"clip{i}"]
+        if r["tokens"]["decisive_differ"] or not (r["ve_cos"] >= DIT_CLONE_TOL["ve_cos"]
+                                                  and r["ve_abs"] <= DIT_CLONE_TOL["ve_abs"]):
+            raise AssertionError(f"clip {i}: outside DIT_CLONE_TOL: {r}")
+    if out["clip3"]["branch"] != "tail" or out["clip0"]["branch"] != "half":
+        raise AssertionError(f"the clips did not take both prompt branches: {out}")
+    print(f"  (a) {len(examples)} clips featurized on the card in {wall:.3f} s; against the CPU "
+          f"(f32 copy): {json.dumps(out)}; tolerances {json.dumps(DIT_CLONE_TOL)}", flush=True)
+    return examples, out
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _flat(sub, f"{prefix}{key}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def train_step_check(cfg, examples) -> dict:
+    """(b) One adamw step, card against CPU (TRAIN_STEP_TOL)."""
+    from chatterbox_tpu_torch.models.t3 import init_t3_params
+    from chatterbox_tpu_torch.training import adamw, make_train_step
+    from chatterbox_tpu_torch.training.data import make_batches
+
+    t3c = cfg.t3.with_(num_layers=2)
+    params = init_t3_params(t3c, torch.Generator().manual_seed(TRAIN_SEED), "cpu")
+    batch = next(make_batches(examples, t3c, 2, max_speech=256, shuffle_seed=0, device="cpu"))
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        init, step = make_train_step(t3c, adamw(TRAIN_CHECK_LR))
+        state = init(to_dev(params, dev))
+        t0 = time.perf_counter()
+        state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+        loss = float(m["loss"])
+        sides[dev] = {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                      "wall_s": time.perf_counter() - t0,
+                      "grads": {k: x.grad.cpu() for k, x in _flat(state["params"]).items()},
+                      "params": {k: x.detach().cpu() for k, x in _flat(state["params"]).items()}}
+        del state
+    card, cpu, tol = sides["cuda"], sides["cpu"], TRAIN_STEP_TOL
+    top = max(g.abs().max().item() for g in cpu["grads"].values())
+    grad_err, param_err, uncertain, bad = 0.0, 0.0, 0, []
+    for k, g in cpu["grads"].items():
+        g_tol = tol["grad_rel"] * g.abs().max().item() + tol["grad_floor"] * top
+        err = (card["grads"][k] - g).abs().max().item()
+        grad_err = max(grad_err, err / g_tol)
+        unsure = (torch.sign(card["grads"][k]) != torch.sign(g)) | (
+            (g.abs() < tol["uncertain_below"]) & (g != 0))
+        uncertain += int(unsure.sum())
+        p_tol = TRAIN_CHECK_LR * torch.where(unsure, tol["param_lr_uncertain"], tol["param_lr"])
+        p_err = (card["params"][k] - cpu["params"][k]).abs()
+        param_err = max(param_err, (p_err / p_tol).max().item())
+        if err > g_tol or (p_err > p_tol).any():
+            bad.append(k)
+    out = {"positions": int(batch["speech_mask"].shape[0] * (
+               t3c.cond_len + batch["text_tokens"].shape[1] + batch["speech_mask"].shape[1])),
+           "loss": [card["loss"], cpu["loss"]], "grad_norm": [card["grad_norm"], cpu["grad_norm"]],
+           "grad_err_over_tol": grad_err, "param_err_over_tol": param_err,
+           "uncertain_elements": uncertain,
+           "elements": int(sum(g.numel() for g in cpu["grads"].values())),
+           "leaves": len(cpu["grads"]), "wall_s": [card["wall_s"], cpu["wall_s"]]}
+    print(f"  (b) one adamw step (lr {TRAIN_CHECK_LR}) at {t3c.num_layers}x{t3c.hidden_size}, f32, "
+          f"card against CPU: {json.dumps(out)}; tolerances {json.dumps(tol)}", flush=True)
+    if abs(card["loss"] - cpu["loss"]) > tol["loss_rel"] * abs(cpu["loss"]):
+        bad.append("loss")
+    if abs(card["grad_norm"] - cpu["grad_norm"]) > tol["grad_norm_rel"] * cpu["grad_norm"]:
+        bad.append("grad_norm")
+    if bad:
+        raise AssertionError(f"(b) card against CPU outside TRAIN_STEP_TOL: {bad}")
+    return out
+
+
+def timed_steps(cfg, params, batch, remat: bool, lr: float = 1e-5, n: int = 3) -> dict:
+    """``n`` adamw steps on one batch from a fresh state (the first builds
+    Adam's moments; the last runs under the profiler): each step's device
+    ms (CUDA events) and host wall, the peak memory over them, the share of
+    the elements the first step changed, and the last step's device time
+    by kernel."""
+    from chatterbox_tpu_torch.training import adamw, make_train_step
+
+    init, step = make_train_step(cfg, adamw(lr), remat=remat)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init(params)
+    before = [x.detach().clone() for x in state["leaves"]]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"remat": remat, "device_ms": [], "wall_ms": [], "loss": []}
+    for i in range(n):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        if i == n - 1:
+            with profiler() as prof:
+                e0.record()
+                state, m = step(state, batch)
+                e1.record()
+                torch.cuda.synchronize()
+        else:
+            e0.record()
+            state, m = step(state, batch)
+            e1.record()
+            torch.cuda.synchronize()
+        out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["device_ms"].append(e0.elapsed_time(e1))
+        out["loss"].append(float(m["loss"]))
+        if i == 0:
+            changed = sum(int((x.detach() != b).sum()) for x, b in zip(state["leaves"], before))
+            out["changed_share"] = changed / sum(b.numel() for b in before)
+            del before
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["state_bytes"] = base
+    summed, busy, kernels, n_device = device_ms(prof, top=8)
+    out.update(profiled_ms=summed, profiled_busy_ms=busy, kernels=kernels, activities=n_device)
+    del state
+    return out
+
+
+def train_entry_point(tmp: Path, manifest: Path, t3_init: dict, out: dict) -> tuple:
+    """(c) → (the trained engine, the checkpoint's directory):
+    train_t3.main at --batch 4 --steps TRAIN_STEPS (bf16, max_speech 1024,
+    text 160), whose loss must fall; then, on its trained T3 and one of its
+    batches, three timed steps with recomputation and three without; then
+    TRAIN_FALL_STEPS steps at TRAIN_FALL_LR on that batch from ``t3_init``
+    (the initial weights main started from), whose loss must fall."""
+    from chatterbox_tpu_torch.training import adamw, make_train_step, train_t3
+    from chatterbox_tpu_torch.training.data import make_batches
+
+    ckpt, empty = tmp / "trained", tmp / "models-train"
+    empty.mkdir()
+    os.environ.update(MODEL_PATH=str(empty), CHATTERBOX_S3GEN_ARCH="dit")
+    t0 = time.perf_counter()
+    res = train_t3.main([str(manifest), "--out", str(ckpt), "--batch", "4",
+                         "--steps", str(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine, cfg = res["engine"], res["engine"].cfg.t3
+    batch = next(make_batches(res["examples"], cfg, 4, shuffle_seed=0, device=engine.device))
+    positions = batch["speech_tokens"].shape[0] * (cfg.cond_len + cfg.max_text_tokens
+                                                   + batch["speech_tokens"].shape[1])
+    targets = int(batch["speech_mask"].sum())
+    steps = [timed_steps(cfg, engine.params["t3"], batch, remat) for remat in (True, False)]
+    init, step = make_train_step(cfg, adamw(TRAIN_FALL_LR))
+    state, fall = init(t3_init), []
+    for _ in range(TRAIN_FALL_STEPS):
+        state, m = step(state, batch)
+        fall.append(float(m["loss"]))
+    del state
+    host = sorted(res["step_s"][1:])
+    ms = steps[0]["device_ms"][1]
+    out.update(entry_wall_s=wall, losses=res["losses"], step_wall_ms=[s * 1e3 for s in res["step_s"]],
+               positions_per_step=positions, target_tokens_per_step=targets,
+               steps=steps, fall_lr=TRAIN_FALL_LR, fall_losses=fall,
+               positions_per_s=positions / (ms / 1e3), target_tokens_per_s=targets / (ms / 1e3))
+    print(f"  (c) train_t3.main --batch 4 --steps {TRAIN_STEPS}: {wall:.2f} s in all; losses "
+          f"{[round(x, 4) for x in res['losses']]}; host wall per step (steps 2-{TRAIN_STEPS}) "
+          f"median {1e3 * host[len(host) // 2]:.1f} ms, first {1e3 * res['step_s'][0]:.1f} ms",
+          flush=True)
+    for r in steps:
+        print(f"  (c) remat={r['remat']}: device ms per step {[round(x, 2) for x in r['device_ms']]}, "
+              f"host wall ms {[round(x, 2) for x in r['wall_ms']]}; peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB allocated ({r['state_bytes'] / 2**30:.2f} GiB "
+              f"before the first step); the first step changed {100 * r['changed_share']:.3f} % "
+              f"of the elements at lr 1e-5; last step profiled {r['profiled_ms']:.1f} ms over "
+              f"{r['activities']} device activities, by kernel {r['kernels']}", flush=True)
+    print(f"  (c) {positions} positions ({targets} target tokens) per step: "
+          f"{out['positions_per_s']:.0f} positions/s, {out['target_tokens_per_s']:.0f} target "
+          f"tokens/s with recomputation; at lr {TRAIN_FALL_LR} on one batch from the initial "
+          f"weights the loss went "
+          f"{[round(x, 4) for x in fall]}", flush=True)
+    if not all(np.isfinite(res["losses"])) or len(res["losses"]) != TRAIN_STEPS or not (
+            res["losses"][-1] < res["losses"][0]):
+        raise AssertionError(f"(c) the entry point's losses: {res['losses']}")
+    if not fall[-1] < fall[0]:
+        raise AssertionError(f"(c) the loss did not fall at lr {TRAIN_FALL_LR}: {fall}")
+    if not steps[0]["peak_bytes"] < steps[1]["peak_bytes"]:
+        raise AssertionError("(c) recomputation did not lower the peak memory")
+    return engine, ckpt
+
+
+async def train_to_serve(trained, ckpt: Path, out: dict) -> dict:
+    """(d) An engine booted from the trained checkpoint: its T3 leaves
+    bitwise the trained ones, then one one-chunk request per request at a
+    TRAINED_NEW_TOKENS cap (WAV checked, K1's int8 body launched)."""
+    os.environ.update(MODEL_PATH=str(ckpt), MAX_DECODE_SLOTS="1",
+                      CHATTERBOX_MAX_NEW_TOKENS=TRAINED_NEW_TOKENS)
+    engine = await start_engine()
+    out["leaves"] = compare_params(engine.params["t3"], trained.params["t3"],
+                                   "the served checkpoint's T3 against the trained leaves")
+    results = await run_requests(engine, [TEXTS[0]], "trained")
+    launches = read_launches()
+    audio = report_requests(engine, results, two_chunks=False)
+    st = engine.request_stats[results[0][0]]
+    out["request"] = {"audio_s": audio, "ttfa_s": st["ttfa_s"], "tokens": st["t3_tokens"]}
+    print(f"  (d) one request from the trained checkpoint: {audio:.2f} s of audio; launches since "
+          f"(c) began {launches}", flush=True)
+    if launches["decode_attention"]["int8"] == 0:
+        raise AssertionError("(d) serving the trained checkpoint did not run K1's int8 body")
+    engine.shutdown()
+    return launches
+
+
+def training_phase(tmp: Path, out: dict) -> dict:
+    """Phase 10 → the kernels' launches from (c)'s start to (d)'s end."""
+    from chatterbox_tpu_torch.runtime.engine import EngineConfig, TTSEngine
+
+    os.environ.update(MODEL_PATH=str(tmp / "models-train-a"), CHATTERBOX_S3GEN_ARCH="dit",
+                      MAX_DECODE_SLOTS="1")
+    (tmp / "models-train-a").mkdir()
+    manifest = write_train_manifest(tmp)
+    cfg = EngineConfig.full()
+    print(f"  config: T3 {cfg.t3.num_layers}x{cfg.t3.hidden_size} H={cfg.t3.num_heads} "
+          f"FFN {cfg.t3.intermediate_size}, S3Tok {cfg.s3tok.dim}x{cfg.s3tok.layers}, "
+          f"params {cfg.param_dtype}", flush=True)
+    engine = TTSEngine(cfg, seed=0)
+    engine._init_models()
+    examples, out["featurize"] = train_featurize_check(engine, manifest)
+    t3_init = engine.params["t3"]   # the random init train_t3.main starts from (seed 0)
+    engine.shutdown()
+    del engine
+    out["step_check"] = train_step_check(cfg, examples)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    out["entry_point"] = {}
+    trained, ckpt = train_entry_point(tmp, manifest, t3_init, out["entry_point"])
+    del t3_init
+    out["serve"] = {}
+    launches = asyncio.run(train_to_serve(trained, ckpt, out["serve"]))
+    trained.shutdown()
+    return launches
+
+
 def phase(title: str):
     print(f"== {title}", flush=True)
     return time.perf_counter()
@@ -2079,7 +2416,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         done(t0, walls, "dit")
 
-    print("== 10. summary", flush=True)
+        t0 = phase("10. T3 training at full width (CHATTERBOX_S3GEN_ARCH=dit): featurizing, one "
+                   "step against the CPU, the entry point, serving the trained checkpoint")
+        serving["training"] = {}
+        try:
+            training_launches = training_phase(Path(tmp), serving["training"])
+        finally:
+            del os.environ["CHATTERBOX_S3GEN_ARCH"]
+            os.environ["CHATTERBOX_MAX_NEW_TOKENS"] = MAX_NEW_TOKENS
+        gc.collect()
+        torch.cuda.empty_cache()
+        done(t0, walls, "training")
+
+    print("== 11. summary", flush=True)
     rounded = {k: round(v, 1) for k, v in walls.items()}
     print(f"  phase walls (s): {json.dumps(rounded)}", flush=True)
     # ms / plain_ms / library_ms: device time per call; call_ms: with the
@@ -2092,6 +2441,7 @@ def main() -> int:
              launches=launches["decode_attention"]["int8"], body="int8", **k1[f"int8_B{LANES}"],
              launches_loaded_checkpoint=loaded_launches["decode_attention"]["int8"],
              launches_dit=dit_launches["decode_attention"]["int8"],
+             launches_training=training_launches["decode_attention"]["int8"],
              other_bodies={"bfloat16": k1[f"bfloat16_B{LANES}"], "B2_checks": {
                  c: k1[c] for c in ("int8", "bfloat16", "float32")}, "slice_edge_checks": {
                  c: k1[f"slice_edges_B{LANES}_{c}"] for c in ("int8", "bfloat16", "float32")},
@@ -2101,6 +2451,7 @@ def main() -> int:
              launches=launches["flash_mha"]["float32"], body="float32, self form",
              launches_loaded_checkpoint=loaded_launches["flash_mha"]["float32"],
              launches_dit=dit_launches["flash_mha"]["float32"],
+             launches_training=training_launches["flash_mha"]["float32"],
              launches_from="phase 4: the default voice's prompt prefill", **k2["float32"],
              other_bodies={"bfloat16": k2["bfloat16"], "other_head_dims": {
                  c: k2[f"other_dh_{c}"] for c in ("float32", "bfloat16")}}),
@@ -2108,12 +2459,14 @@ def main() -> int:
              launches=launches["flash_mha"]["float32_ctx"], body="float32, context form",
              launches_loaded_checkpoint=loaded_launches["flash_mha"]["float32_ctx"],
              launches_dit=dit_launches["flash_mha"]["float32_ctx"],
+             launches_training=training_launches["flash_mha"]["float32_ctx"],
              launches_from="phase 4: every cached and streaming estimator evaluation",
              **k2c["float32"], other_bodies={"bfloat16": k2c["bfloat16"]}),
         dict(name="decode_attention_pipelined", route="cuda",
              **KERNELS["decode_attention_pipelined"], launches=k3_launches, body="bfloat16",
              launches_loaded_checkpoint=loaded_launches["decode_attention_pipelined"]["native"],
              launches_dit=dit_launches["decode_attention_pipelined"]["native"],
+             launches_training=training_launches["decode_attention_pipelined"]["native"],
              launches_from="phases 3 and 7 (no serving path calls it)", **k3_main,
              slice_rows=k3["edges_bfloat16"]["slice_rows"],
              other_bodies={"float32": k3["float32"], "edge_checks": {
