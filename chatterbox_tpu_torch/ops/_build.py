@@ -17,6 +17,11 @@ after its launch, and ``check`` raises on a non-zero code. nvcc is looked up
 as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then ``/usr/local/cuda/bin``.
 ptxas's register and spill report (``-Xptxas -v``, which does not change the
 generated code) is kept in ``build_info["log"]``.
+
+``refuse_knob`` is what a wrapper raises when an operator's environment
+variable (``CHATTERBOX_PALLAS``, ``CHATTERBOX_FLASH``) asks for a kernel's
+plain version on the card: the port serves CUDA tensors through its kernels
+only.
 """
 from __future__ import annotations
 
@@ -137,3 +142,11 @@ def check(err: int, what: str) -> None:
     """Raise if a launcher reported a CUDA error (refused launch etc.)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def refuse_knob(knob: str, kernel: str) -> RuntimeError:
+    """The error for a CUDA call while ``knob`` turns ``kernel`` off."""
+    return RuntimeError(
+        f"{knob}={os.environ.get(knob)!r} turns {kernel} off, but the port runs CUDA tensors "
+        f"through its kernels only: unset {knob} or set it to \"1\" (serve_bench "
+        "--plain-attention measures the plain versions)")

@@ -15,7 +15,11 @@ TPU's paired ``[B, Hk/2, S, 128]`` layout existed only to fill 128 lanes.
 
 ``decode_attention`` is the wrapper the model calls: on a CPU tensor it runs
 ``decode_attention_plain``; on a CUDA tensor it launches
-``csrc/decode_attention.cu`` or raises. The kernel is split-S flash decoding:
+``csrc/decode_attention.cu`` or raises. It also raises for a CUDA tensor
+when ``CHATTERBOX_PALLAS`` is set to anything but "1" (``pallas_enabled``,
+read at each call as the JAX package reads it, where it picks the XLA
+route): the port never sends CUDA tensors to the plain version. The kernel
+is split-S flash decoding:
 one block per (slice of ``slice_rows()`` = 256 cache rows, kv head, lane)
 writes a partial (max, sum, accumulator) into float32 scratch that the
 wrapper allocates, and a second kernel folds the partials and the self-term.
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional
 
 import torch
@@ -46,6 +51,26 @@ _GROUPS = (1, 2, 4)   # query heads per kv head with a compiled body
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def pallas_enabled() -> bool:
+    """``CHATTERBOX_PALLAS`` as ``chatterbox_tpu/ops/pallas_attention_v3.py``
+    reads it: only "1", the default, keeps K1 on; any other value ("0",
+    "true", "") turns it off."""
+    return os.environ.get("CHATTERBOX_PALLAS", "1") == "1"
+
+
+def launches_kernel(device: torch.device) -> bool:
+    """Whether ``decode_attention`` launches K1 for tensors on ``device``:
+    a CUDA device does, a CPU device takes the plain version. A CUDA device
+    with ``pallas_enabled()`` false, or another device type, raises."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {device}")
+    if not pallas_enabled():
+        raise _build.refuse_knob("CHATTERBOX_PALLAS", "K1 (decode_attention)")
+    return True
 
 
 def decode_attention_plain(
@@ -152,11 +177,9 @@ def decode_attention(
     """→ [B, H, Dh]. CPU tensors take the plain version; CUDA tensors launch
     the kernel (which bounds each row at its own pos, so ``s_view`` only
     bounds the plain version's read)."""
-    if q.device.type == "cpu":
+    if not launches_kernel(q.device):
         return decode_attention_plain(q, k_cache, v_cache, k_new, v_new, start, pos,
                                       k_scale, v_scale, s_view)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: unsupported device {q.device}")
     _check_cuda_args(q, k_cache, v_cache, k_new, v_new, start, pos, k_scale, v_scale)
     B, H, Dh = q.shape
     _, Hk, S, _ = k_cache.shape

@@ -14,8 +14,12 @@ that one as a plain einsum, ``decoder.py:280-298``).
 
 ``flash_mha`` is the wrapper the model calls: on a CPU tensor it runs
 ``flash_mha_plain``; on a CUDA tensor it launches ``csrc/flash_mha.cu`` or
-raises. ``launches`` counts kernel launches per input dtype, the context
-form under ``<dtype>_ctx``.
+raises. It also raises for a CUDA tensor when ``CHATTERBOX_FLASH`` is set
+to anything but "1" (``flash_enabled``, read at each call as the JAX
+package's ``decoder._flash_active`` reads it, where it picks the einsum
+route): the port never sends CUDA tensors to the plain version.
+``launches`` counts kernel launches per input dtype, the context form under
+``<dtype>_ctx``.
 
 The kernel multiplies on the tensor cores (``mma.sync`` m16n8k16, bf16 in,
 float32 accumulation), under this precision contract:
@@ -31,6 +35,7 @@ float32 accumulation), under this precision contract:
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
@@ -47,6 +52,26 @@ _HEAD_DIMS = (32, 64, 128)
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def flash_enabled() -> bool:
+    """``CHATTERBOX_FLASH`` as ``chatterbox_tpu/models/s3gen_ref/decoder.py``
+    reads it: only "1", the default, keeps K2 on; any other value ("0",
+    "true", "") turns it off."""
+    return os.environ.get("CHATTERBOX_FLASH", "1") == "1"
+
+
+def launches_kernel(device: torch.device) -> bool:
+    """Whether ``flash_mha`` launches K2 for tensors on ``device``: a CUDA
+    device does, a CPU device takes the plain version. A CUDA device with
+    ``flash_enabled()`` false, or another device type, raises."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"flash_mha: unsupported device {device}")
+    if not flash_enabled():
+        raise _build.refuse_knob("CHATTERBOX_FLASH", "K2 (flash_mha)")
+    return True
 
 
 def flash_mha_plain(
@@ -78,10 +103,8 @@ def flash_mha(
     """→ [B, H, Tq, dh]. CPU tensors take the plain version; CUDA tensors
     launch the kernel, which masks the ragged Tq and Tk edges itself (no
     padding)."""
-    if q.device.type == "cpu":
+    if not launches_kernel(q.device):
         return flash_mha_plain(q, k, v, valid, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_mha: unsupported device {q.device}")
     if q.dim() != 4:
         raise ValueError(f"q must be [B,H,Tq,dh], got {tuple(q.shape)}")
     B, H, Tq, dh = q.shape

@@ -755,11 +755,13 @@ class TTSEngine:
             # streamed / fallbacks: S3Gen calls that ran streaming CFM, and
             # chunks that fell back from it to the re-solve; window_drops:
             # re-solves that dropped left context (CHATTERBOX_OVERLAP_WINDOW_TOKENS);
-            # slice_tokens: the T3 tokens of each slice sent to S3Gen
+            # slice_tokens: the T3 tokens of each slice sent to S3Gen;
+            # dropped_codes: sampled codes outside S3Gen's vocabulary, which
+            # S3Gen never sees (the T3 speech vocabulary is larger)
             stats = {"chunks": len(text_chunks), "t3_tokens": [], "synth_samples": 0,
                      "samples": 0, "slices": 0, "slice_tokens": [], "ttfa_s": None, "wall_s": None,
                      "t3_s": 0.0, "t3_steps": 0, "s3gen_s": 0.0, "streamed": 0,
-                     "fallbacks": 0, "window_drops": 0}
+                     "fallbacks": 0, "window_drops": 0, "dropped_codes": 0}
             self.request_stats[request_id] = stats
             while len(self.request_stats) > 64:
                 self.request_stats.popitem(last=False)
@@ -1035,7 +1037,9 @@ class TTSEngine:
                     # reference quirk kept: speech EOS appends stop_text_token
                     # (=0, a valid code)
                     new_toks = np.concatenate([new_toks, [self.cfg.t3.stop_text_token]])
-                new_toks = new_toks[new_toks < s3c.vocab_size]
+                in_vocab = new_toks < s3c.vocab_size
+                stats["dropped_codes"] += int(in_vocab.size - in_vocab.sum())
+                new_toks = new_toks[in_vocab]
                 drop = new_count = 0
                 if full:
                     prev_acc = acc_tokens.size

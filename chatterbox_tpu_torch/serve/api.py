@@ -9,7 +9,7 @@ parameter:
   GET  /voices                list voice ids (auth)
   DELETE /voices/{voice_id}   delete user voice, 404 if absent (auth)
   GET  /health                liveness (no auth)
-  GET  /system-status         CPU/RAM + GPU telemetry (auth)
+  GET  /system-status         CPU/RAM + GPU telemetry, metrics, which kernels are on (auth)
   POST /profile/start|stop    a torch.profiler Chrome trace into ?dir= (auth)
 
 Auth: ``X-API-Key`` header OR ``api_key`` query parameter. Requests are
@@ -34,6 +34,8 @@ from aiohttp import web
 
 from ..audio.encoding import AudioEncoder, FfmpegUnavailableError
 from ..logging_config import log
+from ..ops.decode_attention import pallas_enabled
+from ..ops.flash_mha import flash_enabled
 from ..runtime.cancellation import CancellationToken
 from ..runtime.metrics import metrics
 from ..settings import get_settings, get_tts_config
@@ -277,6 +279,13 @@ def register_api_routes(app: web.Application) -> None:
                 "engine": engine.get_initialization_status(),
                 "active_requests": len(request.app["active_requests"]),
                 "metrics": metrics.snapshot(),
+                # the port's own key: each kernel's environment switch, and
+                # whether it leaves the kernel on (off, the kernel's CUDA
+                # calls raise: the port has no plain route on the card)
+                "kernels": {
+                    "decode_attention": {"env": "CHATTERBOX_PALLAS", "on": pallas_enabled()},
+                    "flash_mha": {"env": "CHATTERBOX_FLASH", "on": flash_enabled()},
+                },
             }
         )
 

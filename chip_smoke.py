@@ -87,7 +87,7 @@ the script exits non-zero without printing the final line:
    a slice past 35 tokens, every slice streamed), with each request's slice
    sizes, TTFA and RTF; then the engine's parameters saved as a native
    checkpoint and loaded back on the card, bitwise equal. The directory also
-   holds a tokenizer.json (write_tokenizer_json): the boot must read it with
+   holds a tokenizer.json (``runtime.synthetic``'s): the boot must read it with
    the port's BPE reader and give TOKENIZER_IDS for TOKENIZER_SENTENCE;
 9. the DiT S3Gen configuration (CHATTERBOX_S3GEN_ARCH=dit, EngineConfig.full():
    the DiT stack and S3Tok at their published widths, bf16, int8 KV, random
@@ -118,25 +118,43 @@ the script exits non-zero without printing the final line:
    kernel) and 8 steps at lr 1e-3 on one batch, whose loss must fall; (d)
    an engine booted from the trained checkpoint, its T3 bitwise the trained
    leaves, serving one request (K1's int8 body launched);
-11. the kernels' JSON summary, the GPU line, then the final JSON line.
+11. the kernels' switches and the bench: (a) with CHATTERBOX_PALLAS=0 and
+   CHATTERBOX_FLASH=0, K1's and K2's wrappers refuse CUDA tensors, naming
+   the knob (the port has no plain route on the card); then
+   EngineConfig.full() (ref arch, 16 slots) at a decode cap of 35 tokens,
+   the default voice's prompt cache rebuilt and 4 one-chunk requests with
+   the plain versions swapped in at the call sites (serve_bench's
+   ``--plain-attention``: WAVs checked, no launch of any K1 or K2 body or
+   form), then the same on the kernels (K1's int8 body and both K2 forms
+   launch); (b) ``python -m chatterbox_tpu_torch.scripts.serve_bench
+   --capacity --streams-list 1,4 --warmup-waves 1 --overlap full``, then
+   ``scripts.bench`` and ``scripts.ttfa_trace --warmups 1`` side by side,
+   each in a subprocess at that cap:
+   each exits with 0, every JSON line parses, TTFA and RTF are finite and
+   positive, the profiled wave's busy share is in (0, 1], and bench's last
+   line has bench.py's four keys with the sweep's MEASURED value;
+12. the kernels' JSON summary, the GPU line, then the final JSON line.
 
 K1 and K2 report the launches of the batched serving phase (the main path),
 K2 once per form; K3, which no serving path calls, reports its launches in
 phases 3 and 7. Each kernel also reports its launches while phase 8 served
 the loaded checkpoint (``launches_loaded_checkpoint``), while phase 9
-served the DiT (``launches_dit``) and from the start of phase 10's training
-to the end of its closing request (``launches_training``).
+served the DiT (``launches_dit``), from the start of phase 10's training
+to the end of its closing request (``launches_training``), and in phase
+11(a) with the plain versions swapped in (``launches_kernels_off``, 0 for
+K1 and K2) and on the kernels (``launches_kernels_on``).
 """
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import json
 import logging
+import math
 import os
 import re
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
@@ -146,6 +164,11 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from chatterbox_tpu_torch.runtime import synthetic
+from chatterbox_tpu_torch.runtime.synthetic import TOKENIZER_IDS, TOKENIZER_SENTENCE, write_conds
+from chatterbox_tpu_torch.scripts.common import (check_wav, device_ms, gpu_line, plain_attention,
+                                                 profiler)
 
 KERNELS = {
     "decode_attention": {
@@ -188,54 +211,6 @@ REQUEST = dict(output_format="wav", voice_id=None, cfg_guidance_weight=0.5,
 SLOTS = 16                 # MAX_DECODE_SLOTS of the batched phase
 LANES = 2 * SLOTS          # CFG pairs: the decode kernels' batch
 MAX_NEW_TOKENS = "140"     # per-chunk decode cap (random weights never stop)
-
-
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def profiler():
-    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-
-
-def device_ms(prof, top: int = 0) -> tuple:
-    """(summed, busy) ms of the device activity (kernels, copies, fills) a
-    finished profiler saw: the sum of their durations, and the union of
-    their intervals; with ``top``, also the ``top`` kernel names (template
-    arguments dropped) by summed ms, as [(name, ms, launches)], and the
-    count of all device activities. Read from
-    the raw trace events in one pass: key_averages() takes minutes over the
-    hundreds of thousands of kernels of a serving run."""
-    spans, by = [], {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
-            continue
-        span = (e.start_ns(), e.end_ns())
-        spans.append(span)
-        if top:
-            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name())
-            name = re.split(r"[<(]", name, maxsplit=1)[0].strip()[:60]
-            ms, n = by.get(name, (0.0, 0))
-            by[name] = (ms + (span[1] - span[0]) / 1e6, n + 1)
-    if not spans:
-        raise RuntimeError("torch.profiler recorded no device time")
-    spans.sort()
-    summed = sum(b - a for a, b in spans)
-    busy, (lo, hi) = 0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo, hi = busy + hi - lo, a, b
-        else:
-            hi = max(hi, b)
-    out = (summed / 1e6, (busy + hi - lo) / 1e6)
-    if top:
-        kernels = sorted(((k, round(ms, 3), n) for k, (ms, n) in by.items()), key=lambda r: -r[1])
-        out += (kernels[:top], len(spans))
-    return out
 
 
 def queued_ms(fn, n: int) -> float | None:
@@ -696,48 +671,6 @@ def ptxas_report(log: str, kernel: str) -> list[dict]:
             found.append({"function": what, "registers": int(m.group(1)),
                           "spill_stores": spills[0], "spill_loads": spills[1]})
     return found
-
-
-def write_conds(path: Path, seed: int = 7) -> None:
-    """A seeded default voice in the reference conds.pt format (full size:
-    a 150-token T3 prompt, a 250-token / 500-frame S3Gen prompt)."""
-    g = torch.Generator().manual_seed(seed)
-    t3 = {
-        "speaker_emb": torch.randn((1, 256), generator=g),
-        "cond_prompt_speech_tokens": torch.randint(0, 6561, (1, 150), generator=g),
-        "emotion_adv": 0.5 * torch.ones(1, 1, 1),
-    }
-    gen = {
-        "prompt_token": torch.randint(0, 6561, (1, 250), generator=g),
-        "prompt_token_len": torch.tensor([250]),
-        "prompt_feat": torch.randn((1, 500, 80), generator=g) * 2.0 - 6.0,
-        "prompt_feat_len": torch.tensor([500]),
-        "embedding": torch.randn((1, 192), generator=g),
-    }
-    torch.save({"t3": t3, "gen": gen}, path)
-
-
-def check_wav(i, data: bytes, stats: dict, sr: int, spt: int, fade: int) -> float:
-    if len(data) < 44 or data[:4] != b"RIFF" or data[8:12] != b"WAVE" or data[36:40] != b"data":
-        raise AssertionError(f"request {i}: no RIFF/WAVE header")
-    channels, rate, _, _, bits = struct.unpack("<HLLHH", data[22:36])
-    if (channels, rate, bits) != (1, sr, 16):
-        raise AssertionError(f"request {i}: header says {channels} ch, {rate} Hz, {bits} bit")
-    pcm = np.frombuffer(data[44:], dtype="<i2")
-    if pcm.size != stats["samples"]:
-        raise AssertionError(f"request {i}: {pcm.size} samples in the WAV, "
-                             f"engine emitted {stats['samples']}")
-    want = sum(n + 1 for n in stats["t3_tokens"]) * spt  # + the EOS code per chunk
-    if stats["synth_samples"] != want:
-        raise AssertionError(f"request {i}: synthesised {stats['synth_samples']} samples, "
-                             f"tokens {stats['t3_tokens']} give {want}")
-    seams, rest = divmod(stats["synth_samples"] - stats["samples"], fade)
-    if rest or not 0 <= seams < stats["slices"]:
-        raise AssertionError(f"request {i}: crossfade accounting off ({stats})")
-    wav = pcm.astype(np.float32) / 32768.0
-    if not np.isfinite(wav).all() or np.abs(wav).max() < 1e-3:
-        raise AssertionError(f"request {i}: silent or non-finite audio")
-    return pcm.size / sr
 
 
 def reset_launches():
@@ -1422,79 +1355,22 @@ def batched_bf16_decoder(engine, k1: dict, k3: dict) -> int:
 # the loaded-checkpoint phase: a one-chunk request decodes up to 210 tokens,
 # which progressive slices cut into 7, 35, 70 and 98
 LOADED_NEW_TOKENS = "210"
-# T3 and the VoiceEncoder from T3Config() and VoiceEncoderConfig(), S3Gen from
-# S3GenRefConfig(): the full-size schemas, with synthesize_checkpoint's values
-CHECKPOINT_SEED = 0
-
-
-# a tokenizer.json in the model directory, written here from a small
-# vocabulary and merge list (the format scripts/train_tokenizer.py writes;
-# merges as "a b" strings, as older files hold them): the boot reads it with
-# the port's own BPE reader, and TOKENIZER_SENTENCE must give TOKENIZER_IDS,
-# which tests/test_torch_tokenizer.py holds to the `tokenizers` package's
-# ids for the same file
-TOKENIZER_SPECIALS = ("[STOP]", "[UNK]", "[SPACE]")
-TOKENIZER_MERGES = (("t", "h"), ("th", "e"), ("i", "n"), ("in", "g"), ("e", "r"),
-                    ("a", "n"), ("an", "d"), ("o", "n"), ("r", "e"), ("e", "s"),
-                    ("o", "u"), ("a", "t"), ("e", "n"), ("o", "r"), ("s", "t"),
-                    ("h", "e"), ("q", "u"), ("qu", "i"), ("c", "k"), ("l", "l"))
-TOKENIZER_SENTENCE = "The quick brown fox, 42 things! Hello?"
-TOKENIZER_IDS = [51, 2, 67, 68, 2, 4, 20, 17, 25, 16, 2, 8, 17, 26, 40, 2, 33, 31, 2, 50, 53,
-                 21, 41, 2, 65, 69, 17, 42]
-
-
-def write_tokenizer_json(path: Path) -> None:
-    tokens = list(TOKENIZER_SPECIALS) + list("abcdefghijklmnopqrstuvwxyz0123456789.,!?'-:;\"()")
-    tokens += [a + b for a, b in TOKENIZER_MERGES]
-    vocab = {t: i for i, t in enumerate(tokens)}
-    spec = {
-        "version": "1.0", "truncation": None, "padding": None,
-        "added_tokens": [{"id": i, "content": t, "single_word": False, "lstrip": False,
-                          "rstrip": False, "normalized": False, "special": True}
-                         for i, t in enumerate(TOKENIZER_SPECIALS)],
-        "normalizer": None, "pre_tokenizer": {"type": "Whitespace"}, "post_processor": None,
-        "decoder": None,
-        "model": {"type": "BPE", "dropout": None, "unk_token": "[UNK]",
-                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
-                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
-                  "vocab": vocab, "merges": [f"{a} {b}" for a, b in TOKENIZER_MERGES]},
-    }
-    path.write_text(json.dumps(spec, indent=2))
 
 
 def write_reference_checkpoint(model_dir: Path) -> dict:
     """The three reference safetensors files at full size from the port's
-    schemas (every key of the manifest, seeded values), with the port's
-    writer, and a seeded conds.pt → the bytes and the write's wall."""
-    from chatterbox_tpu_torch.models.s3gen_ref import S3GenRefConfig
-    from chatterbox_tpu_torch.models.s3gen_ref.schema import (s3gen_checkpoint_schema,
-                                                              synthesize_checkpoint)
-    from chatterbox_tpu_torch.models.t3 import T3Config
-    from chatterbox_tpu_torch.models.voice_encoder import VoiceEncoderConfig
-    from chatterbox_tpu_torch.runtime.manifest import t3_checkpoint_schema, ve_checkpoint_schema
-    from chatterbox_tpu_torch.runtime.safetensors_io import save_file
-
-    files = {"t3_cfg.safetensors": t3_checkpoint_schema(T3Config()),
-             "ve.safetensors": ve_checkpoint_schema(VoiceEncoderConfig()),
-             "s3gen.safetensors": s3gen_checkpoint_schema(S3GenRefConfig())}
-    info, synth_s, write_s = {}, 0.0, 0.0
-    for i, (name, schema) in enumerate(files.items()):
-        t0 = time.perf_counter()
-        raw = synthesize_checkpoint(schema, seed=CHECKPOINT_SEED + i)
-        t1 = time.perf_counter()
-        save_file(raw, model_dir / name)
-        synth_s, write_s = synth_s + t1 - t0, write_s + time.perf_counter() - t1
-        info[name] = {"keys": len(raw), "values": int(sum(v.size for v in raw.values())),
-                      "bytes": (model_dir / name).stat().st_size}
-        print(f"  {name}: {info[name]['keys']} keys, {info[name]['values'] / 1e6:.1f} M values, "
-              f"{info[name]['bytes'] / 2**30:.3f} GiB", flush=True)
-        del raw
-    write_conds(model_dir / "conds.pt")
-    write_tokenizer_json(model_dir / "tokenizer.json")
-    total = sum(f["bytes"] for f in info.values())
-    print(f"  {sum(f['keys'] for f in info.values())} keys, {total / 2**30:.2f} GiB: values drawn in "
-          f"{synth_s:.2f} s, written in {write_s:.2f} s ({total / write_s / 1e9:.2f} GB/s)", flush=True)
-    return {"files": info, "bytes": total, "synth_s": synth_s, "write_s": write_s}
+    schemas (every key of the manifest, seeded values), a seeded conds.pt
+    and a tokenizer.json, by ``runtime.synthetic`` → the bytes and the
+    write's wall."""
+    out = synthetic.write_reference_checkpoint(model_dir)
+    for name, f in out["files"].items():
+        print(f"  {name}: {f['keys']} keys, {f['values'] / 1e6:.1f} M values, "
+              f"{f['bytes'] / 2**30:.3f} GiB", flush=True)
+    total, write_s = out["bytes"], out["write_s"]
+    print(f"  {sum(f['keys'] for f in out['files'].values())} keys, {total / 2**30:.2f} GiB: values "
+          f"drawn in {out['synth_s']:.2f} s, written in {write_s:.2f} s "
+          f"({total / write_s / 1e9:.2f} GB/s)", flush=True)
+    return out
 
 
 def compare_params(got: dict, want: dict, what: str) -> dict:
@@ -2281,6 +2157,149 @@ def training_phase(tmp: Path, out: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------ the kernels' switches, the bench
+# Phase 11: (a) CHATTERBOX_PALLAS=0 and CHATTERBOX_FLASH=0 make K1's and
+# K2's CUDA calls raise; serving without the kernels happens only inside
+# the bench (--plain-attention); (b) the bench's three entry points in
+# subprocesses, as an operator runs them, at a decode cap of
+# BENCH_NEW_TOKENS.
+KNOBS = ("CHATTERBOX_PALLAS", "CHATTERBOX_FLASH")
+BENCH_NEW_TOKENS = "35"
+
+
+def check_knobs_refuse() -> None:
+    """With each knob at 0, its kernel's wrapper raises on CUDA tensors,
+    naming the knob, and launches nothing."""
+    from chatterbox_tpu_torch.ops import decode_attention as da
+    from chatterbox_tpu_torch.ops import flash_mha as fm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    tensors, scales = decode_inputs(g, 2, 16, 16, 256, 64, torch.bfloat16, "int8")
+    start = torch.tensor([0, 3], dtype=torch.int32, device=dev)
+    pos = torch.tensor([100, 200], dtype=torch.int32, device=dev)
+    q = torch.randn((2, 8, 40, 64), generator=g, device=dev)
+    valid = torch.ones((2, 40), dtype=torch.bool, device=dev)
+    calls = {"CHATTERBOX_PALLAS": lambda: da.decode_attention(*tensors, start, pos, *scales),
+             "CHATTERBOX_FLASH": lambda: fm.flash_mha(q, q, q, valid)}
+    reset_launches()
+    for knob, call in calls.items():
+        os.environ[knob] = "0"
+        try:
+            call()
+        except RuntimeError as e:
+            if f"{knob}='0'" not in str(e):
+                raise
+            print(f"  {knob}=0 refused: {e}", flush=True)
+        else:
+            raise AssertionError(f"{knob}=0: the wrapper ran a CUDA call")
+        finally:
+            del os.environ[knob]
+    if any(any(c.values()) for c in read_launches().values()):
+        raise AssertionError(f"a refused call launched a kernel: {read_launches()}")
+
+
+async def kernels_off_phase(out: dict) -> dict:
+    """(a) ``check_knobs_refuse``; then on the ref arch at 16 slots: the
+    default voice's prompt cache rebuilt and 4 one-chunk requests, first
+    with the plain versions swapped in (``plain_attention``: no launch of
+    any K1 or K2 body or form), then on the kernels (K1's int8 body and
+    both K2 forms launch) → the launches of each run."""
+    check_knobs_refuse()
+    engine = await start_engine()
+    texts = [TEXTS[0], TEXTS[2], f"Off. {TEXTS[0]}", f"Off. {TEXTS[2]}"]
+    runs = {}
+    try:
+        for label, swap in (("off", plain_attention), ("on", contextlib.nullcontext)):
+            reset_launches()
+            with swap():
+                build_voice_cache(engine)   # K2's self form runs in the prompt prefill
+                t0 = time.perf_counter()
+                results = await run_requests(engine, texts, f"kernels-{label}")
+                wall = time.perf_counter() - t0
+            launches = read_launches()
+            audio = report_requests(engine, results, two_chunks=False)
+            print(f"  kernels {label}: {audio:.2f} s of audio in {wall:.3f} s; launches {launches}",
+                  flush=True)
+            runs[label] = {"launches": launches, "wall_s": wall, "audio_s": audio}
+    finally:
+        engine.shutdown()
+    off = runs["off"]["launches"]
+    if any(off["decode_attention"].values()) or any(off["flash_mha"].values()):
+        raise AssertionError(f"K1 or K2 launched with the plain versions swapped in: {off}")
+    require_main_path(runs["on"]["launches"], "serving on the kernels")
+    out.update({label: {k: v for k, v in r.items() if k != "launches"} for label, r in runs.items()})
+    return {label: r["launches"] for label, r in runs.items()}
+
+
+def finite_positive(row: dict, keys, what: str) -> None:
+    for k in keys:
+        v = row[k]
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            raise AssertionError(f"{what}: {k} = {v!r}")
+
+
+def check_bench_rows(script: str, rows: list) -> None:
+    """The JSON lines of one entry point: TTFA and RTF finite and positive,
+    the profiled wave's busy share in (0, 1], bench's last line in
+    bench.py's shape with the sweep's MEASURED value."""
+    if script == "serve_bench":
+        waves = [r for r in rows if r["mode"] in ("capacity_wave", "profiled")]
+        if not waves or not any(r["mode"] == "capacity" for r in rows) \
+                or not any(r["mode"] == "profiled" for r in rows):
+            raise AssertionError("serve_bench: no capacity waves, capacity row or profiled wave")
+        for r in waves:
+            finite_positive(r, ("ttfa_p50_ms", "ttfa_p99_ms", "rtf_p50", "rtf_max", "aggregate_x"),
+                            f"serve_bench {r['mode']} {r['streams']}")
+            if not 0 <= r["realtime_streams"] <= r["streams"]:
+                raise AssertionError(f"serve_bench: {r}")
+        busy = next(r for r in rows if r["mode"] == "profiled")["busy_share"]
+        if not 0 < busy <= 1:
+            raise AssertionError(f"serve_bench: busy share {busy}")
+    elif script == "bench":
+        last = rows[-1]
+        if set(last) != {"metric", "value", "unit", "vs_baseline"} \
+                or "MEASURED" not in last["unit"] or last["value"] < 0:
+            raise AssertionError(f"bench's last line: {last}")
+        for k in ("prefill", "slice_1", f"slice_{SLOTS}", "s3gen_B1", "s3gen_B4"):
+            finite_positive(rows[-2][k], ("host_ms", "event_ms", "device_busy_ms"), f"bench {k}")
+    else:
+        finite_positive(rows[-1], ("ttfa_audio_s", "wall_s", "audio_s"), "ttfa_trace")
+
+
+def bench_phase(tmp: Path, out: dict) -> None:
+    """(b) serve_bench --capacity (full overlap), then bench and ttfa_trace
+    side by side, each in its own process on a fresh engine at a
+    BENCH_NEW_TOKENS cap: each exits with 0, every JSON line parses, and
+    ``check_bench_rows`` holds."""
+    env = {**os.environ, "CHATTERBOX_MAX_NEW_TOKENS": BENCH_NEW_TOKENS, "BENCH_S3_BATCH": "4",
+           "MAX_DECODE_SLOTS": str(SLOTS)}
+    sweep = tmp / "torch_serve_bench.json"
+    steps = [
+        {"serve_bench": ["--capacity", "--streams-list", "1,4", "--warmup-waves", "1",
+                         "--overlap", "full", "--out", str(sweep)]},
+        {"bench": ["--out", str(sweep)],
+         "ttfa_trace": ["--warmups", "1", "--out", str(tmp / "torch_ttfa_trace.json")]},
+    ]
+    for step in steps:
+        t0 = time.perf_counter()
+        procs = {script: subprocess.Popen(
+            [sys.executable, "-m", f"chatterbox_tpu_torch.scripts.{script}", *args], env=env,
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for script, args in step.items()}
+        for script, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"{script} exited {proc.returncode}:\n{stderr[-4000:]}")
+            rows = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+            print(f"  {script} (done {wall:.1f} s into its step): "
+                  + "\n    ".join(json.dumps(r) for r in rows), flush=True)
+            out[script] = {"wall_s": wall, "last_row": {k: v for k, v in rows[-1].items()
+                                                         if k not in ("stages", "top_kernels")}}
+            check_bench_rows(script, rows)
+
+
 def phase(title: str):
     print(f"== {title}", flush=True)
     return time.perf_counter()
@@ -2428,7 +2447,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         done(t0, walls, "training")
 
-    print("== 11. summary", flush=True)
+        t0 = phase(f"11. the kernels' switches ({', '.join(KNOBS)} at 0 refused; 4 requests "
+                   "with the plain versions, then on the kernels); the bench's entry points "
+                   "in subprocesses")
+        serving["kernels_off"], serving["bench"] = {}, {}
+        os.environ.update(MODEL_PATH=str(model_dir), MAX_DECODE_SLOTS=str(SLOTS),
+                          CHATTERBOX_MAX_NEW_TOKENS=BENCH_NEW_TOKENS)
+        try:
+            knob_launches = asyncio.run(kernels_off_phase(serving["kernels_off"]))
+        finally:
+            os.environ["CHATTERBOX_MAX_NEW_TOKENS"] = MAX_NEW_TOKENS
+        gc.collect()
+        torch.cuda.empty_cache()
+        bench_phase(Path(tmp), serving["bench"])
+        done(t0, walls, "kernels_off_and_bench")
+
+    print("== 12. summary", flush=True)
     rounded = {k: round(v, 1) for k, v in walls.items()}
     print(f"  phase walls (s): {json.dumps(rounded)}", flush=True)
     # ms / plain_ms / library_ms: device time per call; call_ms: with the
@@ -2442,6 +2476,8 @@ def main() -> int:
              launches_loaded_checkpoint=loaded_launches["decode_attention"]["int8"],
              launches_dit=dit_launches["decode_attention"]["int8"],
              launches_training=training_launches["decode_attention"]["int8"],
+             launches_kernels_off=knob_launches["off"]["decode_attention"]["int8"],
+             launches_kernels_on=knob_launches["on"]["decode_attention"]["int8"],
              other_bodies={"bfloat16": k1[f"bfloat16_B{LANES}"], "B2_checks": {
                  c: k1[c] for c in ("int8", "bfloat16", "float32")}, "slice_edge_checks": {
                  c: k1[f"slice_edges_B{LANES}_{c}"] for c in ("int8", "bfloat16", "float32")},
@@ -2452,6 +2488,8 @@ def main() -> int:
              launches_loaded_checkpoint=loaded_launches["flash_mha"]["float32"],
              launches_dit=dit_launches["flash_mha"]["float32"],
              launches_training=training_launches["flash_mha"]["float32"],
+             launches_kernels_off=knob_launches["off"]["flash_mha"]["float32"],
+             launches_kernels_on=knob_launches["on"]["flash_mha"]["float32"],
              launches_from="phase 4: the default voice's prompt prefill", **k2["float32"],
              other_bodies={"bfloat16": k2["bfloat16"], "other_head_dims": {
                  c: k2[f"other_dh_{c}"] for c in ("float32", "bfloat16")}}),
@@ -2460,6 +2498,8 @@ def main() -> int:
              launches_loaded_checkpoint=loaded_launches["flash_mha"]["float32_ctx"],
              launches_dit=dit_launches["flash_mha"]["float32_ctx"],
              launches_training=training_launches["flash_mha"]["float32_ctx"],
+             launches_kernels_off=knob_launches["off"]["flash_mha"]["float32_ctx"],
+             launches_kernels_on=knob_launches["on"]["flash_mha"]["float32_ctx"],
              launches_from="phase 4: every cached and streaming estimator evaluation",
              **k2c["float32"], other_bodies={"bfloat16": k2c["bfloat16"]}),
         dict(name="decode_attention_pipelined", route="cuda",
@@ -2467,6 +2507,8 @@ def main() -> int:
              launches_loaded_checkpoint=loaded_launches["decode_attention_pipelined"]["native"],
              launches_dit=dit_launches["decode_attention_pipelined"]["native"],
              launches_training=training_launches["decode_attention_pipelined"]["native"],
+             launches_kernels_off=knob_launches["off"]["decode_attention_pipelined"]["native"],
+             launches_kernels_on=knob_launches["on"]["decode_attention_pipelined"]["native"],
              launches_from="phases 3 and 7 (no serving path calls it)", **k3_main,
              slice_rows=k3["edges_bfloat16"]["slice_rows"],
              other_bodies={"float32": k3["float32"], "edge_checks": {

@@ -186,6 +186,8 @@ def test_system_status(api):
     status = api.run(r.json())
     assert status["tpus"] == [] and status["gpus"] == []   # no CUDA here
     assert status["engine"]["state"] == "ready" and status["metrics"]["requests"]["total"] >= 1
+    assert status["kernels"] == {"decode_attention": {"env": "CHATTERBOX_PALLAS", "on": True},
+                                 "flash_mha": {"env": "CHATTERBOX_FLASH", "on": True}}
 
 
 def test_root_serves_console(api):
@@ -284,7 +286,8 @@ def test_system_status_keys_match_jax(api):
         return want, got
 
     want, got = api.run(go())
-    assert set(got) == set(want)
+    # every key of the JAX server's, and the port's "kernels"
+    assert set(got) == set(want) | {"kernels"}
     for k in ("cpu", "engine", "metrics"):
         assert set(got[k]) == set(want[k]), k
 

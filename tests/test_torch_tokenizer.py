@@ -93,16 +93,17 @@ def test_no_file_uses_the_character_scheme(tmp_path):
 
 
 def test_chip_smoke_tokenizer_file(tmp_path):
-    """The small tokenizer.json chip_smoke.py writes (merges as "a b"
-    strings): `tokenizers` and the port's reader give TOKENIZER_IDS."""
+    """The small tokenizer.json chip_smoke.py and the bench write
+    (``runtime.synthetic``, merges as "a b" strings): `tokenizers` and the
+    port's reader give TOKENIZER_IDS."""
     from tokenizers import Tokenizer
 
-    import chip_smoke
+    from chatterbox_tpu_torch.runtime import synthetic
 
     path = tmp_path / "tokenizer.json"
-    chip_smoke.write_tokenizer_json(path)
-    text = chip_smoke.TOKENIZER_SENTENCE
+    synthetic.write_tokenizer_json(path)
+    text = synthetic.TOKENIZER_SENTENCE
     want = Tokenizer.from_file(str(path)).encode(text.lower().replace(" ", "[SPACE]")).ids
-    assert want == chip_smoke.TOKENIZER_IDS
+    assert want == synthetic.TOKENIZER_IDS
     assert TextTokenizer(str(path)).text_to_tokens(text)[0].tolist() == want
     assert BPEFile(str(path)).encode("zz") == [BPEFile(str(path)).vocab["z"]] * 2
