@@ -13,6 +13,22 @@ dtype or int8, with float32 scales ``[L, B, Hk, S]`` for int8, so one layer's
 slice is contiguous for the decode-attention kernel. ``t3_decode_slice``
 writes the cache and the decode state IN PLACE (JAX donates and rebuilds
 them; here the tensors are updated where they lie).
+
+Tensor parallelism (``parallel/``): ``_backbone_prefill``,
+``_backbone_decode_step``, ``t3_prefill(_raw)``, ``t3_decode_slice`` and
+``t3_forward_train`` take an optional ``tp_group``. Each rank then holds its
+shard of the backbone's projections (``parallel.shard_params``) and runs its
+local heads: head counts come from the shard's shapes, never from
+``cfg.num_heads``, and each rank's KV cache holds its ``Hk/tp`` heads (the
+int8 scales are per token and head, so quantising stays shard-local).
+``copy_to_tp`` precedes the column-parallel products and ``reduce_from_tp``
+follows the row-parallel ones (``_row_parallel``: the partial products are
+summed in float32), so every rank holds the same residual stream,
+the same logits and, with the counter-based sampler, the same tokens. With
+no group both operators are the identity and the numbers are the unsharded
+ones. A sharded run and an unsharded one sum their products in other
+orders: in float32 they take the same tokens, in bf16 a near-tie of the
+sampler's scores can part them.
 """
 from __future__ import annotations
 
@@ -34,9 +50,9 @@ from ...ops.nn import (
     linear,
     rms_norm,
     rope_frequencies,
-    swiglu,
 )
 from ...ops.sampling import counter_gumbel, top_p_filter
+from ...parallel.tp import copy_to_tp, reduce_from_tp
 from .config import T3Config
 
 Params = Dict
@@ -162,24 +178,53 @@ def cond_embeddings(
 
 
 # ---------------------------------------------------------------- backbone
-def _maybe_repeat_kv(k: torch.Tensor, cfg: T3Config) -> torch.Tensor:
-    if cfg.num_kv_heads == cfg.num_heads:
+def _maybe_repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, S, Hk, Dh] → [B, S, n_heads, Dh] (each kv head repeated for its
+    query heads)."""
+    if k.shape[2] == n_heads:
         return k
-    return k.repeat_interleave(cfg.num_heads // cfg.num_kv_heads, dim=2)
+    return k.repeat_interleave(n_heads // k.shape[2], dim=2)
+
+
+def _local_heads(params: Params, cfg: T3Config) -> Tuple[int, int]:
+    """(query heads, kv heads) of this rank's shard of the backbone."""
+    layers = params["backbone"]["layers"]
+    return layers["wq"].shape[1] // cfg.head_dim, layers["wk"].shape[1] // cfg.head_dim
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, tp_group) -> torch.Tensor:
+    """``linear(x, w)`` for a row-parallel weight, summed over ``tp_group``.
+    Under a group each rank's partial product stays float32 through the
+    all-reduce and is cast to x's dtype once, so a bf16 result differs from
+    the unsharded product by float32 summation order, not by rounding each
+    partial to bf16 first."""
+    if tp_group is None:
+        return linear(x, w)
+    return reduce_from_tp(linear(x.float(), w), tp_group).to(x.dtype)
+
+
+def _mlp(x, lp, tp_group):
+    """SwiGLU with the gate/up rows column-parallel and w_down row-parallel."""
+    x = copy_to_tp(x, tp_group)
+    g = F.silu(linear(x, lp["w_gate"]))
+    return _row_parallel(g * linear(x, lp["w_up"]), lp["w_down"], tp_group)
 
 
 def _backbone_prefill(params: Params, cfg: T3Config, h: torch.Tensor, valid: torch.Tensor, *,
-                      collect_kv: bool = True, remat: bool = False):
-    """All layers over [B, S, D] → (hidden, k_all, v_all [L, B, S, Hk, Dh]).
+                      collect_kv: bool = True, remat: bool = False, tp_group=None):
+    """All layers over [B, S, D] → (hidden, k_all, v_all [L, B, S, Hk, Dh]),
+    Hk this rank's kv heads under ``tp_group``.
 
     ``collect_kv=False`` stacks no K/V and returns (hidden, None, None): the
     training pass decodes nothing from it. ``remat=True`` runs each layer
     under ``torch.utils.checkpoint`` so the backward pass recomputes the
     layer's activations instead of keeping every layer's alive. The layer
     reads its weights from the stacked tree, outside its explicit inputs:
-    only the non-reentrant form gives those weights their gradients."""
+    only the non-reentrant form gives those weights their gradients. Under
+    ``tp_group`` every rank recomputes its collectives in the same order."""
     B, S, _ = h.shape
     Dh = cfg.head_dim
+    Hq, Hk = _local_heads(params, cfg)
     cos, sin = rope_frequencies(Dh, cfg.max_seq_len, cfg.rope_theta, h.device)
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     causal = torch.ones((S, S), dtype=torch.bool, device=h.device).tril()
@@ -187,14 +232,13 @@ def _backbone_prefill(params: Params, cfg: T3Config, h: torch.Tensor, valid: tor
 
     def layer(h, i):
         lp = _layer(params, i)
-        x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
-        q = apply_rope(linear(x, lp["wq"]).reshape(B, S, cfg.num_heads, Dh), cos, sin, positions)
-        k = apply_rope(linear(x, lp["wk"]).reshape(B, S, cfg.num_kv_heads, Dh), cos, sin, positions)
-        v = linear(x, lp["wv"]).reshape(B, S, cfg.num_kv_heads, Dh)
-        o = causal_attention(q, _maybe_repeat_kv(k, cfg), _maybe_repeat_kv(v, cfg), mask)
-        h = h + linear(o.reshape(B, S, -1), lp["wo"])
-        x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
-        h = h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+        x = copy_to_tp(rms_norm(h, lp["attn_norm"], cfg.rms_eps), tp_group)
+        q = apply_rope(linear(x, lp["wq"]).reshape(B, S, Hq, Dh), cos, sin, positions)
+        k = apply_rope(linear(x, lp["wk"]).reshape(B, S, Hk, Dh), cos, sin, positions)
+        v = linear(x, lp["wv"]).reshape(B, S, Hk, Dh)
+        o = causal_attention(q, _maybe_repeat_kv(k, Hq), _maybe_repeat_kv(v, Hq), mask)
+        h = h + _row_parallel(o.reshape(B, S, -1), lp["wo"], tp_group)
+        h = h + _mlp(rms_norm(h, lp["mlp_norm"], cfg.rms_eps), lp, tp_group)
         return (h, k, v) if collect_kv else h
 
     ks, vs = [], []
@@ -229,12 +273,15 @@ def _backbone_decode_step(
     h: torch.Tensor,      # [B, 1, D]
     cache: Dict,
     s_view: Optional[int] = None,
+    tp_group=None,
 ) -> torch.Tensor:
     """One decode step through all layers; attends each layer's cached
     ``[start, pos)`` plus the current token, then writes the token's k/v into
-    the cache at ``pos`` (in place). Returns the final hidden [B, 1, D]."""
+    the cache at ``pos`` (in place). Returns the final hidden [B, 1, D].
+    Under ``tp_group`` the rank attends its own heads (K1 at H/tp heads)."""
     B = h.shape[0]
-    Dh, Hk = cfg.head_dim, cfg.num_kv_heads
+    Dh = cfg.head_dim
+    Hq, Hk = _local_heads(params, cfg)
     start, pos = cache["start"], cache["pos"]
     quantized = "k_scale" in cache
     cos, sin = rope_frequencies(Dh, cfg.max_seq_len, cfg.rope_theta, h.device)
@@ -243,8 +290,8 @@ def _backbone_decode_step(
     write_at = pos.long()
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
-        x = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
-        q = apply_rope(linear(x, lp["wq"]).reshape(B, 1, cfg.num_heads, Dh), cos, sin, positions)
+        x = copy_to_tp(rms_norm(h, lp["attn_norm"], cfg.rms_eps), tp_group)
+        q = apply_rope(linear(x, lp["wq"]).reshape(B, 1, Hq, Dh), cos, sin, positions)
         k = apply_rope(linear(x, lp["wk"]).reshape(B, 1, Hk, Dh), cos, sin, positions)
         v = linear(x, lp["wv"]).reshape(B, 1, Hk, Dh)
         kc, vc = cache["k"][i], cache["v"][i]
@@ -263,9 +310,8 @@ def _backbone_decode_step(
         else:
             kc[lanes, :, write_at] = k[:, 0]
             vc[lanes, :, write_at] = v[:, 0]
-        h = h + linear(o.reshape(B, 1, -1), lp["wo"])
-        x = rms_norm(h, lp["mlp_norm"], cfg.rms_eps)
-        h = h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+        h = h + _row_parallel(o.reshape(B, 1, -1), lp["wo"], tp_group)
+        h = h + _mlp(rms_norm(h, lp["mlp_norm"], cfg.rms_eps), lp, tp_group)
     return rms_norm(h, params["backbone"]["final_norm"], cfg.rms_eps)
 
 
@@ -289,21 +335,22 @@ def _left_pack_prefix(params: Params, cfg: T3Config, cond: torch.Tensor,
     return h, valid, pad
 
 
-def t3_prefill_raw(params: Params, cfg: T3Config, cond, text_tokens, text_len):
+def t3_prefill_raw(params: Params, cfg: T3Config, cond, text_tokens, text_len, tp_group=None):
     """Prefix through the backbone → (k_all, v_all [L, B, P, Hk, Dh], pad [B])."""
     h, valid, pad = _left_pack_prefix(params, cfg, cond, text_tokens, text_len)
     h = h.to(params["text_emb"].dtype)
-    _, k_all, v_all = _backbone_prefill(params, cfg, h, valid)
+    _, k_all, v_all = _backbone_prefill(params, cfg, h, valid, tp_group=tp_group)
     return k_all, v_all, pad
 
 
 def t3_prefill(params: Params, cfg: T3Config, cond: torch.Tensor,
-               text_tokens: torch.Tensor, text_len: torch.Tensor) -> Dict:
+               text_tokens: torch.Tensor, text_len: torch.Tensor, tp_group=None) -> Dict:
     """Prefill → a per-request cache grown to the decode budget
-    (S = P + 1 + max_speech_tokens), in the port's layout."""
+    (S = P + 1 + max_speech_tokens), in the port's layout (under
+    ``tp_group``, this rank's kv heads)."""
     B = cond.shape[0]
     P = cond.shape[1] + text_tokens.shape[1]
-    k_all, v_all, pad = t3_prefill_raw(params, cfg, cond, text_tokens, text_len)
+    k_all, v_all, pad = t3_prefill_raw(params, cfg, cond, text_tokens, text_len, tp_group)
     S_max = P + 1 + cfg.max_speech_tokens
     # [L, B, P, Hk, Dh] → [L, B, Hk, P, Dh], zero-padded along S
     to_cache = lambda x: F.pad(x.permute(0, 1, 3, 2, 4), (0, 0, 0, S_max - P)).contiguous()  # noqa: E731
@@ -355,13 +402,17 @@ def t3_decode_slice(
     n_steps: int,
     s_view: Optional[int] = None,
     gumbel: Optional[torch.Tensor] = None,   # [n_steps, R, V] injected noise
+    tp_group=None,
 ) -> torch.Tensor:
     """Generate ``n_steps`` speech tokens → tokens [R, n_steps] (a device
     tensor). ``cache`` and ``state`` advance in place. Lanes are
     [r0-cond, r0-uncond, r1-cond, …]; finished requests re-emit the stop
     token and do not advance. ``s_view`` (≥ max(pos) + n_steps) bounds the
     plain attention's read; the kernel bounds each row at its own pos.
-    ``gumbel`` replaces the counter-based draws of ``state["seed"]`` (tests)."""
+    ``gumbel`` replaces the counter-based draws of ``state["seed"]`` (tests).
+    Under ``tp_group`` every rank gets the same logits (the speech head is
+    replicated) and draws the same noise, so every rank takes the same
+    tokens."""
     R = state["last_token"].shape[0]
     dev = state["last_token"].device
     token_mask = _invalid_token_mask(cfg, dev)
@@ -374,7 +425,7 @@ def t3_decode_slice(
         h = params["speech_emb"][tok_lanes][:, None, :]
         if cfg.learned_pos_emb:
             h = h + params["speech_pos"][step_lanes][:, None, :]
-        hidden = _backbone_decode_step(params, cfg, h, cache, s_view)
+        hidden = _backbone_decode_step(params, cfg, h, cache, s_view, tp_group)
         cache["pos"] += active_lanes.to(torch.int32)
         logits = linear(hidden[:, 0], params["speech_head"]["w"], params["speech_head"]["b"]).float()
         pair = logits.reshape(R, 2, -1)
@@ -409,6 +460,7 @@ def t3_forward_train(
     speech_tokens: torch.Tensor,  # [B, S] target speech tokens (BOS-shifted inputs)
     text_len: Optional[torch.Tensor] = None,  # [B] valid text lengths
     remat: bool = True,
+    tp_group=None,
 ) -> torch.Tensor:
     """Teacher-forced forward pass → speech logits [B, S, V_speech] float32.
 
@@ -417,7 +469,8 @@ def t3_forward_train(
     same in training and inference), then BOS and ``speech[:-1]``. The
     hidden state takes the params' dtype, as serving's prefill does.
     ``remat=True`` (default) recomputes each layer in the backward pass;
-    no K/V is stacked."""
+    no K/V is stacked. ``tp_group``: this rank's shard of the backbone, as
+    in ``_backbone_prefill``; the logits are the same on every rank."""
     B, T = text_tokens.shape
     S = speech_tokens.shape[1]
     dev = cond.device
@@ -431,6 +484,7 @@ def t3_forward_train(
     prefix, prefix_valid, _ = _left_pack_prefix(params, cfg, cond, text_tokens, text_len)
     h = torch.cat([prefix, speech_emb.to(prefix.dtype)], 1).to(params["text_emb"].dtype)
     valid = torch.cat([prefix_valid, torch.ones((B, S), dtype=torch.bool, device=dev)], 1)
-    hidden, _, _ = _backbone_prefill(params, cfg, h, valid, collect_kv=False, remat=remat)
+    hidden, _, _ = _backbone_prefill(params, cfg, h, valid, collect_kv=False, remat=remat,
+                                     tp_group=tp_group)
     return linear(hidden[:, cond.shape[1] + T:], params["speech_head"]["w"],
                   params["speech_head"]["b"]).float()

@@ -112,7 +112,8 @@ def get_tts_config() -> TTSSettings:
 # (env name, port default, whether a value asks for a path the port lacks, item)
 _UNPORTED = (
     ("CHATTERBOX_TP", "0", lambda v: int(v or 0) > 1,
-     "ROADMAP.md Queue 1 item 11 (tensor parallelism, chatterbox_tpu/parallel/)"),
+     "serving under tensor parallelism is the next slice, ROADMAP.md Queue 1 item 11, "
+     "continued (parallel/ shards T3 for training and for its own prefill and decode only)"),
 )
 
 

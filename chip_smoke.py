@@ -133,7 +133,20 @@ the script exits non-zero without printing the final line:
    each exits with 0, every JSON line parses, TTFA and RTF are finite and
    positive, the profiled wave's busy share is in (0, 1], and bench's last
    line has bench.py's four keys with the sweep's MEASURED value;
-12. the kernels' JSON summary, the GPU line, then the final JSON line.
+12. tensor- and data-parallel T3 (``parallel/``), two ranks on the card
+   over gloo (NCCL refuses two ranks on one device; nothing here measures
+   NVLink or a tensor-parallel speed-up): (a) the full-width T3 (int8 KV)
+   at 16 lanes, a prefill and one 35-step decode slice at tp = 2 against
+   one unsharded rank, in bf16 (as served: K1 at 8 heads per rank, 30 x 35
+   launches each; the ranks' tokens equal; the tokens that differ from the
+   unsharded run reported) and in float32 (the ranks' tokens equal to the
+   unsharded run, one more step's hidden state within TP_F32_HIDDEN_TOL);
+   (b) one adamw step at
+   phase 10's shape (B = 4 x 1218 positions, full width cut to 4 layers,
+   float32) under dp = 1 x tp = 2 and dp = 2 x tp = 1 against the
+   single-rank step (TRAIN_STEP_TOL); (c) each rank's step wall and the
+   share of a step in collectives;
+13. the kernels' JSON summary, the GPU line, then the final JSON line.
 
 K1 and K2 report the launches of the batched serving phase (the main path),
 K2 once per form; K3, which no serving path calls, reports its launches in
@@ -142,7 +155,9 @@ the loaded checkpoint (``launches_loaded_checkpoint``), while phase 9
 served the DiT (``launches_dit``), from the start of phase 10's training
 to the end of its closing request (``launches_training``), and in phase
 11(a) with the plain versions swapped in (``launches_kernels_off``, 0 for
-K1 and K2) and on the kernels (``launches_kernels_on``).
+K1 and K2) and on the kernels (``launches_kernels_on``); K1 also reports
+each rank's launches in phase 12(a)'s sharded slice (``launches_tp``) and
+its query heads per rank there (``heads_tp``).
 """
 from __future__ import annotations
 
@@ -1964,36 +1979,47 @@ def train_step_check(cfg, examples) -> dict:
                       "params": {k: x.detach().cpu() for k, x in _flat(state["params"]).items()}}
         del state
     card, cpu, tol = sides["cuda"], sides["cpu"], TRAIN_STEP_TOL
-    top = max(g.abs().max().item() for g in cpu["grads"].values())
-    grad_err, param_err, uncertain, bad = 0.0, 0.0, 0, []
-    for k, g in cpu["grads"].items():
-        g_tol = tol["grad_rel"] * g.abs().max().item() + tol["grad_floor"] * top
-        err = (card["grads"][k] - g).abs().max().item()
-        grad_err = max(grad_err, err / g_tol)
-        unsure = (torch.sign(card["grads"][k]) != torch.sign(g)) | (
-            (g.abs() < tol["uncertain_below"]) & (g != 0))
-        uncertain += int(unsure.sum())
-        p_tol = TRAIN_CHECK_LR * torch.where(unsure, tol["param_lr_uncertain"], tol["param_lr"])
-        p_err = (card["params"][k] - cpu["params"][k]).abs()
-        param_err = max(param_err, (p_err / p_tol).max().item())
-        if err > g_tol or (p_err > p_tol).any():
-            bad.append(k)
+    held, bad = compare_steps(card, cpu, TRAIN_CHECK_LR)
     out = {"positions": int(batch["speech_mask"].shape[0] * (
                t3c.cond_len + batch["text_tokens"].shape[1] + batch["speech_mask"].shape[1])),
-           "loss": [card["loss"], cpu["loss"]], "grad_norm": [card["grad_norm"], cpu["grad_norm"]],
-           "grad_err_over_tol": grad_err, "param_err_over_tol": param_err,
-           "uncertain_elements": uncertain,
-           "elements": int(sum(g.numel() for g in cpu["grads"].values())),
-           "leaves": len(cpu["grads"]), "wall_s": [card["wall_s"], cpu["wall_s"]]}
+           **held, "wall_s": [card["wall_s"], cpu["wall_s"]]}
     print(f"  (b) one adamw step (lr {TRAIN_CHECK_LR}) at {t3c.num_layers}x{t3c.hidden_size}, f32, "
           f"card against CPU: {json.dumps(out)}; tolerances {json.dumps(tol)}", flush=True)
-    if abs(card["loss"] - cpu["loss"]) > tol["loss_rel"] * abs(cpu["loss"]):
-        bad.append("loss")
-    if abs(card["grad_norm"] - cpu["grad_norm"]) > tol["grad_norm_rel"] * cpu["grad_norm"]:
-        bad.append("grad_norm")
     if bad:
         raise AssertionError(f"(b) card against CPU outside TRAIN_STEP_TOL: {bad}")
     return out
+
+
+def compare_steps(got: dict, want: dict, lr: float) -> tuple:
+    """One adamw step's results (loss, grad_norm, and flat dicts of CPU
+    tensors: grads, params after the step) against another's, under
+    TRAIN_STEP_TOL → (the errors over their tolerances, the names held
+    outside them)."""
+    tol = TRAIN_STEP_TOL
+    top = max(g.abs().max().item() for g in want["grads"].values())
+    grad_err, param_err, uncertain, bad = 0.0, 0.0, 0, []
+    for k, g in want["grads"].items():
+        g_tol = tol["grad_rel"] * g.abs().max().item() + tol["grad_floor"] * top
+        err = (got["grads"][k] - g).abs().max().item()
+        grad_err = max(grad_err, err / g_tol)
+        unsure = (torch.sign(got["grads"][k]) != torch.sign(g)) | (
+            (g.abs() < tol["uncertain_below"]) & (g != 0))
+        uncertain += int(unsure.sum())
+        p_tol = lr * torch.where(unsure, tol["param_lr_uncertain"], tol["param_lr"])
+        p_err = (got["params"][k] - want["params"][k]).abs()
+        param_err = max(param_err, (p_err / p_tol).max().item())
+        if err > g_tol or (p_err > p_tol).any():
+            bad.append(k)
+    if abs(got["loss"] - want["loss"]) > tol["loss_rel"] * abs(want["loss"]):
+        bad.append("loss")
+    if abs(got["grad_norm"] - want["grad_norm"]) > tol["grad_norm_rel"] * want["grad_norm"]:
+        bad.append("grad_norm")
+    held = {"loss": [got["loss"], want["loss"]], "grad_norm": [got["grad_norm"], want["grad_norm"]],
+            "grad_err_over_tol": grad_err, "param_err_over_tol": param_err,
+            "uncertain_elements": uncertain,
+            "elements": int(sum(g.numel() for g in want["grads"].values())),
+            "leaves": len(want["grads"])}
+    return held, bad
 
 
 def timed_steps(cfg, params, batch, remat: bool, lr: float = 1e-5, n: int = 3) -> dict:
@@ -2300,6 +2326,290 @@ def bench_phase(tmp: Path, out: dict) -> None:
             check_bench_rows(script, rows)
 
 
+# ------------------------------------------------ tensor- and data-parallel T3
+# Phase 12: parallel/ on the one card, two ranks over gloo (NCCL refuses two
+# ranks on one device). Gloo reduces CUDA tensors through the host, so no
+# time here says anything of NVLink or of a tensor-parallel speed-up: the
+# phase checks that the sharded functions give the unsharded results.
+# (a) The full-width T3 (int8 KV) at TP_LANES lanes: a prefill and one
+# TP_STEPS-step decode slice at tp = 2, against the same on one unsharded
+# rank; K1 runs at H/tp = 8 heads per rank, 30 layers x TP_STEPS launches
+# each (counted in the bf16 run, as served). Both ranks take the same
+# tokens (held, both dtypes). Against the unsharded run: with float32
+# weights the tokens are equal and the hidden state of one more step after
+# the slice (the whole cache's history behind it) is within
+# TP_F32_HIDDEN_TOL (held). With bf16 weights the two runs round their
+# products to bf16 from float32 sums taken in another order (cuBLAS picks
+# its kernel by shape, and the row-parallel partials are summed across
+# ranks), so a near-tie of the sampler's scores can flip a token and the
+# request then diverges: the tokens that differ and each request's first
+# divergence are reported, not held. So is a control with no tensor
+# parallelism: the unsharded bf16 model serving the same 16 lanes inside a
+# batch of 32 (the lanes twice; cuBLAS picks other kernels for 32 rows)
+# against the 16-lane run.
+# (b) One adamw step at phase 10's shape (B = 4 x 1218 positions: text 160,
+# speech 1024), full width cut to TP_TRAIN_LAYERS layers, float32, under
+# dp = 1 x tp = 2 and dp = 2 x tp = 1, each held to the single-rank step on
+# the same inputs at TRAIN_STEP_TOL (``compare_steps``). The rows' target
+# counts differ, so a per-replica loss normaliser would show.
+# (c) Each rank's wall for each, and the share of a step in collectives (a
+# second step with every torch.distributed.all_reduce synchronised and
+# timed).
+TP_LANES = 16
+TP_STEPS = REDUCED_NEW_TOKENS
+TP_F32_HIDDEN_TOL = 1e-3       # float32 summation order over 30 layers, |h| < 8
+TP_TRAIN_LAYERS = 4
+TP_TRAIN_BATCH = (4, 160, 1024)   # B, text, speech
+TP_SEED = 12
+
+
+def tp_decode_inputs(cfg, dev) -> dict:
+    rng = np.random.default_rng(TP_SEED)
+    L, T = TP_LANES, min(64, cfg.max_text_tokens)
+    return {"speaker_emb": torch.from_numpy(rng.standard_normal(
+                (L, cfg.speaker_embed_dim)).astype(np.float32)).to(dev),
+            "prompt_tokens": torch.from_numpy(rng.integers(
+                0, cfg.num_speech_codes, (L, cfg.speech_cond_prompt_len))).to(dev),
+            "emotion": torch.full((L,), 0.5, device=dev),
+            "text_tokens": torch.from_numpy(rng.integers(1, cfg.text_vocab_size, (L, T))).to(dev),
+            "text_len": torch.from_numpy(rng.integers(8, T + 1, L).astype(np.int32)).to(dev),
+            "seeds": [int(x) for x in rng.integers(0, 2**31, L // 2)]}
+
+
+def tp_decode(params, cfg, x, group) -> dict:
+    """Prefill, one TP_STEPS slice, then one more step's hidden state."""
+    from chatterbox_tpu_torch.models.t3 import model as tm
+    from chatterbox_tpu_torch.ops import decode_attention as da
+
+    dev = x["text_tokens"].device
+    with torch.inference_mode():
+        cond = tm.cond_embeddings(params, cfg, x["speaker_emb"], x["prompt_tokens"],
+                                  x["emotion"]).to(params["text_emb"].dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = tm.t3_prefill(params, cfg, cond, x["text_tokens"], x["text_len"], tp_group=group)
+        state = tm.make_decode_state(cfg, x["seeds"], 0.8, 0.95, 0.5, 1.2, dev)
+        da.reset_launches()
+        tokens = tm.t3_decode_slice(params, cfg, cache, state, TP_STEPS, tp_group=group)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = da.launches["int8"]
+        lanes = state["last_token"].repeat_interleave(2)
+        step = state["step"].repeat_interleave(2).clamp(0, cfg.max_speech_tokens + 1)
+        h = (params["speech_emb"][lanes] + params["speech_pos"][step])[:, None]
+        hidden = tm._backbone_decode_step(params, cfg, h, cache, None, group)[:, 0]
+    return {"tokens": tokens.cpu(), "hidden": hidden.float().cpu(), "wall_s": wall,
+            "k1_launches": launches, "kv_heads": cache["k"].shape[2],
+            "q_heads": tm._local_heads(params, cfg)[0]}
+
+
+def tp_train_batch(cfg, dev) -> dict:
+    rng = np.random.default_rng(TP_SEED + 1)
+    B, T, S = TP_TRAIN_BATCH
+    s_len = (S * np.array([1.0, 0.68, 0.29, 0.12])).astype(int)   # unequal per replica
+    t_len = rng.integers(20, T + 1, B).astype(np.int32)
+    text = rng.integers(1, cfg.text_vocab_size, (B, T)).astype(np.int32)
+    text[np.arange(T)[None, :] >= t_len[:, None]] = 0
+    mask = (np.arange(S)[None, :] < s_len[:, None]).astype(np.float32)
+    speech = rng.integers(0, cfg.num_speech_codes, (B, S)).astype(np.int32) * (mask > 0)
+    host = {"speaker_emb": rng.standard_normal((B, cfg.speaker_embed_dim)).astype(np.float32),
+            "prompt_tokens": rng.integers(0, cfg.num_speech_codes,
+                                          (B, cfg.speech_cond_prompt_len)).astype(np.int32),
+            "emotion": np.full((B,), 0.5, np.float32), "text_tokens": text, "text_len": t_len,
+            "speech_tokens": speech.astype(np.int32), "speech_mask": mask}
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+class TimedAllReduce:
+    """Within the block every torch.distributed.all_reduce is synchronised
+    and its host wall summed (``seconds``, ``calls``)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.orig, self.seconds, self.calls = dist.all_reduce, 0.0, 0
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce = self.orig
+
+
+def tp_step(cfg, params, batch, mesh) -> dict:
+    """One adamw step at TRAIN_CHECK_LR (``mesh`` None: one rank) → loss,
+    grad_norm, the full gradients and parameters after it (flat, CPU), the
+    step's wall; then a second step with the all-reduces timed."""
+    from chatterbox_tpu_torch.parallel import unshard_params
+    from chatterbox_tpu_torch.parallel.sharding import _map_leaves
+    from chatterbox_tpu_torch.training import adamw, make_train_step
+
+    init, step = make_train_step(cfg, adamw(TRAIN_CHECK_LR), mesh=mesh)
+    state = init(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "wall_s": time.perf_counter() - t0}
+    grads = _map_leaves(state["params"], lambda path, p: p.grad)
+    trained = state["params"]
+    if mesh is not None:
+        grads, trained = unshard_params(grads, mesh), unshard_params(trained, mesh)
+    # copies: the timed step below updates the parameters in place
+    out["grads"] = {k: v.detach().cpu().clone() for k, v in _flat(grads).items()}
+    out["params"] = {k: v.detach().cpu().clone() for k, v in _flat(trained).items()}
+    with TimedAllReduce() as timer:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out.update(timed_wall_s=wall, all_reduce_s=timer.seconds, all_reduces=timer.calls,
+               collective_share=timer.seconds / wall)
+    return out
+
+
+def parallel_rank(rank) -> dict:
+    """Phase 12 in one of the two ranks (``parallel.launch``'s function):
+    (a) and (b); rank 0 also runs the unsharded references and compares."""
+    from chatterbox_tpu_torch.models.t3 import init_t3_params
+    from chatterbox_tpu_torch.ops import _build
+    from chatterbox_tpu_torch.parallel import make_mesh, shard_params, tp_group
+    from chatterbox_tpu_torch.parallel.sharding import _map_leaves
+    from chatterbox_tpu_torch.runtime.engine import EngineConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    dev = rank.device
+    out = {"rank": rank.rank, "backend": rank.backend, "device": str(dev), "decode": {},
+           "tokens": {}}
+    # (a) serving's functions at tp = 2, in bf16 (as served) and in float32
+    cfg = EngineConfig.full().t3
+    mesh_tp = make_mesh(1, 2, rank.devices)
+    x = tp_decode_inputs(cfg, dev)
+    for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        full = init_t3_params(cfg, torch.Generator(device=dev).manual_seed(TP_SEED), dev, dtype)
+        sharded = tp_decode(shard_params(full, mesh_tp, cfg), cfg, x, tp_group(mesh_tp))
+        got = out["decode"][name] = {k: sharded[k] for k in ("wall_s", "k1_launches", "kv_heads",
+                                                             "q_heads")}
+        if rank.rank == 0:
+            ref = tp_decode(full, cfg, x, None)
+            differ = sharded["tokens"] != ref["tokens"]
+            first = [int(row.nonzero()[0]) if row.any() else None for row in differ]
+            got.update(
+                unsharded_wall_s=ref["wall_s"], unsharded_k1_launches=ref["k1_launches"],
+                tokens_equal=bool(torch.equal(sharded["tokens"], ref["tokens"])),
+                tokens_differ=int(differ.sum()), tokens=int(ref["tokens"].numel()),
+                first_divergence=first,
+                hidden_max_abs=(sharded["hidden"] - ref["hidden"]).abs().max().item(),
+                hidden_max=ref["hidden"].abs().max().item())
+            if dtype == torch.bfloat16:
+                twice = {k: v + v if k == "seeds" else torch.cat([v, v]) for k, v in x.items()}
+                wide = tp_decode(full, cfg, twice, None)["tokens"][: TP_LANES // 2]
+                differ = wide != ref["tokens"]
+                got["control_32_lanes"] = {
+                    "tokens_differ": int(differ.sum()),
+                    "first_divergence": [int(row.nonzero()[0]) if row.any() else None
+                                         for row in differ]}
+        out["tokens"][name] = sharded["tokens"]
+        del full, sharded
+        torch.cuda.empty_cache()
+    # (b) one training step per mesh
+    t3c = cfg.with_(num_layers=TP_TRAIN_LAYERS)
+    params = init_t3_params(t3c, torch.Generator().manual_seed(TRAIN_SEED), "cpu")
+    params = _map_leaves(params, lambda path, t: t.to(dev))
+    batch = tp_train_batch(t3c, dev)
+    steps = {f"dp{dp}_tp{tp}": tp_step(t3c, params, batch, make_mesh(dp, tp, rank.devices))
+             for dp, tp in ((1, 2), (2, 1))}
+    keep = ("loss", "grad_norm", "wall_s", "timed_wall_s", "all_reduce_s", "all_reduces",
+            "collective_share")
+    out["train"] = {k: {f: r[f] for f in keep} for k, r in steps.items()}
+    if rank.rank == 0:
+        single = tp_step(t3c, params, batch, None)
+        out["train"]["single"] = {f: single[f] for f in ("loss", "grad_norm", "wall_s")}
+        for k, r in steps.items():
+            held, bad = compare_steps(r, single, TRAIN_CHECK_LR)
+            out["train"][k].update(held=held, outside_tol=bad)
+        out["train"]["positions"] = int(batch["speech_mask"].shape[0] * (
+            t3c.cond_len + batch["text_tokens"].shape[1] + batch["speech_mask"].shape[1]))
+        out["train"]["target_tokens"] = int(batch["speech_mask"].sum())
+    return out
+
+
+def parallel_phase(out: dict) -> dict:
+    """Phase 12 → K1's launches in each rank's sharded slice."""
+    from chatterbox_tpu_torch.parallel import launch
+
+    ranks = launch(parallel_rank, ["cuda:0", "cuda:0"], timeout_s=600.0)
+    r0 = ranks[0]
+    dec, train = r0["decode"]["bfloat16"], r0["train"]
+    f32 = r0["decode"]["float32"]
+    per_rank = [r["decode"]["bfloat16"]["k1_launches"] for r in ranks]
+    out.update(backend=r0["backend"],
+               decode={"rank0": r0["decode"], "rank1": ranks[1]["decode"]},
+               train={"rank0": train, "rank1": ranks[1]["train"]}, k1_launches_per_rank=per_rank)
+    print(f"  backend {r0['backend']}: 2 ranks on cuda:0 (gloo reduces CUDA tensors through "
+          "the host; nothing here measures NVLink, and no time below is a tensor-parallel "
+          "speed figure)", flush=True)
+    for name, d in r0["decode"].items():
+        print(f"  (a) T3 30x1024 {name}, int8 KV, {TP_LANES} lanes, tp=2: prefill + {TP_STEPS} "
+              f"steps {[round(r['decode'][name]['wall_s'], 3) for r in ranks]} s per rank, "
+              f"unsharded {d['unsharded_wall_s']:.3f} s; K1 at {d['q_heads']} query / "
+              f"{d['kv_heads']} kv heads per rank, launches per rank "
+              f"{[r['decode'][name]['k1_launches'] for r in ranks]}; the ranks' tokens equal "
+              f"{all(torch.equal(r['tokens'][name], r0['tokens'][name]) for r in ranks)}; equal "
+              f"to the unsharded run {d['tokens_equal']} ({d['tokens_differ']} of {d['tokens']} "
+              f"differ; first divergence per request {d['first_divergence']}); the next step's "
+              f"hidden max abs error {d['hidden_max_abs']:.4g} (|h| max {d['hidden_max']:.3g})"
+              + (f"; control without tensor parallelism, the unsharded run's lanes inside a batch "
+                 f"of 32 against it: {json.dumps(d['control_32_lanes'])}"
+                 if "control_32_lanes" in d else ""), flush=True)
+    for k in ("dp1_tp2", "dp2_tp1"):
+        t = train[k]
+        print(f"  (b) {k}: one adamw step at {TP_TRAIN_LAYERS}x1024 f32, B=4 x "
+              f"{train['positions'] // 4} positions ({train['target_tokens']} targets), against "
+              f"one rank: {json.dumps(t['held'])}; outside tolerance {t['outside_tol']}", flush=True)
+        print(f"  (c) {k}: step wall per rank {[round(r['train'][k]['wall_s'], 3) for r in ranks]} s "
+              f"(one rank alone {train['single']['wall_s']:.3f} s); with every all_reduce "
+              f"synchronised: {[round(r['train'][k]['timed_wall_s'], 3) for r in ranks]} s, of it "
+              f"in {[r['train'][k]['all_reduces'] for r in ranks]} all_reduces "
+              f"{[round(r['train'][k]['all_reduce_s'], 3) for r in ranks]} s, share "
+              f"{[round(r['train'][k]['collective_share'], 3) for r in ranks]}", flush=True)
+    bad = []
+    if r0["backend"] != "gloo":
+        bad.append(f"backend {r0['backend']}")
+    for name in ("bfloat16", "float32"):
+        if not all(torch.equal(r["tokens"][name], r0["tokens"][name]) for r in ranks):
+            bad.append(f"(a) {name}: the ranks' tokens differ")
+    if not f32["tokens_equal"]:
+        bad.append("(a) float32: tokens against the unsharded run")
+    if not f32["hidden_max_abs"] <= TP_F32_HIDDEN_TOL:
+        bad.append("(a) float32: hidden state")
+    if per_rank != [30 * TP_STEPS] * 2 or dec["q_heads"] != 8 or dec["kv_heads"] != 8:
+        bad.append(f"(a) K1 launches {per_rank} at {dec['q_heads']} heads")
+    for k in ("dp1_tp2", "dp2_tp1"):
+        if train[k]["outside_tol"]:
+            bad.append(f"(b) {k}: {train[k]['outside_tol']}")
+        if not all(r["train"][k]["loss"] == train[k]["loss"] for r in ranks):
+            bad.append(f"(b) {k}: the ranks' losses differ")
+    if bad:
+        raise AssertionError(f"phase 12: {bad}")
+    return {"per_rank": per_rank, "heads_per_rank": dec["q_heads"]}
+
+
 def phase(title: str):
     print(f"== {title}", flush=True)
     return time.perf_counter()
@@ -2462,7 +2772,12 @@ def main() -> int:
         bench_phase(Path(tmp), serving["bench"])
         done(t0, walls, "kernels_off_and_bench")
 
-    print("== 12. summary", flush=True)
+    t0 = phase("12. tensor- and data-parallel T3: 2 ranks on the card (gloo)")
+    serving["parallel"] = {}
+    tp_launches = parallel_phase(serving["parallel"])
+    done(t0, walls, "parallel")
+
+    print("== 13. summary", flush=True)
     rounded = {k: round(v, 1) for k, v in walls.items()}
     print(f"  phase walls (s): {json.dumps(rounded)}", flush=True)
     # ms / plain_ms / library_ms: device time per call; call_ms: with the
@@ -2478,6 +2793,7 @@ def main() -> int:
              launches_training=training_launches["decode_attention"]["int8"],
              launches_kernels_off=knob_launches["off"]["decode_attention"]["int8"],
              launches_kernels_on=knob_launches["on"]["decode_attention"]["int8"],
+             launches_tp=tp_launches["per_rank"], heads_tp=tp_launches["heads_per_rank"],
              other_bodies={"bfloat16": k1[f"bfloat16_B{LANES}"], "B2_checks": {
                  c: k1[c] for c in ("int8", "bfloat16", "float32")}, "slice_edge_checks": {
                  c: k1[f"slice_edges_B{LANES}_{c}"] for c in ("int8", "bfloat16", "float32")},

@@ -15,7 +15,8 @@ on the CPU at ``EngineConfig.tiny()`` (the DiT arch, float32).
   ``scripts/train_t3.py`` and ``python -m
   chatterbox_tpu_torch.training.train_t3`` with the same flags, each in its
   own process: their checkpoints' T3 leaves agree to stated multiples of
-  lr, every other leaf bitwise equal; ``--tp 2`` raises.
+  lr, every other leaf bitwise equal; ``--tp 3`` raises (it does not divide
+  the tiny T3's 4 heads).
 """
 import json
 import os
@@ -215,6 +216,9 @@ def test_train_scripts_agree(env):
     assert "speech_head/w" in moved and "backbone/layers/wq" in moved, moved
 
 
-def test_tensor_parallel_flag_raises(env, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        train_t3.main([str(env["manifest"]), "--out", str(tmp_path / "out"), "--tp", "2"])
+def test_tensor_parallel_flag_raises(env, tmp_path, monkeypatch):
+    """``--tp`` trains over a mesh now (tests/test_torch_parallel.py); a tp
+    that does not divide T3's heads raises before any rank starts."""
+    monkeypatch.setenv("CHATTERBOX_TINY_MODEL", "1")   # what --tiny sets, undone after
+    with pytest.raises(ValueError, match="4 query heads do not split over tp=3"):
+        train_t3.main([str(env["manifest"]), "--out", str(tmp_path / "out"), "--tiny", "--tp", "3"])
