@@ -6,6 +6,8 @@ from .model import (  # noqa: F401
     init_s3gen_ref_params,
     init_s3gen_stream_state,
     s3gen_ref_embed_ref,
+    s3gen_ref_flow,
+    s3gen_ref_flow_streaming,
     s3gen_ref_inference,
     s3gen_ref_inference_streaming,
     s3gen_ref_inference_tail,

@@ -17,6 +17,19 @@ and the request's own earlier frames). Frozen contexts are flat tensors
 with a block axis (``_Walk``), so a batch stacks or splits a state in a few
 ops; ``context_to_tree`` and ``context_from_tree`` convert them to and from
 the JAX package's capture trees. Every random draw enters as a tensor.
+
+Tensor parallelism (``parallel/sharding.py``): every solver and
+``estimator_forward`` take an optional ``tp_group``. A transformer block
+whose to_q/k/v rows hold this rank's heads runs K2 over those heads (H/tp,
+counted from the shard's shapes) and sums ``to_out`` over the group; its
+feed-forward sums ``ff2``; a resnet whose ``block1`` holds a shard of the
+output channels normalises them with GroupNorm over its groups/tp groups
+(the matching slice of the affine) and sums ``block2`` over the group
+(``parallel.tp.row_parallel`` / ``row_parallel_conv``). So a rank's frozen
+context holds its own heads' K/V, and its own channels' halo before each
+``block2``; a GroupNorm over groups/tp groups keeps its statistics in the
+first groups/tp entries of its row (the rest stay zero). The blocks the
+rules leave whole run as without a group.
 """
 from __future__ import annotations
 
@@ -30,12 +43,15 @@ import torch.nn.functional as F
 from ...ops.conv import conv1d
 from ...ops.flash_mha import flash_mha
 from ...ops.nn import layer_norm, linear
+from ...parallel.tp import row_parallel, row_parallel_conv
 from .config import FlowRefConfig
 
 # fixed noise-buffer length (frames): the CFM initial noise at frame t is the
 # same whatever the chunk length, so full-overlap re-synthesis of accumulated
 # tokens reproduces earlier frames (seam stability)
 _NOISE_FRAMES = 2048
+# GroupNorm groups of every resnet conv block and the final block
+GN_GROUPS = 8
 
 
 def init_estimator_params(init, cfg: FlowRefConfig) -> Dict:
@@ -88,7 +104,7 @@ def init_estimator_params(init, cfg: FlowRefConfig) -> Dict:
     }
 
 
-def _group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int = 8,
+def _group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int = GN_GROUPS,
                 eps: float = 1e-5, valid: torch.Tensor | None = None,
                 extra: Dict | None = None, cap: bool = False):
     """torch GroupNorm over [B, T, C], statistics over the valid frames only.
@@ -140,7 +156,7 @@ def _gn_extra(a: Dict | None, b: Dict | None) -> Dict | None:
 
 
 def _conv_h(x: torch.Tensor, p: Dict, pc: torch.Tensor | None = None, cap: bool = False,
-            pos: torch.Tensor | None = None):
+            pos: torch.Tensor | None = None, tp_group=None):
     """SAME_TORCH conv1d with an optional frozen left context (halo).
 
     ``pc`` ([B, (K−1)//2, C]): frozen frames that replace the zero left pad,
@@ -148,7 +164,9 @@ def _conv_h(x: torch.Tensor, p: Dict, pc: torch.Tensor | None = None, cap: bool 
     right edge keeps its zero pad. ``pos`` ([B], right-packed streaming
     blocks, k = 3 only): each row's first valid frame; the halo goes right
     before it instead of before the block. ``cap`` also returns this
-    region's own last (K−1)//2 frames in the weights' dtype."""
+    region's own last (K−1)//2 frames in the weights' dtype. ``tp_group``:
+    the weight holds a shard of the input channels, and the products are
+    summed over the group."""
     w, b = p["w"], p["b"]
     hw = (w.shape[-1] - 1) // 2
     B, T, C = x.shape
@@ -159,12 +177,12 @@ def _conv_h(x: torch.Tensor, p: Dict, pc: torch.Tensor | None = None, cap: bool 
         # ext row `pos` is original row pos-1: the pad row right before the
         # first valid frame (or the prepended zero when pos == 0)
         ext = torch.where(jj == pos[:, None, None], pc.to(x.dtype), ext)
-        out = conv1d(ext, w, b, padding="VALID")
+        out = row_parallel_conv(ext, w, b, tp_group, "VALID")
     elif pc is not None and hw:
         ext = torch.cat([pc.to(x.dtype), x, x.new_zeros((B, hw, C))], dim=1)
-        out = conv1d(ext, w, b, padding="VALID")
+        out = row_parallel_conv(ext, w, b, tp_group, "VALID")
     else:
-        out = conv1d(x, w, b, padding="SAME_TORCH")
+        out = row_parallel_conv(x, w, b, tp_group, "SAME_TORCH")
     if cap:
         # stored in the weights' dtype: the frozen context is read every
         # slice, and bf16 halves the per-voice cache
@@ -188,17 +206,19 @@ def _time_embedding(p: Dict, cfg: FlowRefConfig, t: torch.Tensor) -> torch.Tenso
 
 
 @functools.lru_cache(maxsize=None)
-def _layout(cfg: FlowRefConfig):
+def _layout(cfg: FlowRefConfig, h2: int | None = None):
     """Where each context node of the estimator sits in the port's flat
     layout, in the order an evaluation visits them: the k = 3 conv halos
     (``(path, channels)``; packed side by side along the last axis), the
     GroupNorms and the transformer blocks. A path names the node in the JAX
-    package's capture tree."""
+    package's capture tree. ``h2``: the channels of this rank's ``block2``
+    inputs (the resnets' shard; default all of them)."""
     ch = cfg.dec_channels[0]
+    h2 = ch if h2 is None else h2
     halos, gns, tfs = [], [], []
 
     def level(name, cin, conv):
-        halos.extend([((*name, "resnet", "h1"), cin), ((*name, "resnet", "h2"), ch)])
+        halos.extend([((*name, "resnet", "h1"), cin), ((*name, "resnet", "h2"), h2)])
         gns.extend([(*name, "resnet", "g1"), (*name, "resnet", "g2")])
         tfs.extend((*name, "tf", i) for i in range(cfg.dec_n_blocks))
         if conv:
@@ -262,8 +282,9 @@ class _Walk:
     self-attention)."""
 
     def __init__(self, cfg: FlowRefConfig, pc: Dict | None, rc: Dict | None, kv,
-                 cap_cv: bool, cap_kv: bool):
-        self.offsets = _layout(cfg)[1]
+                 cap_cv: bool, cap_kv: bool, h2: int | None = None, tp_group=None):
+        self.offsets = _layout(cfg, h2)[1]
+        self.tp_group = tp_group
         pest = pc["est"] if pc is not None else None
         rest = rc["est"] if rc is not None else None
         self.pos = rc.get("pos") if rc is not None else None
@@ -276,28 +297,40 @@ class _Walk:
         self.hi = self.gi = self.ti = 0
         self.out = {"halo": [], "gs": [], "gn": [], "k": [], "v": []}
 
-    def conv(self, x: torch.Tensor, p: Dict) -> torch.Tensor:
-        """The next k = 3 conv, with its halo; captures the input's last frame."""
+    def conv(self, x: torch.Tensor, p: Dict, row_parallel: bool = False) -> torch.Tensor:
+        """The next k = 3 conv, with its halo; captures the input's last
+        frame. ``row_parallel``: the weight holds a shard of the input
+        channels (summed over the walk's group)."""
         i = self.hi
         self.hi += 1
         pc = None
         if self.halo is not None:
             o0, o1 = self.offsets[i], self.offsets[i + 1]
             pc = self.halo[:, None, o0:o1]
-        r = _conv_h(x, p, pc, self.cap_cv, pos=self.pos)
+        r = _conv_h(x, p, pc, self.cap_cv, pos=self.pos,
+                    tp_group=self.tp_group if row_parallel else None)
         if not self.cap_cv:
             return r
         self.out["halo"].append(r[1][:, 0])
         return r[0]
 
     def group_norm(self, x: torch.Tensor, p: Dict, valid: torch.Tensor) -> torch.Tensor:
+        """The next GroupNorm. ``x`` with fewer channels than ``p`` holds
+        this rank's shard of them (a sharded resnet's ``block1``): it takes
+        the matching groups, and slice of the affine."""
         i = self.gi
         self.gi += 1
-        extra = None if self.gn is None else {"s": self.gn["s"][:, i], "n": self.gn["n"][:, i]}
-        r = _group_norm(x, p["w"], p["b"], valid=valid, extra=extra, cap=self.cap_cv)
+        w, b, groups = p["w"], p["b"], GN_GROUPS
+        C = x.shape[-1]
+        if C < w.shape[0]:
+            t = self.tp_group.rank()
+            w, b, groups = w[t * C:(t + 1) * C], b[t * C:(t + 1) * C], GN_GROUPS * C // w.shape[0]
+        extra = None if self.gn is None else {"s": self.gn["s"][:, i, :, :groups],
+                                              "n": self.gn["n"][:, i]}
+        r = _group_norm(x, w, b, groups, valid=valid, extra=extra, cap=self.cap_cv)
         if not self.cap_cv:
             return r
-        self.out["gs"].append(r[1]["s"])
+        self.out["gs"].append(F.pad(r[1]["s"], (0, GN_GROUPS - groups)))
         self.out["gn"].append(r[1]["n"])
         return r[0]
 
@@ -305,7 +338,7 @@ class _Walk:
         i = self.ti
         self.ti += 1
         ctx = None if self.kv is None else (self.kv[0][i], self.kv[1][i], self.kv[2])
-        r = _tf_block(p, cfg, x, valid, cap=self.cap_kv, ctx=ctx)
+        r = _tf_block(p, cfg, x, valid, cap=self.cap_kv, ctx=ctx, tp_group=self.tp_group)
         if not self.cap_kv:
             return r
         self.out["k"].append(r[1]["k"])
@@ -326,17 +359,21 @@ class _Walk:
 def _resnet(p: Dict, x: torch.Tensor, mask: torch.Tensor, valid: torch.Tensor,
             temb: torch.Tensor, walk: _Walk) -> torch.Tensor:
     """``walk`` supplies the frozen context (halos, GroupNorm statistics) and
-    takes the captures."""
+    takes the captures. A sharded resnet (``block2`` holds a shard of its
+    input channels) runs ``block1``, its GroupNorm and the time-MLP on this
+    rank's channels and sums ``block2`` over the walk's group."""
     xm = x * mask
+    w2 = p["block2"]["conv"]["w"]
     h = _mish(walk.group_norm(walk.conv(xm, p["block1"]["conv"]), p["block1"]["gn"], valid))
     h = h + linear(_mish(temb), p["mlp"]["w"], p["mlp"]["b"])[:, None]
-    h = _mish(walk.group_norm(walk.conv(h * mask, p["block2"]["conv"]), p["block2"]["gn"],
-                              valid))
+    h = _mish(walk.group_norm(walk.conv(h * mask, p["block2"]["conv"],
+                                        row_parallel=w2.shape[1] < w2.shape[0]),
+                              p["block2"]["gn"], valid))
     return h + conv1d(xm, p["res"]["w"], p["res"]["b"])
 
 
 def _tf_block(p: Dict, cfg: FlowRefConfig, x: torch.Tensor, valid: torch.Tensor,
-              cap: bool = False, ctx=None):
+              cap: bool = False, ctx=None, tp_group=None):
     """DiT-style block without positional encoding; its attention is K2.
 
     ``ctx`` = (keys, values, key mask [B, L + T]): [B, H, L + T, dh]
@@ -344,9 +381,15 @@ def _tf_block(p: Dict, cfg: FlowRefConfig, x: torch.Tensor, valid: torch.Tensor,
     (the prompt's, a streaming ring's); this call writes its own K/V into the
     last T, so its attention is K2's context form over [context | own] (no
     positional encoding: frozen keys need no index bookkeeping). ``cap``
-    also returns this call's K/V in the weights' dtype, head-major."""
+    also returns this call's K/V in the weights' dtype, head-major.
+    ``tp_group``: a block whose to_q/k/v hold this rank's heads attends over
+    them and sums ``to_out`` over the group; a feed-forward whose ``ff1``
+    holds a shard of its units sums ``ff2``."""
     B, T, C = x.shape
-    H, dh = cfg.dec_num_heads, cfg.dec_attention_head_dim
+    dh = cfg.dec_attention_head_dim
+    H = p["to_q"]["w"].shape[0] // dh
+    attn_group = tp_group if H < cfg.dec_num_heads else None
+    ff_group = tp_group if p["ff1"]["w"].shape[0] < 4 * C else None
     h = layer_norm(x, p["norm1"]["w"], p["norm1"]["b"])
     heads = lambda w: linear(h, w).reshape(B, T, H, dh).transpose(1, 2)  # noqa: E731
     q, k, v = heads(p["to_q"]["w"]).contiguous(), heads(p["to_k"]["w"]), heads(p["to_v"]["w"])
@@ -359,10 +402,10 @@ def _tf_block(p: Dict, cfg: FlowRefConfig, x: torch.Tensor, valid: torch.Tensor,
     else:
         o = flash_mha(q, k.contiguous(), v.contiguous(), valid.contiguous(), scale=scale)
     out = o.transpose(1, 2).reshape(B, T, H * dh)
-    x = x + linear(out.to(x.dtype), p["to_out"]["w"], p["to_out"]["b"])
+    x = x + row_parallel(out.to(x.dtype), p["to_out"]["w"], p["to_out"]["b"], attn_group)
     h = layer_norm(x, p["norm3"]["w"], p["norm3"]["b"])
-    h = linear(F.gelu(linear(h, p["ff1"]["w"], p["ff1"]["b"]), approximate="tanh"),
-               p["ff2"]["w"], p["ff2"]["b"])
+    h = row_parallel(F.gelu(linear(h, p["ff1"]["w"], p["ff1"]["b"]), approximate="tanh"),
+                     p["ff2"]["w"], p["ff2"]["b"], ff_group)
     out = x + h
     if cap:
         wdt = p["to_k"]["w"].dtype
@@ -384,6 +427,7 @@ def estimator_forward(
     rc: Dict | None = None,
     cap_mode: str | None = None,
     kv=None,
+    tp_group=None,
 ):
     """One vector-field evaluation → [B, T, M].
 
@@ -399,12 +443,16 @@ def estimator_forward(
     ``cap`` / ``cap_mode`` → (out, captured context): "full" (``cap``)
     captures everything (the prompt prefill), "light" the halos and
     GroupNorm statistics (every streaming Euler step), "kv" the K/V only
-    (the clean-context pass at the end of a streaming slice)."""
+    (the clean-context pass at the end of a streaming slice).
+
+    ``tp_group``: ``params`` is this rank's shard (``parallel.sharding``);
+    every rank gets the same output and captures its own shard's context."""
     B, T, _ = x.shape
     mode = "full" if cap else cap_mode
     cap_cv = mode in ("full", "light")
     cap_kv = mode in ("full", "kv")
-    walk = _Walk(cfg, pc, rc, kv, cap_cv, cap_kv)
+    h2 = params["down"]["resnet"]["block2"]["conv"]["w"].shape[1]
+    walk = _Walk(cfg, pc, rc, kv, cap_cv, cap_kv, h2, tp_group)
     mask = valid[:, :, None].to(x.dtype)
     temb = _time_embedding(params["time_mlp"], cfg, t)
     spk_track = spk[:, None, :].expand(B, T, spk.shape[-1]).to(x.dtype)
@@ -449,6 +497,7 @@ def cfm_generate(
     spk: torch.Tensor,    # [B, 80]
     cond: torch.Tensor,   # [B, T, M]
     valid: torch.Tensor,  # [B, T]
+    tp_group=None,
 ) -> torch.Tensor:
     """Cosine-warped Euler CFM sampling with CFG (inference_cfg_rate); the
     cond and uncond lanes ride one estimator call per step."""
@@ -460,7 +509,7 @@ def cfm_generate(
     for t_i, dt in zip(t_span[:-1], t_span[1:] - t_span[:-1]):
         t = torch.full((2 * B,), float(t_i), dtype=torch.float32, device=mu.device)
         v = estimator_forward(params, cfg, torch.cat([x, x]).to(mu.dtype), mu2, spk2, cond2, t,
-                              valid2)
+                              valid2, tp_group=tp_group)
         x = _euler(x, v.float(), dt, w)
     return x.to(mu.dtype)
 
@@ -489,6 +538,7 @@ def cfm_prompt_prefill(
     spk: torch.Tensor,      # [B, 80]
     cond_p: torch.Tensor,   # [B, P, M] packed prompt-mel conditioning
     valid_p: torch.Tensor,  # [B, P]
+    tp_group=None,
 ) -> Dict:
     """Solve the CFM over the voice-prompt region once, capturing its frozen
     context at every Euler step → a per-voice cache for
@@ -512,7 +562,7 @@ def cfm_prompt_prefill(
     for t_i, dt in zip(t_span[:-1], t_span[1:] - t_span[:-1]):
         t = torch.full((mu2.shape[0],), float(t_i), dtype=torch.float32, device=mu_p.device)
         v, rec = estimator_forward(params, cfg, torch.cat([x, x]).to(mu_p.dtype), mu2, spk2,
-                                   cond2, t, valid2, cap=True)
+                                   cond2, t, valid2, cap=True, tp_group=tp_group)
         x = _euler(x, v.float(), dt, w)
         recs.append(rec)
     return {"est": {k: torch.stack([r[k] for r in recs]) for k in recs[0]}, "pv": valid2}
@@ -551,6 +601,7 @@ def cfm_generate_cached(
     spk: torch.Tensor,      # [B, 80]
     valid_g: torch.Tensor,  # [B, Tg]
     cache: Dict,            # from cfm_prompt_prefill (or static_prompt_cache)
+    tp_group=None,
 ) -> torch.Tensor:
     """Euler CFM over the generated frames only, against the frozen prompt
     context. Their initial noise is the buffer's positions [P, P+Tg), the
@@ -574,7 +625,7 @@ def cfm_generate_cached(
             _put(kv[1], 0, est["v"][i])
         pc = {"est": _step(est, i if per_step else 0)}
         v = estimator_forward(params, cfg, torch.cat([x, x]).to(mu_g.dtype), mu2, spk2, cond2,
-                              t, valid2, pc=pc, kv=kv)
+                              t, valid2, pc=pc, kv=kv, tp_group=tp_group)
         x = _euler(x, v.float(), dt, w)
     return x.to(mu_g.dtype)
 
@@ -606,9 +657,8 @@ def init_stream_state(cfg: FlowRefConfig, vcache: Dict, window: int, batch: int 
     frames."""
     _, est = _voice_lanes(vcache, batch)
     B2 = 2 * batch
-    H, dh = cfg.dec_num_heads, cfg.dec_attention_head_dim
-    k = est["k"]
-    ring = lambda: k.new_zeros((k.shape[1], B2, H, window, dh))  # noqa: E731
+    k = est["k"]   # [S, NB, Bx, H, P, dh]: H this rank's heads
+    ring = lambda: k.new_zeros((k.shape[1], B2, k.shape[3], window, k.shape[5]))  # noqa: E731
     counts = lambda: torch.zeros((batch,), dtype=torch.int32, device=k.device)  # noqa: E731
     return {"halo": est["halo"].clone(), "gs": torch.zeros_like(est["gs"]),
             "gn": torch.zeros_like(est["gn"]), "k": ring(), "v": ring(),
@@ -646,6 +696,7 @@ def cfm_generate_streaming(
     tg: torch.Tensor,       # [B] valid new frames (each row's last tg)
     vcache: Dict,           # per-voice cache from cfm_prompt_prefill (per step)
     rstate: Dict,           # from init_stream_state or the previous slice
+    tp_group=None,
 ):
     """Solve only this slice's new frames against [frozen voice prompt |
     frozen earlier frames], then capture this slice's context → (mel block
@@ -693,7 +744,8 @@ def cfm_generate_streaming(
         t = torch.full((2 * B,), float(t_i), dtype=torch.float32, device=dev)
         pc, rc = ctx(s)
         v, cap = estimator_forward(params, cfg, torch.cat([x, x]).to(mu_g.dtype), mu2, spk2,
-                                   cond2, t, valid2, pc=pc, rc=rc, cap_mode="light", kv=kv)
+                                   cond2, t, valid2, pc=pc, rc=rc, cap_mode="light", kv=kv,
+                                   tp_group=tp_group)
         x = _euler(x, v.float(), dt, w)
         caps.append(cap)
     mel = x.to(mu_g.dtype)
@@ -705,7 +757,7 @@ def cfm_generate_streaming(
                                  torch.ones((2 * B,), dtype=torch.float32, device=dev), valid2,
                                  pc={"est": _step(est, S - 1)},
                                  rc={"est": _step(rstate, S - 1), "pos": pos2},
-                                 cap_mode="kv", kv=kv)
+                                 cap_mode="kv", kv=kv, tp_group=tp_group)
     k, v, klen_new = _ring_append(rstate["k"], rstate["v"], clean["k"], clean["v"], klen2, tg2,
                                   Tg)
     # halos ← this slice's last frames, except on lanes without new frames;

@@ -20,6 +20,14 @@ from reference audio: prompt tokens (S3TokenizerV2), prompt mel (the HiFiGAN
 front end) and the CAMPPlus x-vector, in fixed right-padded windows (mel
 frames = up_stride × prompt tokens); ``conds.pt`` gives the same dict for
 the snapshot's default voice.
+
+Tensor parallelism: every entry point takes an optional ``tp_group``, with
+``params`` this rank's shard (``parallel.shard_s3gen_ref_params``): the
+conformer encoder and the CFM estimator run sharded and every rank gets the
+same mel; the tokenizer, CAMPPlus and HiFT are replicated and run as
+without a group. ``s3gen_ref_flow`` and ``s3gen_ref_flow_streaming`` stop
+after the flow (the mel, and a streaming slice's new state): a rank whose
+audio nobody reads runs those and skips the vocoder.
 """
 from __future__ import annotations
 
@@ -173,7 +181,7 @@ def _packed_prompt_mel(cfg: S3GenRefConfig, ref: Dict, dtype) -> torch.Tensor:
 
 
 def _encode_mu(params: Dict, cfg: S3GenRefConfig, tokens: torch.Tensor,
-               token_len: torch.Tensor, ref: Dict):
+               token_len: torch.Tensor, ref: Dict, tp_group=None):
     """Encoder over [pad | prompt | generated] → (mu [B, (P+T)·fpt, 80],
     valid_f [B, (P+T)·fpt], spk [B, 80])."""
     T = tokens.shape[1]
@@ -185,7 +193,7 @@ def _encode_mu(params: Dict, cfg: S3GenRefConfig, tokens: torch.Tensor,
     valid = torch.cat([prompt_mask, gen_valid], dim=1)
     emb = params["flow"]["input_emb"][full.clamp(0, fl.vocab_size - 1)]
     emb = torch.where(valid[:, :, None], emb, 0.0)
-    h, valid_f = upsample_encode(params["flow"]["encoder"], fl, emb, valid)
+    h, valid_f = upsample_encode(params["flow"]["encoder"], fl, emb, valid, tp_group)
     mu = linear(h, params["flow"]["encoder_proj"]["w"], params["flow"]["encoder_proj"]["b"])
     return mu, valid_f, _spk_track(params, ref)
 
@@ -201,30 +209,39 @@ def _source_with_cache(params: Dict, cfg: S3GenRefConfig, mel_gen: torch.Tensor,
     return torch.where(idx < cache_len[:, None], source_cache[:, :L].to(source.dtype), source)
 
 
-def _mel_and_source(params: Dict, cfg: S3GenRefConfig, tokens: torch.Tensor,
-                    token_len: torch.Tensor, ref: Dict, source_cache: torch.Tensor,
-                    cache_len: torch.Tensor, noise: Dict[str, torch.Tensor],
-                    cfm_cache: Dict | None = None):
-    """Encoder → CFM mel → NSF excitation → (mel_gen [B, T·fpt, 80] f32,
-    source [B, T·spt]). With ``cfm_cache`` the CFM solves only the generated
+def s3gen_ref_flow(params: Dict, cfg: S3GenRefConfig, tokens: torch.Tensor,
+                   token_len: torch.Tensor, ref: Dict, noise_cfm: torch.Tensor,
+                   cfm_cache: Dict | None = None, tp_group=None) -> torch.Tensor:
+    """Encoder → CFM mel → mel_gen [B, T·fpt, 80] float32, zero past each
+    row's valid frames. With ``cfm_cache`` the CFM solves only the generated
     frames against the frozen prompt context; the encoder still sees
     [prompt | generated], so ``mu`` is unchanged."""
     B, T = tokens.shape
     fl = cfg.flow
     Pm = cfg.max_prompt_tokens * fl.up_stride
-    mu, valid_f, spk = _encode_mu(params, cfg, tokens, token_len, ref)
+    mu, valid_f, spk = _encode_mu(params, cfg, tokens, token_len, ref, tp_group)
     est = params["flow"]["estimator"]
     if cfm_cache is not None:
-        mel_gen = cfm_generate_cached(est, fl, noise["cfm"], mu[:, Pm:], spk, valid_f[:, Pm:],
-                                      cfm_cache)
+        mel_gen = cfm_generate_cached(est, fl, noise_cfm, mu[:, Pm:], spk, valid_f[:, Pm:],
+                                      cfm_cache, tp_group)
     else:
         packed_mel = _packed_prompt_mel(cfg, ref, mu.dtype)
         cond = torch.cat([packed_mel, packed_mel.new_zeros(
             (B, T * fl.up_stride, packed_mel.shape[2]))], dim=1)
-        mel_gen = cfm_generate(est, fl, noise["cfm"], mu, spk, cond, valid_f)[:, Pm:]
+        mel_gen = cfm_generate(est, fl, noise_cfm, mu, spk, cond, valid_f, tp_group)[:, Pm:]
     mel_gen = torch.where(valid_f[:, Pm:, None], mel_gen, 0.0)
     # the mel→wav stack runs in float32 whatever the flow's activation dtype
-    mel_gen = mel_gen.float()
+    return mel_gen.float()
+
+
+def _mel_and_source(params: Dict, cfg: S3GenRefConfig, tokens: torch.Tensor,
+                    token_len: torch.Tensor, ref: Dict, source_cache: torch.Tensor,
+                    cache_len: torch.Tensor, noise: Dict[str, torch.Tensor],
+                    cfm_cache: Dict | None = None, tp_group=None):
+    """``s3gen_ref_flow`` → NSF excitation → (mel_gen [B, T·fpt, 80] f32,
+    source [B, T·spt])."""
+    mel_gen = s3gen_ref_flow(params, cfg, tokens, token_len, ref, noise["cfm"], cfm_cache,
+                             tp_group)
     source = _source_with_cache(params, cfg, mel_gen, source_cache, cache_len,
                                 noise["rand_ini"], noise["nsf"])
     return mel_gen, source
@@ -240,10 +257,11 @@ def s3gen_ref_inference(
     cache_len: torch.Tensor,     # [B] valid samples in source_cache
     noise: Dict[str, torch.Tensor],  # draw_noise(...)
     cfm_cache: Dict | None = None,   # s3gen_ref_prompt_prefill(...)
+    tp_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One streaming chunk → (wav [B, T·spt], new_source_cache [B, T·spt])."""
     mel_gen, source = _mel_and_source(params, cfg, tokens, token_len, ref, source_cache,
-                                      cache_len, noise, cfm_cache)
+                                      cache_len, noise, cfm_cache, tp_group)
     return hift_decode(params["mel2wav"], cfg.hift, mel_gen, source), source
 
 
@@ -259,6 +277,7 @@ def s3gen_ref_inference_tail(
     start: torch.Tensor,         # [B] first wanted output sample (0 ≤ · ≤ T·spt − tail_len)
     tail_len: int,               # samples returned per row
     cfm_cache: Dict | None = None,
+    tp_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunk inference that vocodes only a window around the emitted tail →
     (wav_tail [B, tail_len] == full wav[:, start:start+tail_len],
@@ -271,7 +290,7 @@ def s3gen_ref_inference_tail(
     (margin = ``hift_receptive_margin``) at a vocoder cost that stays constant
     per slice."""
     mel_gen, source = _mel_and_source(params, cfg, tokens, token_len, ref, source_cache,
-                                      cache_len, noise, cfm_cache)
+                                      cache_len, noise, cfm_cache, tp_group)
     return _vocode_tail_window(params, cfg, mel_gen, source, start, tail_len), source
 
 
@@ -305,7 +324,7 @@ def _vocode_tail_window(params: Dict, cfg: S3GenRefConfig, mel_gen: torch.Tensor
 
 
 def s3gen_ref_prompt_prefill(params: Dict, cfg: S3GenRefConfig, ref: Dict,
-                             noise: torch.Tensor) -> Dict:
+                             noise: torch.Tensor, tp_group=None) -> Dict:
     """The per-voice CFM prompt cache: the prompt-only encoder, then the
     capturing CFM solve (``decoder.cfm_prompt_prefill``), once per voice.
     ``noise`` ([B, ≥Pm, 80] float32) is the prompt's initial noise, drawn
@@ -315,10 +334,10 @@ def s3gen_ref_prompt_prefill(params: Dict, cfg: S3GenRefConfig, ref: Dict,
     packed_prompt, prompt_mask = _left_pack(ref["prompt_tokens"], ref["prompt_len"].clamp_max(P))
     emb = params["flow"]["input_emb"][packed_prompt.long().clamp(0, fl.vocab_size - 1)]
     emb = torch.where(prompt_mask[:, :, None], emb, 0.0)
-    h, valid_f = upsample_encode(params["flow"]["encoder"], fl, emb, prompt_mask)
+    h, valid_f = upsample_encode(params["flow"]["encoder"], fl, emb, prompt_mask, tp_group)
     mu_p = linear(h, params["flow"]["encoder_proj"]["w"], params["flow"]["encoder_proj"]["b"])
     return cfm_prompt_prefill(params["flow"]["estimator"], fl, noise, mu_p, _spk_track(params, ref),
-                              _packed_prompt_mel(cfg, ref, mu_p.dtype), valid_f)
+                              _packed_prompt_mel(cfg, ref, mu_p.dtype), valid_f, tp_group)
 
 
 def init_s3gen_stream_state(cfg: S3GenRefConfig, cfm_cache: Dict, window: int,
@@ -359,6 +378,51 @@ def split_stream_state(state: Dict, B: int) -> List[Dict]:
     return out
 
 
+def s3gen_ref_flow_streaming(
+    params: Dict,
+    cfg: S3GenRefConfig,
+    tokens: torch.Tensor,        # [B, T] ACCUMULATED chunk tokens, right-padded
+    token_len: torch.Tensor,     # [B] valid tokens (old + new)
+    new_len: torch.Tensor,       # [B] NEW tokens this slice (suffix of the valid ones)
+    ref: Dict,
+    noise_cfm: torch.Tensor,     # the chunk's CFM noise buffer (draw_noise(stream=True))
+    rstate: Dict,                # init_s3gen_stream_state / the previous slice
+    new_block_tokens: int,       # upper bound on new_len
+    cfm_cache: Dict,             # the per-voice prompt cache ("step" mode)
+    tp_group=None,
+) -> Tuple[torch.Tensor, Dict]:
+    """The flow of a streaming slice → (mel_gen [B, T·fpt, 80] float32: the
+    frozen earlier frames and this slice's new ones, new state). See
+    ``s3gen_ref_inference_streaming``."""
+    B, T = tokens.shape
+    fl = cfg.flow
+    fpt = fl.up_stride
+    Pm = cfg.max_prompt_tokens * fpt
+    TgF = new_block_tokens * fpt
+    mu, _, spk = _encode_mu(params, cfg, tokens, token_len, ref, tp_group)
+    M = mu.shape[2]
+    dev = mu.device
+    # the NEW frames' mu, right-packed into the block
+    total = token_len.to(dev).long() * fpt
+    new = new_len.to(dev).long() * fpt
+    old = total - new
+    j = torch.arange(TgF, device=dev)[None, :]
+    idx = (Pm + old[:, None] + (j - (TgF - new[:, None]))).clamp(0, mu.shape[1] - 1)
+    mu_new = torch.gather(mu, 1, idx[:, :, None].expand(B, TgF, M))
+    mel_new, new_cfm = cfm_generate_streaming(params["flow"]["estimator"], fl, noise_cfm,
+                                              mu_new, spk, new, cfm_cache, rstate["cfm"],
+                                              tp_group)
+    # write the new frames into the frozen-mel buffer: only rows [old, total)
+    # change, by a gather and a select
+    buf = rstate["mel"]
+    jj = torch.arange(buf.shape[1], device=dev)[None, :]
+    is_new = (jj >= old[:, None]) & (jj < total[:, None])
+    bsrc = (jj - old[:, None] + (TgF - new[:, None])).clamp(0, TgF - 1)
+    gathered = torch.gather(mel_new.to(buf.dtype), 1, bsrc[:, :, None].expand(B, buf.shape[1], M))
+    buf = torch.where(is_new[:, :, None], gathered, buf)
+    return buf[:, : T * fpt], {"cfm": new_cfm, "mel": buf}
+
+
 def s3gen_ref_inference_streaming(
     params: Dict,
     cfg: S3GenRefConfig,
@@ -374,6 +438,7 @@ def s3gen_ref_inference_streaming(
     rstate: Dict,                # init_s3gen_stream_state / the previous slice
     new_block_tokens: int,       # upper bound on new_len
     cfm_cache: Dict,             # the per-voice prompt cache ("step" mode)
+    tp_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Streaming full-overlap slice → (wav_tail [B, tail_len], new source
     cache [B, T·spt], new state).
@@ -386,33 +451,10 @@ def s3gen_ref_inference_streaming(
     contracts. A chunk's first slice equals ``s3gen_ref_inference_tail`` with
     the same cache and noise up to float32 summation order; later slices are
     the JAX package's one-way deviation."""
-    B, T = tokens.shape
-    fl = cfg.flow
-    fpt = fl.up_stride
-    Pm = cfg.max_prompt_tokens * fpt
-    TgF = new_block_tokens * fpt
-    mu, _, spk = _encode_mu(params, cfg, tokens, token_len, ref)
-    M = mu.shape[2]
-    dev = mu.device
-    # the NEW frames' mu, right-packed into the block
-    total = token_len.to(dev).long() * fpt
-    new = new_len.to(dev).long() * fpt
-    old = total - new
-    j = torch.arange(TgF, device=dev)[None, :]
-    idx = (Pm + old[:, None] + (j - (TgF - new[:, None]))).clamp(0, mu.shape[1] - 1)
-    mu_new = torch.gather(mu, 1, idx[:, :, None].expand(B, TgF, M))
-    mel_new, new_cfm = cfm_generate_streaming(params["flow"]["estimator"], fl, noise["cfm"],
-                                              mu_new, spk, new, cfm_cache, rstate["cfm"])
-    # write the new frames into the frozen-mel buffer: only rows [old, total)
-    # change, by a gather and a select
-    buf = rstate["mel"]
-    jj = torch.arange(buf.shape[1], device=dev)[None, :]
-    is_new = (jj >= old[:, None]) & (jj < total[:, None])
-    bsrc = (jj - old[:, None] + (TgF - new[:, None])).clamp(0, TgF - 1)
-    gathered = torch.gather(mel_new.to(buf.dtype), 1, bsrc[:, :, None].expand(B, buf.shape[1], M))
-    buf = torch.where(is_new[:, :, None], gathered, buf)
-    mel_gen = buf[:, : T * fpt]
+    mel_gen, new_state = s3gen_ref_flow_streaming(params, cfg, tokens, token_len, new_len, ref,
+                                                  noise["cfm"], rstate, new_block_tokens,
+                                                  cfm_cache, tp_group)
     source = _source_with_cache(params, cfg, mel_gen, source_cache, cache_len,
                                 noise["rand_ini"], noise["nsf"])
     wav_tail = _vocode_tail_window(params, cfg, mel_gen, source, start, tail_len)
-    return wav_tail, source, {"cfm": new_cfm, "mel": buf}
+    return wav_tail, source, new_state

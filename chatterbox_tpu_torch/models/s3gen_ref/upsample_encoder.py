@@ -6,6 +6,13 @@ conformer blocks (rel-pos self-attention with pos_bias_u/v, SiLU FFN,
 pre-norm) → nearest ×2 upsample + causal k5 conv → second embed → M blocks →
 final LayerNorm. The relative-position term uses the ESPnet pad-and-shift
 form (pure pad/reshape/slice), as the JAX package does.
+
+Tensor parallelism (``parallel/sharding.py``): under ``tp_group`` a
+conformer attention whose q/k/v/pos rows and ``bias_u``/``bias_v`` hold
+this rank's heads attends over those heads (counted from the shard's
+shapes) and sums ``out`` over the group (``parallel.tp.row_parallel``); a
+feed-forward whose ``w1`` holds a shard of the units sums ``w2`` the same
+way. A block left whole by the rules runs as without a group.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch.nn.functional as F
 
 from ...ops.conv import conv1d
 from ...ops.nn import NEG_INF, layer_norm, linear
+from ...parallel.tp import row_parallel
 from .config import FlowRefConfig
 
 
@@ -72,11 +80,13 @@ def init_upsample_encoder_params(init, cfg: FlowRefConfig) -> Dict:
 
 
 def _rel_pos_attention(p: Dict, cfg: FlowRefConfig, x: torch.Tensor,
-                       valid: torch.Tensor) -> torch.Tensor:
-    """scores[i,j] = ((q_i+u)·k_j + (q_i+v)·pos[(T-1)+(i-j)]) / √dk, keys masked."""
+                       valid: torch.Tensor, tp_group=None) -> torch.Tensor:
+    """scores[i,j] = ((q_i+u)·k_j + (q_i+v)·pos[(T-1)+(i-j)]) / √dk, keys
+    masked, over this shard's heads."""
     B, T, E = x.shape
-    H = cfg.attention_heads
-    dk = E // H
+    dk = E // cfg.attention_heads
+    H = p["bias_u"].shape[0]
+    group = tp_group if H < cfg.attention_heads else None
     q = linear(x, p["q"]["w"], p["q"]["b"]).reshape(B, T, H, dk)
     k = linear(x, p["k"]["w"], p["k"]["b"]).reshape(B, T, H, dk)
     v = linear(x, p["v"]["w"], p["v"]["b"]).reshape(B, T, H, dk)
@@ -93,17 +103,20 @@ def _rel_pos_attention(p: Dict, cfg: FlowRefConfig, x: torch.Tensor,
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhij,bjhd->bihd", probs.float(), v.float())
-    return linear(out.reshape(B, T, E).to(x.dtype), p["out"]["w"], p["out"]["b"])
+    return row_parallel(out.reshape(B, T, H * dk).to(x.dtype), p["out"]["w"], p["out"]["b"],
+                        group)
 
 
 def _conformer_stack(blocks: List[Dict], cfg: FlowRefConfig, x: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+                     valid: torch.Tensor, tp_group=None) -> torch.Tensor:
     for blk in blocks:
         h = layer_norm(x, blk["norm_mha"]["w"], blk["norm_mha"]["b"])
-        x = x + _rel_pos_attention(blk["attn"], cfg, h, valid)
+        x = x + _rel_pos_attention(blk["attn"], cfg, h, valid, tp_group)
         h = layer_norm(x, blk["norm_ff"]["w"], blk["norm_ff"]["b"])
-        h = linear(F.silu(linear(h, blk["ff"]["w1"]["w"], blk["ff"]["w1"]["b"])),
-                   blk["ff"]["w2"]["w"], blk["ff"]["w2"]["b"])
+        ff = blk["ff"]
+        group = tp_group if ff["w1"]["w"].shape[0] < cfg.linear_units else None
+        h = row_parallel(F.silu(linear(h, ff["w1"]["w"], ff["w1"]["b"])), ff["w2"]["w"],
+                         ff["w2"]["b"], group)
         x = x + h
     return x
 
@@ -124,9 +137,11 @@ def _embed(p: Dict, x: torch.Tensor, keep_dtype: bool = False) -> torch.Tensor:
 
 
 def upsample_encode(params: Dict, cfg: FlowRefConfig, x: torch.Tensor,
-                    valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                    valid: torch.Tensor, tp_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, T, E] embedded tokens (invalid positions zeroed), valid [B, T]
-    → ([B, T*up_stride, E], upsampled valid mask)."""
+    → ([B, T*up_stride, E], upsampled valid mask). ``tp_group``: the
+    conformer blocks hold this rank's shard (every rank gets the same
+    output)."""
     vm = valid[:, :, None]
     x = torch.where(vm, _embed(params["embed"], x, cfg.bf16_activations), 0.0)
     la = params["lookahead"]
@@ -135,7 +150,7 @@ def upsample_encode(params: Dict, cfg: FlowRefConfig, x: torch.Tensor,
     h = conv1d(h, la["conv2"]["w"], la["conv2"]["b"], padding="CAUSAL")
     x = torch.where(vm, x + h, 0.0)
 
-    x = _conformer_stack(params["blocks"], cfg, x, valid)
+    x = _conformer_stack(params["blocks"], cfg, x, valid, tp_group)
 
     s = cfg.up_stride
     x = torch.where(vm, x, 0.0)
@@ -144,6 +159,6 @@ def upsample_encode(params: Dict, cfg: FlowRefConfig, x: torch.Tensor,
     valid_up = valid.repeat_interleave(s, dim=1)
     up = torch.where(valid_up[:, :, None],
                      _embed(params["up_embed"], up, cfg.bf16_activations), 0.0)
-    up = _conformer_stack(params["up_blocks"], cfg, up, valid_up)
+    up = _conformer_stack(params["up_blocks"], cfg, up, valid_up, tp_group)
     up = layer_norm(up, params["after_norm"]["w"], params["after_norm"]["b"])
     return up, valid_up

@@ -22,8 +22,8 @@ local heads: head counts come from the shard's shapes, never from
 ``cfg.num_heads``, and each rank's KV cache holds its ``Hk/tp`` heads (the
 int8 scales are per token and head, so quantising stays shard-local).
 ``copy_to_tp`` precedes the column-parallel products and ``reduce_from_tp``
-follows the row-parallel ones (``_row_parallel``: the partial products are
-summed in float32), so every rank holds the same residual stream,
+follows the row-parallel ones (``parallel.tp.row_parallel``: the partial
+products are summed in float32), so every rank holds the same residual stream,
 the same logits and, with the counter-based sampler, the same tokens. With
 no group both operators are the identity and the numbers are the unsharded
 ones. A sharded run and an unsharded one sum their products in other
@@ -52,7 +52,7 @@ from ...ops.nn import (
     rope_frequencies,
 )
 from ...ops.sampling import counter_gumbel, top_p_filter
-from ...parallel.tp import copy_to_tp, reduce_from_tp
+from ...parallel.tp import copy_to_tp, row_parallel
 from .config import T3Config
 
 Params = Dict
@@ -192,22 +192,11 @@ def _local_heads(params: Params, cfg: T3Config) -> Tuple[int, int]:
     return layers["wq"].shape[1] // cfg.head_dim, layers["wk"].shape[1] // cfg.head_dim
 
 
-def _row_parallel(x: torch.Tensor, w: torch.Tensor, tp_group) -> torch.Tensor:
-    """``linear(x, w)`` for a row-parallel weight, summed over ``tp_group``.
-    Under a group each rank's partial product stays float32 through the
-    all-reduce and is cast to x's dtype once, so a bf16 result differs from
-    the unsharded product by float32 summation order, not by rounding each
-    partial to bf16 first."""
-    if tp_group is None:
-        return linear(x, w)
-    return reduce_from_tp(linear(x.float(), w), tp_group).to(x.dtype)
-
-
 def _mlp(x, lp, tp_group):
     """SwiGLU with the gate/up rows column-parallel and w_down row-parallel."""
     x = copy_to_tp(x, tp_group)
     g = F.silu(linear(x, lp["w_gate"]))
-    return _row_parallel(g * linear(x, lp["w_up"]), lp["w_down"], tp_group)
+    return row_parallel(g * linear(x, lp["w_up"]), lp["w_down"], None, tp_group)
 
 
 def _backbone_prefill(params: Params, cfg: T3Config, h: torch.Tensor, valid: torch.Tensor, *,
@@ -237,7 +226,7 @@ def _backbone_prefill(params: Params, cfg: T3Config, h: torch.Tensor, valid: tor
         k = apply_rope(linear(x, lp["wk"]).reshape(B, S, Hk, Dh), cos, sin, positions)
         v = linear(x, lp["wv"]).reshape(B, S, Hk, Dh)
         o = causal_attention(q, _maybe_repeat_kv(k, Hq), _maybe_repeat_kv(v, Hq), mask)
-        h = h + _row_parallel(o.reshape(B, S, -1), lp["wo"], tp_group)
+        h = h + row_parallel(o.reshape(B, S, -1), lp["wo"], None, tp_group)
         h = h + _mlp(rms_norm(h, lp["mlp_norm"], cfg.rms_eps), lp, tp_group)
         return (h, k, v) if collect_kv else h
 
@@ -310,7 +299,7 @@ def _backbone_decode_step(
         else:
             kc[lanes, :, write_at] = k[:, 0]
             vc[lanes, :, write_at] = v[:, 0]
-        h = h + _row_parallel(o.reshape(B, 1, -1), lp["wo"], tp_group)
+        h = h + row_parallel(o.reshape(B, 1, -1), lp["wo"], None, tp_group)
         h = h + _mlp(rms_norm(h, lp["mlp_norm"], cfg.rms_eps), lp, tp_group)
     return rms_norm(h, params["backbone"]["final_norm"], cfg.rms_eps)
 

@@ -19,7 +19,13 @@ all-reduces in its backward too, which multiplies the gradient of every
 row-parallel product by the tp size.
 
 With ``group=None`` both are the identity, so the unsharded model runs the
-same operations as before. ``collectives`` counts the all-reduces these
+same operations as before. ``row_parallel`` and ``row_parallel_conv`` are a
+row-parallel linear and conv1d: each rank's partial product stays float32
+through the all-reduce, and the sum is cast once and takes the bias once,
+so a bf16 result differs from the unsharded product by float32 summation
+order, not by rounding each partial first. Both models use them (T3's
+``wo`` / ``w_down``; S3Gen-ref's conformer ``out`` / ``ff.w2``, the CFM
+estimator's ``to_out`` / ``ff2`` and its resnets' ``block2``). ``collectives`` counts the all-reduces these
 operators issue and the bytes they reduce (``reset_collectives`` /
 ``read_collectives``), forward and backward alike.
 """
@@ -29,6 +35,9 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from ..ops.conv import conv1d
+from ..ops.nn import linear
 
 collectives = {"all_reduce": 0, "bytes": 0}
 
@@ -82,3 +91,25 @@ def reduce_from_tp(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch
     """All-reduce forward, identity backward (after a row-parallel
     product)."""
     return x if group is None else _ReduceFromTP.apply(x, group)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                 group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """``linear(x, w, b)`` for a row-parallel weight ``[out, in/tp]``, summed
+    over ``group`` (no group: ``linear`` itself)."""
+    if group is None:
+        return linear(x, w, b)
+    y = reduce_from_tp(linear(x.float(), w), group)
+    return (y if b is None else y + b.float()).to(x.dtype)
+
+
+def row_parallel_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                      group: Optional[dist.ProcessGroup], padding: str) -> torch.Tensor:
+    """``conv1d(x, w, b, padding=padding)`` for a weight ``[Cout, Cin/tp, K]``
+    split on its input channels, summed over ``group``. As ``conv1d`` does,
+    the input is cast to the weight's dtype and the bias added to the sum
+    rounded to it."""
+    if group is None:
+        return conv1d(x, w, b, padding=padding)
+    y = reduce_from_tp(conv1d(x.to(w.dtype), w.float(), padding=padding), group).to(w.dtype)
+    return y if b is None else y + b

@@ -46,6 +46,14 @@ slices after a chunk's second grow (s → 2s → … ≤ 100 tokens), as in the 
 engine. The device is explicit: with no CUDA device and no ``device="cpu"``,
 construction raises. The engine records the JAX engine's serving metrics
 (``runtime.metrics``).
+
+``CHATTERBOX_TP=N`` serves tensor-parallel over ``devices`` (default
+``cuda:0`` … ``cuda:N−1``), as the JAX engine does over its first N devices:
+this process is rank 0 and runs the engine; N−1 follower processes hold
+their shards of T3 and, for the ref arch, of S3Gen-ref's flow, and replay
+every sharded call (``runtime/tp_serving.py``). The DiT, S3Tok, cloning and
+HiFT run here alone. Every sharded call goes through ``self.calls``, which
+is the plain call without tensor parallelism.
 """
 from __future__ import annotations
 
@@ -70,38 +78,29 @@ import torch.nn.functional as F
 from ..audio.crossfade import CrossfadeStitcher, trim_leading, trim_trailing
 from ..audio.encoding import AudioEncoder
 from ..audio.pcm import float_to_pcm16, read_wav, resample
-from ..convert import convert_params
 from ..logging_config import log
 from ..models.s3gen import S3GenConfig, s3gen_embed_ref, s3gen_inference
 from ..models.s3gen import draw_noise as dit_draw_noise
-from ..models.s3gen_ref import (
-    S3GenRefConfig,
-    draw_noise,
-    init_s3gen_stream_state,
-    s3gen_ref_embed_ref,
-    s3gen_ref_inference,
-    s3gen_ref_inference_tail,
-    s3gen_ref_prompt_prefill,
-)
-from ..models.s3gen_ref.decoder import cfm_noise_frames, static_prompt_cache
+from ..models.s3gen_ref import S3GenRefConfig, draw_noise, s3gen_ref_embed_ref
+from ..models.s3gen_ref.decoder import cfm_noise_frames
 from ..models.s3gen_ref.features import reflect_tail
 from ..models.s3gen_ref.tokenizer import s3tok_ref_tokenize
 from ..models.s3tok import S3TokConfig, s3tok_tokenize
-from ..models.t3 import T3Config, cond_embeddings, make_decode_state, t3_decode_slice, t3_prefill
+from ..models.t3 import T3Config, cond_embeddings
 from ..models.tokenizer import TextTokenizer
 from ..models.voice_encoder import VoiceEncoderConfig, voice_embed
 from ..ops import _build
-from ..ops.initializers import DenseInit, make_generator
 from ..ops.spectral import log_mel_spectrogram
 from ..serve.voice_manager import VoiceManager
-from ..settings import check_supported, get_settings, get_tts_config
+from ..parallel.sharding import check_tp
+from ..settings import get_settings, get_tts_config
 from ..text import split_text_into_chunks
 from .cancellation import CancellationToken, race_cancellation
-from .checkpoint import is_native_checkpoint, load_checkpoint
-from .loader import load_default_conds, load_reference_checkpoint, param_trees
+from .loader import load_default_conds, load_params
 from .metrics import metrics
 from .s3gen_scheduler import MAX_TAIL_TOKENS, S3GenScheduler
-from .scheduler import BatchedT3Decoder
+from .tp_serving import (FollowerSpec, ShardedCalls, TPGroup, params_to_numpy,
+                         shard_engine_params, tp_size)
 
 S3_SR = 16000      # the tokenizer's, the VoiceEncoder's and CAMPPlus's rate
 S3GEN_SR = 24000   # the prompt mel's rate
@@ -187,7 +186,6 @@ class EngineConfig:
         S3Tok). KV cache dtype from CHATTERBOX_KV (int8 default, ``native``
         = params dtype); per-chunk decode cap from
         CHATTERBOX_MAX_NEW_TOKENS."""
-        check_supported()
         arch = os.environ.get("CHATTERBOX_S3GEN_ARCH", "ref")
         kv = os.environ.get("CHATTERBOX_KV", "int8")
         cap = int(os.environ.get("CHATTERBOX_MAX_NEW_TOKENS", "1000"))
@@ -353,12 +351,6 @@ def _cond_fn(params: Dict, cfg: EngineConfig, wav24: torch.Tensor, wav24_len: to
     return lanes, ref
 
 
-def _ref_infer(cfg: S3GenRefConfig, params, tokens, token_len, ref, src, cache_len, noise,
-               cache=None):
-    return s3gen_ref_inference(params, cfg, tokens, token_len, ref, src, cache_len, noise,
-                               cfm_cache=cache)
-
-
 def _dit_infer(cfg: S3GenConfig, params, tokens, token_len, ref, src, cache_len, noise,
                cache=None):
     if cache is not None:
@@ -374,14 +366,33 @@ def _resolve_device(device) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _resolve_devices(tp: int, devices, device) -> Tuple[str, ...]:
+    """Every rank's device under tensor parallelism: ``devices`` as given,
+    else ``cuda:0`` … ``cuda:tp−1`` (the JAX engine's first tp devices);
+    fewer cards than ranks refuse."""
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < tp:
+            raise RuntimeError(f"CHATTERBOX_TP={tp} needs {tp} CUDA devices, found {n} "
+                               "(pass devices= to place the ranks)")
+        devices = [f"cuda:{i}" for i in range(tp)]
+    devices = tuple(str(torch.device(d)) for d in devices)
+    if len(devices) != tp:
+        raise ValueError(f"CHATTERBOX_TP={tp} with {len(devices)} devices {devices}")
+    if device is not None and torch.device(device) != torch.device(devices[0]):
+        raise ValueError(f"device={device} is not rank 0's device {devices[0]}")
+    return devices
+
+
 class TTSEngine:
     def __init__(self, engine_cfg: Optional[EngineConfig] = None, seed: int = 0,
-                 device=None, params: Optional[Dict] = None):
+                 device=None, params: Optional[Dict] = None, devices=None):
         """``params`` (optional) replaces the random init: {"t3": …, "s3gen":
         …, "ve": …} in the port's layout (``convert.convert_params``), on
-        ``device``."""
+        ``device``. ``devices``: every rank's device under ``CHATTERBOX_TP``
+        (rank 0's is the engine's; e.g. ``["cpu"] * N``); a tp that does not
+        divide T3's heads refuses here, before any rank starts."""
         settings = get_settings()
-        check_supported()
         if engine_cfg is None:
             if os.environ.get("CHATTERBOX_TINY_MODEL"):
                 # the JAX engine's choice: the DiT unless the ref arch is named
@@ -395,6 +406,13 @@ class TTSEngine:
                     engine_cfg, t3=engine_cfg.t3.with_(kv_cache_dtype=settings.KV_CACHE_DTYPE))
         self.cfg = engine_cfg
         self.seed = seed
+        self.tp_size = max(1, tp_size())
+        self.tp_devices: Optional[Tuple[str, ...]] = None
+        if self.tp_size > 1:
+            check_tp(engine_cfg.t3, self.tp_size)
+            self.tp_devices = _resolve_devices(self.tp_size, devices, device)
+            device = self.tp_devices[0]
+        self.tp: Optional[TPGroup] = None   # the followers, once _init_models starts them
         self.device = _resolve_device(device)
         self.gen_cfg = engine_cfg.gen
         self.sr = self.gen_cfg.sample_rate
@@ -402,11 +420,14 @@ class TTSEngine:
         # cache_len, noise, cache=None) → (wav, new_src), and its noise
         # draw, (cfg, batch, T, generator, device) → noise
         if engine_cfg.s3gen_arch == "ref":
-            self._infer = functools.partial(_ref_infer, engine_cfg.s3gen_ref)
+            self._infer = self._ref_infer
             self._draw_noise = draw_noise
         else:
             self._infer = functools.partial(_dit_infer, engine_cfg.s3gen)
             self._draw_noise = dit_draw_noise
+        # the sharded calls (the plain ones until _init_models starts a
+        # tensor-parallel group)
+        self.calls = ShardedCalls(engine_cfg, params, self.device)
         self.voice_manager = VoiceManager()
         self.voice_cache: Dict[str, Conditionals] = {}
         self.params: Optional[Dict] = params
@@ -435,11 +456,23 @@ class TTSEngine:
     def get_initialization_status(self) -> dict:
         return {"state": self._state.value, "progress": self._progress, "error": self._error}
 
+    def tp_status(self) -> Dict:
+        """Tensor parallelism as ``/system-status`` shows it."""
+        if self.tp is None:
+            return {"size": self.tp_size, "devices": self.tp_devices}
+        return {"size": self.tp_size, "devices": self.tp_devices, "backend": self.tp.backend,
+                "followers_alive": self.tp.alive(),
+                "sharded": ["t3", "s3gen_ref"] if self.cfg.s3gen_arch == "ref" else ["t3"]}
+
     def shutdown(self) -> None:
         log.info("Engine shutdown: releasing device buffers.")
         for sched in (self.decoder, self.s3gen_scheduler):
             if sched is not None:
                 sched.stop()
+        if self.tp is not None:
+            self.calls = ShardedCalls(self.cfg, None, self.device)   # drop the channels first
+            self.tp.close()
+            self.tp = None
         self.decoder = None
         self.s3gen_scheduler = None
         self.params = None
@@ -476,34 +509,40 @@ class TTSEngine:
     def _init_models(self) -> None:
         """The weights, as the JAX engine finds them in MODEL_PATH: a native
         checkpoint, else the reference safetensors (``t3_cfg.safetensors``
-        present), else a random init from the engine's seed."""
+        present), else a random init from the engine's seed. Under
+        ``CHATTERBOX_TP`` the followers start here, build the same weights
+        (or receive injected ones) and keep their shards; this rank keeps
+        shard 0 and the replicated rest."""
         model_dir = Path(get_settings().MODEL_PATH)
-        if self.params is None:
-            dtype = torch.bfloat16 if self.cfg.param_dtype == "bfloat16" else torch.float32
-            t0 = time.perf_counter()
-            if is_native_checkpoint(model_dir):
-                self._progress = "Loading native checkpoint..."
-                self.params = load_checkpoint(model_dir, self.cfg, dtype, self.device)
-                self.load_report = {"seconds": time.perf_counter() - t0, "bytes": sum(
-                    f.stat().st_size for f in model_dir.glob("*.safetensors"))}
-                log.info("Loaded native checkpoint from %s", model_dir)
-            elif (model_dir / "t3_cfg.safetensors").exists():
-                self._progress = "Loading checkpoint..."
-                self.params = load_reference_checkpoint(model_dir, self.cfg, dtype, self.device,
-                                                        self.seed, self.load_report)
-            if self.params is None:
-                log.info("No checkpoint at %s — random-init weights on %s (seed %d)", model_dir,
-                         self.device, self.seed)
-                with torch.inference_mode():
-                    # drawn in this order, so T3 and S3Gen stay the same at a seed
-                    trees = param_trees(self.cfg, DenseInit(make_generator(self.seed, self.device),
-                                                            self.device))
-                    self.params = convert_params(trees, self.device, dtype)
+        dtype_name = self.cfg.param_dtype
+        injected = self.params is not None
+        if not injected:
+            self._progress = "Loading weights..."
+            dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+            self.params = load_params(model_dir, self.cfg, dtype, self.device, self.seed,
+                                      self.load_report)
         if self.device.type == "cuda":
             _build.library()  # build the kernels now, not inside the first request
+        if self.tp_size > 1:
+            self._progress = f"Starting {self.tp_size - 1} tensor-parallel followers..."
+            spec = FollowerSpec(self.cfg, self.seed, str(model_dir), dtype_name,
+                                params_to_numpy(self.params) if injected else None)
+            self.tp = TPGroup(self.cfg, self.tp_devices, spec)
+            self.params = shard_engine_params(self.params, self.cfg, self.tp_size, 0,
+                                              follower=False)
+            self.calls = ShardedCalls(self.cfg, self.params, self.device, t3=self.tp.t3,
+                                      s3=self.tp.s3)
+            log.info("tensor-parallel over %d devices (t3%s)", self.tp_size,
+                     " + s3gen_ref" if self.cfg.s3gen_arch == "ref" else "")
+        else:
+            self.calls = ShardedCalls(self.cfg, self.params, self.device)
         tok_file = model_dir / "tokenizer.json"
         self.tokenizer = TextTokenizer(str(tok_file) if tok_file.exists() else None,
                                        self.cfg.t3.text_vocab_size)
+
+    def _ref_infer(self, params, tokens, token_len, ref, src, cache_len, noise, cache=None):
+        """The ref arch's chunk inference, through the sharded calls."""
+        return self.calls.s3gen_infer(tokens, token_len, ref, noise, cache, src, cache_len)
 
     def _init_schedulers(self) -> None:
         """The batched T3 decoder and the S3Gen micro-batcher, with the
@@ -512,21 +551,24 @@ class TTSEngine:
         and, for the ref arch, the tail-windowed vocoder unless
         ``CHATTERBOX_TAIL_VOCODE=0`` (the DiT vocodes in full and slices)."""
         settings = get_settings()
-        self.decoder = BatchedT3Decoder(
-            self.params["t3"], self.cfg.t3, n_slots=settings.MAX_DECODE_SLOTS,
-            slice_size=get_tts_config().AUDIO_TOKENS_PER_SLICE)
-        rc = self.cfg.s3gen_ref
-        tail_infer = None
-        if self.cfg.s3gen_arch == "ref" and os.environ.get("CHATTERBOX_TAIL_VOCODE", "1") == "1":
-            def tail_infer(p, tk, tl, rf, sr, cl, nz, start, tail_len, cache=None):
-                return s3gen_ref_inference_tail(p, rc, tk, tl, rf, sr, cl, nz, start, tail_len,
-                                                cfm_cache=cache)
+        self.decoder = self.calls.make_decoder(settings.MAX_DECODE_SLOTS,
+                                               get_tts_config().AUDIO_TOKENS_PER_SLICE)
+        calls = self.calls
+        tail_infer = stream_infer = None
+        if self.cfg.s3gen_arch == "ref":
+            def stream_infer(p, tk, tl, nl, rf, sr, cl, nz, start, tail_len, states, nb, cache):
+                return calls.s3gen_stream(tk, tl, nl, rf, nz, states, nb, cache, sr, cl, start,
+                                          tail_len)
+
+            if os.environ.get("CHATTERBOX_TAIL_VOCODE", "1") == "1":
+                def tail_infer(p, tk, tl, rf, sr, cl, nz, start, tail_len, cache=None):
+                    return calls.s3gen_infer(tk, tl, rf, nz, cache, sr, cl, start, tail_len)
         # the source row holds the largest bucket plus the largest per-slice
         # window shift (≤ slice + EOS ≤ MAX_TAIL_TOKENS)
         self.s3gen_scheduler = S3GenScheduler(
             self.params["s3gen"], self.gen_cfg, infer=self._infer,
             state_tokens=self._reachable_token_cap() + MAX_TAIL_TOKENS, tail_infer=tail_infer,
-            noise_fn=self._draw_noise)
+            noise_fn=self._draw_noise, stream_infer=stream_infer)
         gate_env = os.environ.get("CHATTERBOX_FIRST_AUDIO_GATE", "1")
         if gate_env != "0":
             timeout = 0.25 if gate_env == "1" else float(gate_env)
@@ -584,14 +626,7 @@ class TTSEngine:
             if hit is not None:
                 self._cfm_cache_lru[voice_id] = hit  # most recently used
                 return hit
-            rc = self.cfg.s3gen_ref
-            gen = torch.Generator(device=self.device).manual_seed(PROMPT_NOISE_SEED)
-            pm = rc.max_prompt_tokens * rc.flow.up_stride
-            noise = torch.randn((1, cfm_noise_frames(pm), rc.flow.output_size), generator=gen,
-                                device=self.device)
-            cache = s3gen_ref_prompt_prefill(self.params["s3gen"], rc, conds.gen_ref, noise)
-            if mode == "static":
-                cache = static_prompt_cache(cache)
+            cache = self.calls.prompt_prefill(conds.gen_ref, self._prompt_noise(), mode)
             cap = max(1, int(os.environ.get("CHATTERBOX_CFM_CACHE_VOICES", "4")))
             while len(self._cfm_cache_lru) >= cap:
                 evicted, _ = self._cfm_cache_lru.popitem(last=False)
@@ -599,6 +634,16 @@ class TTSEngine:
                 log.info("CFM prompt cache: evicted voice '%s' (cap %d)", evicted, cap)
             self._cfm_cache_lru[voice_id] = cache
             return cache
+
+    def _prompt_noise(self) -> torch.Tensor:
+        """The initial noise of every voice's CFM prompt solve, from the fixed
+        seed PROMPT_NOISE_SEED (the hook through which tests inject the JAX
+        engine's draw)."""
+        rc = self.cfg.s3gen_ref
+        gen = torch.Generator(device=self.device).manual_seed(PROMPT_NOISE_SEED)
+        pm = rc.max_prompt_tokens * rc.flow.up_stride
+        return torch.randn((1, cfm_noise_frames(pm), rc.flow.output_size), generator=gen,
+                           device=self.device)
 
     @torch.inference_mode()
     def _stream_state0(self, voice_id: str, cfm_cache: Dict) -> Dict:
@@ -609,8 +654,7 @@ class TTSEngine:
         if hit is not None and hit[0] is cfm_cache:
             return hit[1]
         window = int(os.environ.get("CHATTERBOX_STREAM_WINDOW", "512"))
-        state = init_s3gen_stream_state(self.cfg.s3gen_ref, cfm_cache, window,
-                                        self._reachable_token_cap())
+        state = self.calls.stream_state0(cfm_cache, window, self._reachable_token_cap())
         self._stream0[voice_id] = (cfm_cache, state)
         return state
 
@@ -817,9 +861,8 @@ class TTSEngine:
                            cfg_weight: float, temperature: float, slice_size: int,
                            request_id: str, token: CancellationToken, stats: Dict,
                            progressive: bool = False) -> None:
-        t3p = self.params["t3"]
         t3c = self.cfg.t3
-        dev = self.device
+        calls = self.calls
         try:
             for i, chunk in enumerate(text_chunks):
                 if token.is_cancelled():
@@ -845,17 +888,12 @@ class TTSEngine:
                         return
                     continue
 
-                def prefill():
-                    with torch.inference_mode():
-                        return t3_prefill(t3p, t3c, conds.t3_cond_lanes,
-                                          torch.as_tensor(lanes, device=dev),
-                                          torch.full((2,), len(ids), dtype=torch.int64, device=dev))
-
                 t0 = time.perf_counter()
-                cache = await asyncio.to_thread(prefill)
+                cache = await asyncio.to_thread(calls.t3_prefill, conds.t3_cond_lanes, lanes,
+                                                len(ids))
                 stats["t3_s"] += time.perf_counter() - t0
-                with torch.inference_mode():
-                    state = make_decode_state(t3c, [seed], temperature, 0.95, cfg_weight, 1.2, dev)
+                state = await asyncio.to_thread(calls.t3_state, [seed], temperature, 0.95,
+                                                cfg_weight, 1.2)
                 produced, slice_idx, kept, done = 0, 0, 0, False
                 pos0 = t3c.cond_len + T_pad
                 cache_depth = pos0 + 1 + t3c.max_speech_tokens
@@ -868,9 +906,8 @@ class TTSEngine:
                     s_view = min(cache_depth, ((pos0 + produced + n + 1 + 255) // 256) * 256)
 
                     def run_slice():
-                        with torch.inference_mode():
-                            toks = t3_decode_slice(t3p, t3c, cache, state, n, s_view)
-                            return toks.cpu().numpy(), bool(state["done"][0])
+                        toks = calls.t3_decode_slice(cache, state, n, s_view)
+                        return toks, bool(state["done"][0])
 
                     t0 = time.perf_counter()
                     toks, done = await asyncio.to_thread(run_slice)

@@ -22,6 +22,11 @@ Files are read by ``safetensors_io`` (no ``safetensors`` package needed). A
 file that is present but unreadable raises; a tensor the files lack keeps
 the random init the engine would have drawn at its seed, with a warning, as
 in the JAX loader. ``conds.pt`` is read with ``torch.load(weights_only=True)``.
+
+``load_params`` is the engine's whole lookup (a native checkpoint, the
+reference files, else the seeded random init); the followers of a
+tensor-parallel engine (``runtime/tp_serving.py``) call it too, so every
+rank builds the same weights.
 """
 from __future__ import annotations
 
@@ -295,6 +300,36 @@ def load_reference_checkpoint(model_dir: Path, engine_cfg, dtype, device, seed: 
         params = convert_params(trees, device, dtype)
     report.update(files=files, seconds=time.perf_counter() - t0,
                   bytes=sum(f["bytes"] for f in files.values()))
+    return params
+
+
+def load_params(model_dir: Path, engine_cfg, dtype, device, seed: int,
+                report: Dict) -> Dict:
+    """The weights as the JAX engine finds them in ``model_dir``: a native
+    checkpoint, else the reference safetensors (``t3_cfg.safetensors``
+    present), else a random init on ``device`` from a generator seeded with
+    ``seed`` → the port's parameters; ``report`` receives what was loaded
+    and the load's wall and bytes."""
+    from .checkpoint import is_native_checkpoint, load_checkpoint
+
+    model_dir = Path(model_dir)
+    t0 = time.perf_counter()
+    if is_native_checkpoint(model_dir):
+        params = load_checkpoint(model_dir, engine_cfg, dtype, device)
+        report.update(seconds=time.perf_counter() - t0, bytes=sum(
+            f.stat().st_size for f in model_dir.glob("*.safetensors")))
+        log.info("Loaded native checkpoint from %s", model_dir)
+        return params
+    params = None
+    if (model_dir / "t3_cfg.safetensors").exists():
+        params = load_reference_checkpoint(model_dir, engine_cfg, dtype, device, seed, report)
+    if params is None:
+        log.info("No checkpoint at %s — random-init weights on %s (seed %d)", model_dir,
+                 device, seed)
+        with torch.inference_mode():
+            # drawn in this order, so T3 and S3Gen stay the same at a seed
+            trees = param_trees(engine_cfg, DenseInit(make_generator(seed, device), device))
+            params = convert_params(trees, device, dtype)
     return params
 
 

@@ -74,6 +74,14 @@ def stream_block_tokens(max_new: int, bucket: int) -> int:
     return max(1, min(nb, MAX_TAIL_TOKENS, bucket))
 
 
+def _cancel_jobs(jobs: List["_Job"]) -> None:
+    """Cancel the jobs' futures and empty the list."""
+    for job in jobs:
+        if not job.future.done():
+            job.future.cancel()
+    jobs.clear()
+
+
 @dataclasses.dataclass
 class _Job:
     tokens: np.ndarray              # [T] bucket-padded
@@ -93,7 +101,8 @@ class _Job:
 
 class S3GenScheduler:
     def __init__(self, params: Dict, cfg, max_batch: int = 16, infer=None,
-                 state_tokens: int = 1032, tail_infer=None, noise_fn=draw_noise):
+                 state_tokens: int = 1032, tail_infer=None, noise_fn=draw_noise,
+                 stream_infer=None):
         """``infer(params, tokens, token_len, ref, src, cache_len, noise)`` →
         (wav [B, T·spt], new_src [B, T·spt]): the batched chunk inference
         (default ``s3gen_ref_inference``); ``noise_fn(cfg, batch, T,
@@ -105,7 +114,11 @@ class S3GenScheduler:
         start [B], tail_len) → (tail [B, tail_len], new_src), which vocodes
         only a receptive-field window around the tail (exact; see
         ``s3gen_ref_inference_tail``). Both take ``cache=`` for jobs with a
-        CFM prompt cache. Streaming jobs run ``s3gen_ref_inference_streaming``.
+        CFM prompt cache. Streaming jobs run ``stream_infer(params, tokens,
+        token_len, new_len, ref, src, cache_len, noise, start, tail_len,
+        states, new_block_tokens, cache)`` → (tails, new source, the jobs'
+        new states), by default ``s3gen_ref_inference_streaming`` over the
+        jobs' stacked states.
 
         ``state_tokens``: source-row capacity in tokens (≥ the largest bucket
         plus the largest per-slice shift)."""
@@ -123,6 +136,7 @@ class S3GenScheduler:
             lambda p, tk, tl, rf, sr, cl, nz, cache=None: s3gen_ref_inference(
                 p, cfg, tk, tl, rf, sr, cl, nz, cfm_cache=cache))
         self._tail_infer = tail_infer
+        self._stream_infer = stream_infer or self._stream_stacked
         self._noise_fn = noise_fn
         self._noise_gen = torch.Generator(device=self.device)
         self._queues: Dict[tuple, List[_Job]] = {}
@@ -136,6 +150,13 @@ class S3GenScheduler:
         # (they show that micro-batching batches)
         self.max_batch_seen = 0
         self.max_stream_batch_seen = 0
+
+    def _stream_stacked(self, params, tokens, tlen, nlen, ref, src, clen, noise, starts, tail,
+                        states, nb, cache):
+        tails, new_src, new_state = s3gen_ref_inference_streaming(
+            params, self.cfg, tokens, tlen, nlen, ref, src, clen, noise, starts, tail,
+            stack_stream_states(states), nb, cache)
+        return tails, new_src, split_stream_state(new_state, len(states))
 
     def _tail_len(self, T: int) -> int:
         return min(MAX_TAIL_TOKENS, T) * self.cfg.samples_per_token
@@ -221,11 +242,18 @@ class S3GenScheduler:
         self.start()
         fut = asyncio.get_running_loop().create_future()
         qkey = (len(tokens), id(cache) if cache is not None else 0, rstate is not None)
-        self._queues.setdefault(qkey, []).append(
-            _Job(tokens, token_len, ref, state, cache_len, seed, shift, prev_rel, fut, keep_state,
-                 cache, new_len, rstate))
+        job = _Job(tokens, token_len, ref, state, cache_len, seed, shift, prev_rel, fut,
+                   keep_state, cache, new_len, rstate)
+        queue = self._queues.setdefault(qkey, [])
+        queue.append(job)
         self._wake.set()
-        return await fut
+        try:
+            return await fut
+        except asyncio.CancelledError:
+            # a job no batch has taken yet leaves the queue with its caller
+            # (and its state with it)
+            queue[:] = [j for j in queue if j is not job]
+            raise
 
     @torch.inference_mode()
     def _run_batch(self, jobs: List[_Job]):
@@ -260,15 +288,13 @@ class S3GenScheduler:
         kw = {} if cache is None else {"cache": cache}
         new_rstates = None
         if streaming:
-            rstate = stack_stream_states([j.rstate for j in jobs])
             nlen = torch.as_tensor([j.new_len for j in jobs], device=dev)
         metrics.record_stage("s3gen_stack_host", _time.perf_counter() - t_stack)
         if streaming:
             nb = stream_block_tokens(max(j.new_len for j in jobs), T)
-            tails, new_src, new_r = s3gen_ref_inference_streaming(
-                self.params, self.cfg, tokens, tlen, nlen, ref, src, clen, noise, starts, tail,
-                rstate, nb, cache)
-            new_rstates = split_stream_state(new_r, len(jobs))
+            tails, new_src, new_rstates = self._stream_infer(
+                self.params, tokens, tlen, nlen, ref, src, clen, noise, starts, tail,
+                [j.rstate for j in jobs], nb, cache)
         elif self._tail_infer is not None:
             tails, new_src = self._tail_infer(self.params, tokens, tlen, ref, src, clen, noise,
                                               starts, tail, **kw)
@@ -294,35 +320,40 @@ class S3GenScheduler:
                 self._wake.clear()
                 await self._wake.wait()
                 continue
-            bucket = qkey[0]
-            queue = self._queues[qkey]
-            take = min(len(queue), self.allowed_batch(bucket))
-            jobs, queue[:] = queue[:take], queue[take:]
-            t0 = _time.perf_counter()
-            try:
-                tails, starts, new_states, new_rstates = await asyncio.to_thread(
-                    self._run_batch, jobs)
-            except asyncio.CancelledError:
-                for job in jobs:
-                    if not job.future.done():
-                        job.future.cancel()
-                raise
-            except Exception as exc:
-                log.exception("S3Gen batch (bucket=%d, jobs=%d) failed", bucket, take)
-                for job in jobs:
-                    if not job.future.done():
-                        job.future.set_exception(exc)
-                continue
-            dt = _time.perf_counter() - t0
-            metrics.record_stage("s3gen_device", dt, items=take)
-            self.max_batch_seen = max(self.max_batch_seen, take)
-            if new_rstates is not None:
-                self.max_stream_batch_seen = max(self.max_stream_batch_seen, take)
-            log.info("[S3GEN] batch bucket=%d jobs=%d cached=%s streaming=%s %.3fs", bucket, take,
-                     qkey[1] != 0, qkey[2], dt)
-            for i, job in enumerate(jobs):
+            await self._serve_batch(qkey)
+
+    async def _serve_batch(self, qkey: tuple) -> None:
+        """Run one batch off ``qkey``'s queue and resolve its jobs (a
+        coroutine of its own, so nothing of the batch, its streaming states
+        included, outlives it while the loop idles)."""
+        bucket = qkey[0]
+        queue = self._queues[qkey]
+        take = min(len(queue), self.allowed_batch(bucket))
+        jobs, queue[:] = queue[:take], queue[take:]
+        t0 = _time.perf_counter()
+        try:
+            tails, starts, new_states, new_rstates = await asyncio.to_thread(self._run_batch, jobs)
+        except asyncio.CancelledError:
+            # the cancelled task keeps this frame (its traceback): it must
+            # not keep the jobs
+            _cancel_jobs(jobs)
+            raise
+        except Exception as exc:
+            log.exception("S3Gen batch (bucket=%d, jobs=%d) failed", bucket, take)
+            for job in jobs:
                 if not job.future.done():
-                    result = (tails[i], starts[i], new_states[i] if job.keep_state else None)
-                    if new_rstates is not None:
-                        result += (new_rstates[i],)
-                    job.future.set_result(result)
+                    job.future.set_exception(exc)
+            return
+        dt = _time.perf_counter() - t0
+        metrics.record_stage("s3gen_device", dt, items=take)
+        self.max_batch_seen = max(self.max_batch_seen, take)
+        if new_rstates is not None:
+            self.max_stream_batch_seen = max(self.max_stream_batch_seen, take)
+        log.info("[S3GEN] batch bucket=%d jobs=%d cached=%s streaming=%s %.3fs", bucket, take,
+                 qkey[1] != 0, qkey[2], dt)
+        for i, job in enumerate(jobs):
+            if not job.future.done():
+                result = (tails[i], starts[i], new_states[i] if job.keep_state else None)
+                if new_rstates is not None:
+                    result += (new_rstates[i],)
+                job.future.set_result(result)

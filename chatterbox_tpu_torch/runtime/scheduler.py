@@ -18,6 +18,12 @@ yielding numpy token slices. Admission and each slice run in
 ``asyncio.to_thread``, one at a time, from the loop task. Not ported: the
 JAX package's ``warm_variants`` (it fills XLA's jit caches; eager PyTorch has
 none).
+
+Under tensor parallelism (``runtime/tp_serving.py``) the decoder holds this
+rank's shard of T3, its cache holds this rank's kv heads, and its device
+steps (``insert``, ``finish``, ``run_slice``) go through ``calls``, which
+runs each in step on every rank: each follower holds a decoder of its own
+and replays them.
 """
 from __future__ import annotations
 
@@ -67,12 +73,17 @@ LOOKAHEAD_STEPS = (8, 20)
 
 
 class BatchedT3Decoder:
-    def __init__(self, params: Dict, cfg: T3Config, n_slots: int = 16, slice_size: int = 35):
+    def __init__(self, params: Dict, cfg: T3Config, n_slots: int = 16, slice_size: int = 35,
+                 calls=None):
+        """``calls``: a tensor-parallel engine's ``tp_serving.ShardedCalls``
+        (``params`` is then this rank's shard)."""
         self.params = params
         self.cfg = cfg
         self.n_slots = n_slots
         self.slice_size = slice_size
-        L, Hk, Dh, S = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
+        self.calls = calls
+        L, Dh, S = cfg.num_layers, cfg.head_dim, cfg.max_seq_len
+        Hk = params["backbone"]["layers"]["wk"].shape[1] // Dh   # this shard's kv heads
         B = 2 * n_slots
         dev = params["speech_emb"].device
         self.device = dev
@@ -117,16 +128,37 @@ class BatchedT3Decoder:
         self._loop: Optional[asyncio.AbstractEventLoop] = None
 
     # ------------------------------------------------------ device steps (sync)
-    @torch.inference_mode()
     def insert(self, slot: int, cond_lanes: torch.Tensor, text: np.ndarray, text_len: int,
                temperature: float, top_p: float, cfg_weight: float, rep_penalty: float,
                seed: int) -> None:
         """Prefill one chunk into lanes 2·slot, 2·slot+1 of the cache (in
         place, quantising for int8) and reset the slot's decode-state row."""
+        args = (slot, cond_lanes, text, text_len, temperature, top_p, cfg_weight, rep_penalty,
+                seed)
+        if self.calls is None:
+            return self._insert(*args)
+        return self.calls.decoder_insert(self, *args)
+
+    def finish(self, slot: int) -> None:
+        if self.calls is None:
+            return self._finish(slot)
+        return self.calls.decoder_finish(self, slot)
+
+    def run_slice(self, n_steps: int, s_view: int):
+        """One decode slice over every slot → (tokens [N, n_steps], done [N])
+        as numpy, in one device-to-host copy."""
+        if self.calls is None:
+            return self._run_slice(n_steps, s_view)
+        return self.calls.decoder_run_slice(self, n_steps, s_view)
+
+    @torch.inference_mode()
+    def _insert(self, slot: int, cond_lanes: torch.Tensor, text: np.ndarray, text_len: int,
+                temperature: float, top_p: float, cfg_weight: float, rep_penalty: float,
+                seed: int, tp_group=None) -> None:
         cfg, dev = self.cfg, self.device
         text_t = torch.as_tensor(text, device=dev)
         tlen = torch.full((2,), text_len, dtype=torch.int64, device=dev)
-        k, v, pad = t3_prefill_raw(self.params, cfg, cond_lanes, text_t, tlen)
+        k, v, pad = t3_prefill_raw(self.params, cfg, cond_lanes, text_t, tlen, tp_group)
         P = k.shape[2]
         lanes = slice(2 * slot, 2 * slot + 2)
         # [L, 2, P, Hk, …] → the cache's [L, 2, Hk, P, …]
@@ -156,7 +188,7 @@ class BatchedT3Decoder:
         st["seed"][slot] = int(seed) & 0x7FFFFFFF
 
     @torch.inference_mode()
-    def finish(self, slot: int) -> None:
+    def _finish(self, slot: int) -> None:
         self.state["done"][slot] = True
 
     def _view_for(self, n_steps: int, slots) -> int:
@@ -167,10 +199,9 @@ class BatchedT3Decoder:
         return min(self.cfg.max_seq_len, ((need + 255) // 256) * 256)
 
     @torch.inference_mode()
-    def run_slice(self, n_steps: int, s_view: int):
-        """One decode slice over every slot → (tokens [N, n_steps], done [N])
-        as numpy, in one device-to-host copy."""
-        toks = t3_decode_slice(self.params, self.cfg, self.cache, self.state, n_steps, s_view)
+    def _run_slice(self, n_steps: int, s_view: int, tp_group=None):
+        toks = t3_decode_slice(self.params, self.cfg, self.cache, self.state, n_steps, s_view,
+                               tp_group=tp_group)
         out = torch.cat([toks, self.state["done"][:, None].to(toks.dtype)], dim=1).cpu().numpy()
         return out[:, :n_steps], out[:, n_steps].astype(bool)
 

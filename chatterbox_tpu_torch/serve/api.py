@@ -9,7 +9,8 @@ parameter:
   GET  /voices                list voice ids (auth)
   DELETE /voices/{voice_id}   delete user voice, 404 if absent (auth)
   GET  /health                liveness (no auth)
-  GET  /system-status         CPU/RAM + GPU telemetry, metrics, which kernels are on (auth)
+  GET  /system-status         CPU/RAM + GPU telemetry, metrics, which kernels are on,
+                              tensor parallelism (auth)
   POST /profile/start|stop    a torch.profiler Chrome trace into ?dir= (auth)
 
 Auth: ``X-API-Key`` header OR ``api_key`` query parameter. Requests are
@@ -286,6 +287,8 @@ def register_api_routes(app: web.Application) -> None:
                     "decode_attention": {"env": "CHATTERBOX_PALLAS", "on": pallas_enabled()},
                     "flash_mha": {"env": "CHATTERBOX_FLASH", "on": flash_enabled()},
                 },
+                # tensor parallelism (CHATTERBOX_TP): ranks, devices, backend
+                "tp": engine.tp_status(),
             }
         )
 

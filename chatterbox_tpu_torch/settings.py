@@ -10,9 +10,8 @@ directory, overridden by the process environment. Booleans read "1", "true",
 "yes" or "on"; lists read JSON or comma-separated text. Defaults follow the
 JAX package: 16 decode slots (``MAX_DECODE_SLOTS=1`` serves per request),
 the CFM prompt cache in "step" mode and streaming CFM on.
-``check_supported`` raises ``NotImplementedError`` naming the ROADMAP.md
-item when a path the port does not have is asked for (tensor parallelism,
-``CHATTERBOX_TP`` > 1), instead of quietly ignoring it.
+Every setting the JAX package reads is ported, serving under
+``CHATTERBOX_TP`` included (``runtime/tp_serving.py``).
 """
 from __future__ import annotations
 
@@ -107,19 +106,3 @@ def get_settings() -> AppSettings:
 
 def get_tts_config() -> TTSSettings:
     return _fill(TTSSettings, "TTS_")
-
-
-# (env name, port default, whether a value asks for a path the port lacks, item)
-_UNPORTED = (
-    ("CHATTERBOX_TP", "0", lambda v: int(v or 0) > 1,
-     "serving under tensor parallelism is the next slice, ROADMAP.md Queue 1 item 11, "
-     "continued (parallel/ shards T3 for training and for its own prefill and decode only)"),
-)
-
-
-def check_supported() -> None:
-    """Raise for a setting that selects a path the port does not have."""
-    for name, default, unported, item in _UNPORTED:
-        value = os.environ.get(name, default).lower()
-        if unported(value):
-            raise NotImplementedError(f"{name}={value}: not ported — {item}")

@@ -146,7 +146,21 @@ the script exits non-zero without printing the final line:
    float32) under dp = 1 x tp = 2 and dp = 2 x tp = 1 against the
    single-rank step (TRAIN_STEP_TOL); (c) each rank's step wall and the
    share of a step in collectives;
-13. the kernels' JSON summary, the GPU line, then the final JSON line.
+13. serving under CHATTERBOX_TP=2 (``runtime/tp_serving.py``), rank 0 and
+   one follower process on the card over gloo: EngineConfig.full() (ref,
+   int8 KV, 16 slots, the prompt cache and streaming CFM), 4 concurrent
+   one-chunk requests at a 35-token cap, each rank's launch counts set to 0
+   just before: every WAV checked, the follower's token digest equal to
+   rank 0's, K1's int8 body and both K2 forms launched on each rank, at 8
+   and 4 heads per rank; bf16 tokens against a tp = 1 engine reported
+   beside a control (tp = 1, one of the requests alone); with float32
+   weights, on the per-request path (MAX_DECODE_SLOTS=1), a request's
+   tokens and sample count held to tp = 1's, and one prompt-cached batched
+   S3Gen-ref call held to tp = 1's (TP_S3GEN_TOL: mel, excitation, waveform
+   through a conditioned vocoder). Phase 3 holds K1 at
+   8 heads and both K2 forms at 4 heads (one rank's) to their plain
+   versions (``check_tp_heads``);
+14. the kernels' JSON summary, the GPU line, then the final JSON line.
 
 K1 and K2 report the launches of the batched serving phase (the main path),
 K2 once per form; K3, which no serving path calls, reports its launches in
@@ -157,7 +171,9 @@ to the end of its closing request (``launches_training``), and in phase
 11(a) with the plain versions swapped in (``launches_kernels_off``, 0 for
 K1 and K2) and on the kernels (``launches_kernels_on``); K1 also reports
 each rank's launches in phase 12(a)'s sharded slice (``launches_tp``) and
-its query heads per rank there (``heads_tp``).
+its query heads per rank there (``heads_tp``); K1 and both K2 forms report
+each rank's launches while phase 13's tp = 2 engine served
+(``launches_tp_serving``) and their heads per rank (``heads_tp_serving``).
 """
 from __future__ import annotations
 
@@ -368,19 +384,20 @@ def check_decode_attention(results: dict) -> None:
         results[cache] = {"max_abs_err": worst, "tol": TOL[q_dtype]}
 
 
-def check_flash_mha(results: dict, context: bool = False) -> None:
+def check_flash_mha(results: dict, context: bool = False, H: int = 8) -> None:
     """K2 against its plain version, float32 and bfloat16. Self form: at 2
     lanes (T = 1012 with an all-masked lane, and 2500), then at the batched
     path's shape (16 jobs' CFG pairs, the 64-token bucket: T = 2 × (250 + 64)
     frames). Context form (``context``): Tq new frames over Tk = Tq + 1012
     prepended keys at the streaming batch's shapes (32 lanes, Tq = 72, 142,
     202), then a ragged Tq and Tk (neither a multiple of a tile) with an
-    all-masked lane. The all-masked lanes' rows must be exact zeros."""
+    all-masked lane. The all-masked lanes' rows must be exact zeros. ``H``:
+    the heads (8, the estimator's; 4, one rank's under CHATTERBOX_TP=2)."""
     from chatterbox_tpu_torch.ops import flash_mha as fm
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(9 if context else 2)
-    H, dh = 8, 64
+    g = torch.Generator(device=dev).manual_seed((9 if context else 2) + H)
+    dh = 64
 
     def self_mask(B, T):
         valid = torch.ones((B, T), dtype=torch.bool, device=dev)
@@ -397,7 +414,7 @@ def check_flash_mha(results: dict, context: bool = False) -> None:
              + [(LANES, 37, 37 + 990, ctx_mask(LANES, 37, 489, 501), 3)] if context else
              [(2, 1012, 1012, self_mask(2, 1012), 1), (2, 2500, 2500, self_mask(2, 2500), None),
               (LANES, 628, 628, self_mask(LANES, 628), None)])
-    form = "flash_mha context" if context else "flash_mha"
+    form = ("flash_mha context" if context else "flash_mha") + ("" if H == 8 else f" H={H}")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         worst, timing = 0.0, {}
@@ -667,6 +684,30 @@ def check_batched_decode(k1: dict, k3: dict) -> None:
                 f"decode_attention[int8] B={LANES}", lambda: da.decode_attention(*qargs),
                 lambda: da.decode_attention_plain(*qargs), decode_library_fn(*lib_args),
                 bms8, bby8, err8, TOL[dtype])}
+
+
+def check_tp_heads(k1: dict, k2: dict, k2c: dict) -> None:
+    """The kernels at one rank's head counts under CHATTERBOX_TP=2: K1's
+    int8 and bf16 bodies at 32 lanes with H = Hk = 8 (T3's 16 heads over two
+    ranks) at the batched decoder's S and windows, and both K2 forms at H = 4
+    (the estimator's 8 over two ranks), each against its plain version."""
+    from chatterbox_tpu_torch.ops import decode_attention as da
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    H = Hk = 8
+    S, Dh = 1280, 64
+    start, pos = batched_windows(dev, S)
+    for q_dtype, cache in (("bfloat16", "int8"), ("bfloat16", "bfloat16")):
+        dtype = getattr(torch, q_dtype)
+        tensors, scales = decode_inputs(g, LANES, H, Hk, S, Dh, dtype, cache)
+        args = (*tensors, start, pos, *scales)
+        err = compare(f"decode_attention[{cache}] B={LANES} H={H} Hk={Hk} S={S} (one rank's heads)",
+                      da.decode_attention(*args), da.decode_attention_plain(*args), TOL[dtype])
+        k1[f"tp_heads_{cache}"] = {"shape": f"B={LANES} H={H} Hk={Hk} S={S} Dh={Dh}",
+                                   "max_abs_err": err, "tol": TOL[dtype]}
+    check_flash_mha(k2, H=4)
+    check_flash_mha(k2c, context=True, H=4)
 
 
 def ptxas_report(log: str, kernel: str) -> list[dict]:
@@ -2294,8 +2335,8 @@ def check_bench_rows(script: str, rows: list) -> None:
 
 
 def bench_phase(tmp: Path, out: dict) -> None:
-    """(b) serve_bench --capacity (full overlap), then bench and ttfa_trace
-    side by side, each in its own process on a fresh engine at a
+    """(b) serve_bench --capacity (full overlap) and ttfa_trace side by side,
+    then bench, each in its own process on a fresh engine at a
     BENCH_NEW_TOKENS cap: each exits with 0, every JSON line parses, and
     ``check_bench_rows`` holds."""
     env = {**os.environ, "CHATTERBOX_MAX_NEW_TOKENS": BENCH_NEW_TOKENS, "BENCH_S3_BATCH": "4",
@@ -2303,9 +2344,9 @@ def bench_phase(tmp: Path, out: dict) -> None:
     sweep = tmp / "torch_serve_bench.json"
     steps = [
         {"serve_bench": ["--capacity", "--streams-list", "1,4", "--warmup-waves", "1",
-                         "--overlap", "full", "--out", str(sweep)]},
-        {"bench": ["--out", str(sweep)],
+                         "--overlap", "full", "--out", str(sweep)],
          "ttfa_trace": ["--warmups", "1", "--out", str(tmp / "torch_ttfa_trace.json")]},
+        {"bench": ["--out", str(sweep)]},   # reads the sweep's measured value
     ]
     for step in steps:
         t0 = time.perf_counter()
@@ -2610,6 +2651,300 @@ def parallel_phase(out: dict) -> dict:
     return {"per_rank": per_rank, "heads_per_rank": dec["q_heads"]}
 
 
+# ------------------------------------------------- tensor-parallel serving
+# Phase 13 serves the main path under CHATTERBOX_TP=2: EngineConfig.full()
+# (ref arch, int8 KV, random weights from the engine's seed, the seeded
+# conds.pt), MAX_DECODE_SLOTS=16 with the prompt cache and streaming CFM,
+# rank 0 and one follower process on cuda:0 over gloo (NCCL refuses two
+# ranks on one device), so no wall below is a tensor-parallel speed figure:
+# every collective goes through the host. Requests decode at most
+# TP_SERVE_NEW_TOKENS per chunk.
+TP_SERVE_NEW_TOKENS = "35"
+# one S3Gen-ref call at tp = 2 against tp = 1 on the same tokens and noise,
+# with the voice's prompt cache (K2's context form at 4 heads per rank),
+# float32 weights: tests/test_parallel_s3gen.py's tolerances (the excitation
+# is tanh-bounded; the waveform takes float32 reassociation in the sharded
+# products through the vocoder), and the mel within float32 summation order
+# relative to its peak. HiFT is replicated and reads the sharded flow's mel.
+# At full width its random init is chaotic: Snake's random alphas near 0
+# and convs drawn at 1/sqrt(Cin) whatever their kernel width grow the
+# activations to ~1e10, and a 2e-6 change of the mel moves the clipped
+# waveform by 1.98 (a CPU rehearsal at this config: correlation 0.32, as on
+# the card). So for this call both engines' HiFT is conditioned alike:
+# Snake's alphas at 1, every conv at fan-in Cin·K, the output conv scaled
+# by TP_HIFT_POST_SCALE with its log-magnitude lowered by
+# TP_HIFT_LOGMAG_SHIFT (in the rehearsal: peak 0.034, nothing clipped, a
+# 2e-6 mel change within 1.6e-7 of waveform).
+TP_S3GEN_TOL = {"source": 1e-5, "wav": 2e-2, "corr": 0.999, "mel_rel": 1e-4}
+TP_S3GEN_JOBS, TP_S3GEN_TOKENS = 2, 64
+TP_HIFT_POST_SCALE, TP_HIFT_LOGMAG_SHIFT = 0.1, 2.0
+
+
+@contextlib.contextmanager
+def spy_tokens(engine):
+    """Record, per request id, every slice's tokens that the engine's T3
+    producer hands its S3Gen producer, while the block runs → the record."""
+    out: dict = {}
+    producer = engine._s3gen_producer
+
+    class Spy:
+        def __init__(self, q, slices):
+            self.q, self.slices = q, slices
+
+        async def get(self):
+            item = await self.q.get()
+            if item is not None:
+                self.slices.append(np.asarray(item["tokens"]).tolist())
+            return item
+
+    engine._s3gen_producer = lambda token_q, *a, **kw: producer(
+        Spy(token_q, out.setdefault(a[8], [])), *a, **kw)
+    try:
+        yield out
+    finally:
+        del engine._s3gen_producer
+
+
+@contextlib.contextmanager
+def conditioned_hift(engine):
+    """The engine's HiFT conditioned (see TP_S3GEN_TOL) while the block
+    runs."""
+    s3 = engine.params["s3gen"]
+    hift = s3["mel2wav"]
+
+    def conv(c, scale=1.0):   # [Cout, Cin, K], or [Cin, Cout, K] for ups
+        return {**c, "w": c["w"] * (scale / math.sqrt(c["w"].shape[-1]))}
+
+    def resblock(r):
+        return {**r, "convs1": [conv(c) for c in r["convs1"]],
+                "convs2": [conv(c) for c in r["convs2"]],
+                "alpha1": [torch.ones_like(a) for a in r["alpha1"]],
+                "alpha2": [torch.ones_like(a) for a in r["alpha2"]]}
+
+    post = conv(hift["conv_post"], TP_HIFT_POST_SCALE)
+    shift = torch.zeros_like(post["b"])
+    shift[: engine.cfg.s3gen_ref.hift.istft_n_fft // 2 + 1] = TP_HIFT_LOGMAG_SHIFT
+    s3["mel2wav"] = {**hift, "conv_pre": conv(hift["conv_pre"]),
+                     "ups": [conv(u) for u in hift["ups"]],
+                     "source_downs": [conv(u) for u in hift["source_downs"]],
+                     "resblocks": [resblock(r) for r in hift["resblocks"]],
+                     "source_resblocks": [resblock(r) for r in hift["source_resblocks"]],
+                     "conv_post": {"w": post["w"], "b": post["b"] * TP_HIFT_POST_SCALE - shift}}
+    try:
+        yield
+    finally:
+        s3["mel2wav"] = hift
+
+
+async def tp_start(tp: int, dtype: str):
+    """An EngineConfig.full() engine at CHATTERBOX_TP=tp with ``dtype``
+    weights (tp > 1: ranks on cuda:0) → (the engine, its ainit wall)."""
+    from chatterbox_tpu_torch.runtime.engine import EngineConfig, TTSEngine
+
+    os.environ["CHATTERBOX_TP"] = str(tp)
+    try:
+        t0 = time.perf_counter()
+        engine = TTSEngine(EngineConfig.full(dtype), seed=0,
+                           devices=["cuda:0"] * tp if tp > 1 else None)
+        await engine.ainit()
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["CHATTERBOX_TP"]
+    return engine, time.perf_counter() - t0
+
+
+async def tp_serve(engine, texts, label: str) -> dict:
+    """Serve ``texts`` concurrently (request ids tp-0 …, the same on every
+    engine, so the same sampling seeds); every WAV checked → {"tokens": per
+    request, "samples": per request, "wall_s"}."""
+    from chatterbox_tpu_torch.runtime.cancellation import CancellationToken
+
+    async def one(i, text):
+        data = b""
+        async for chunk in engine.stream(text=text, request_id=f"tp-{i}",
+                                         cancellation_token=CancellationToken(), **REQUEST):
+            data += chunk
+        return f"tp-{i}", data
+
+    with spy_tokens(engine) as spy:
+        t0 = time.perf_counter()
+        results = await asyncio.gather(*[one(i, text) for i, text in enumerate(texts)])
+        wall = time.perf_counter() - t0
+    audio = report_requests(engine, results, two_chunks=False)
+    print(f"  {label}: {len(texts)} requests, {audio:.2f} s of audio in {wall:.3f} s", flush=True)
+    return {"tokens": {rid: spy[rid] for rid, _ in results},
+            "samples": {rid: (len(data) - 44) // 2 for rid, data in results}, "wall_s": wall}
+
+
+def token_diff(a: dict, b: dict) -> dict:
+    """Two runs' tokens per request → how many differ, and each request's
+    first differing position."""
+    n = differ = 0
+    first = {}
+    for rid in b["tokens"]:
+        x = [t for sl in a["tokens"][rid] for t in sl]
+        y = [t for sl in b["tokens"][rid] for t in sl]
+        n += max(len(x), len(y))
+        d = [i for i in range(max(len(x), len(y)))
+             if i >= len(x) or i >= len(y) or x[i] != y[i]]
+        differ += len(d)
+        first[rid] = d[0] if d else None
+    return {"tokens": n, "differ": differ, "first_divergence": first,
+            "samples_equal": all(a["samples"][rid] == b["samples"][rid] for rid in b["samples"])}
+
+
+def tp_s3gen_call(e1, e2) -> dict:
+    """One batched S3Gen-ref call (TP_S3GEN_JOBS jobs, the TP_S3GEN_TOKENS
+    bucket, the default voice and its prompt cache): e2's sharded calls (K2
+    at 4 heads on each rank) against e1's unsharded weights on the same
+    tokens and noise, both vocoders conditioned → the errors, held to
+    TP_S3GEN_TOL."""
+    from chatterbox_tpu_torch.models.s3gen_ref import (draw_noise, s3gen_ref_flow,
+                                                       s3gen_ref_inference)
+
+    rc, dev = e1.cfg.s3gen_ref, e1.device
+    B, T = TP_S3GEN_JOBS, TP_S3GEN_TOKENS
+    g = torch.Generator(device=dev).manual_seed(21)
+    tokens = torch.randint(0, rc.flow.vocab_size, (B, T), generator=g, device=dev)
+    tlen = torch.tensor([T, T - 17], device=dev)
+    ref = {k: torch.cat([v] * B) for k, v in e1.voice_cache["default"].gen_ref.items()}
+    noise = draw_noise(rc, B, T, g, dev)
+    src = torch.zeros((B, T * rc.samples_per_token), device=dev)
+    clen = torch.zeros((B,), dtype=torch.long, device=dev)
+    out, bad = {}, []
+    for label, c1, c2 in (("prompt_cached", e1._cfm_cache_lru["default"],
+                           e2._cfm_cache_lru["default"]),):
+        with torch.inference_mode(), conditioned_hift(e1), conditioned_hift(e2):
+            wav1, src1 = s3gen_ref_inference(e1.params["s3gen"], rc, tokens, tlen, ref, src, clen,
+                                             noise, cfm_cache=c1)
+            mel1 = s3gen_ref_flow(e1.params["s3gen"], rc, tokens, tlen, ref, noise["cfm"], c1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wav2, src2 = e2.calls.s3gen_infer(tokens, tlen, ref, noise, c2, src, clen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            mel2 = e2.calls.s3gen_flow(tokens, tlen, ref, noise, c2)
+        peak = mel1.abs().max().item()
+        r = {"mel_max_abs": (mel2 - mel1).abs().max().item(), "mel_peak": peak,
+             "source_max_abs": (src2 - src1).abs().max().item(),
+             "wav_max_abs": (wav2 - wav1).abs().max().item(),
+             "wav_peak": wav1.abs().max().item(),
+             "wav_clipped": (wav1.abs() >= e1.cfg.s3gen_ref.hift.audio_limit).float().mean().item(),
+             "wav_corr": min(float(np.corrcoef(a, b)[0, 1]) for a, b in zip(
+                 wav1.float().cpu().numpy(), wav2.float().cpu().numpy())),
+             "tp2_wall_s": wall}
+        out[label] = r
+        print(f"  S3Gen-ref {label}, {B} jobs x {T} tokens, tp=2 against tp=1: mel max abs "
+              f"{r['mel_max_abs']:.3g} (peak {peak:.3g}), excitation {r['source_max_abs']:.3g}, "
+              f"waveform {r['wav_max_abs']:.3g} (corr {r['wav_corr']:.6f}; peak "
+              f"{r['wav_peak']:.3g}, clipped share {r['wav_clipped']:.3g}); tp=2 call "
+              f"{wall:.3f} s", flush=True)
+        if not (r["mel_max_abs"] <= TP_S3GEN_TOL["mel_rel"] * peak
+                and r["source_max_abs"] <= TP_S3GEN_TOL["source"]
+                and r["wav_max_abs"] <= TP_S3GEN_TOL["wav"]
+                and r["wav_corr"] > TP_S3GEN_TOL["corr"] and r["wav_peak"] > 1e-3
+                and r["wav_clipped"] == 0.0):
+            bad.append(f"{label}: {r}")
+    if bad:
+        raise AssertionError(f"phase 13 S3Gen-ref at tp=2 against tp=1 ({TP_S3GEN_TOL}): {bad}")
+    return out
+
+
+async def tp_serving_phase(out: dict) -> dict:
+    """Phase 13 → each rank's K1 and K2 launches while the tp = 2 engine
+    served (a)'s 4 concurrent requests, and the head counts they ran at.
+
+    (a) bf16 weights, as served: a tp = 1 engine serves the 4 requests
+    concurrently, then the first alone (the control: bf16 tokens may move
+    with the batch they decode in, with no tensor parallelism); the tp = 2
+    engine
+    serves them with the default voice's prompt cache rebuilt, its launch
+    counts set to 0 on both ranks just before and read just after: every
+    WAV checked, the follower's token digest equal to rank 0's, K1's int8
+    body and both K2 forms launched on each rank at 8 and 4 heads; its
+    tokens against tp = 1 reported beside the control. (b) float32 weights,
+    on the per-request path (MAX_DECODE_SLOTS=1: the T3 prefill, decode
+    state and slices and the prompt-cached S3Gen call through the sharded
+    calls): tp = 2 against tp = 1, the first request's tokens and sample
+    count held equal; then one batched S3Gen-ref call held to TP_S3GEN_TOL
+    (``tp_s3gen_call``)."""
+    texts = [TEXTS[0], TEXTS[2], f"Parallel. {TEXTS[0]}", f"Parallel. {TEXTS[2]}"]
+    walls, runs, engines = {}, {}, {}
+    try:
+        for tp in (1, 2):
+            engines[tp], walls[f"boot_tp{tp}_bf16_s"] = await tp_start(tp, "bfloat16")
+        e1, e2 = engines[1], engines[2]
+        print(f"  tp=2: {json.dumps(e2.tp_status())}; ainit (s) {json.dumps(walls)}", flush=True)
+        runs["tp1"] = await tp_serve(e1, texts, "tp=1 bf16, concurrent")
+        runs["alone"] = await tp_serve(e1, texts[:1], "tp=1 bf16, alone (control)")
+        reset_launches()
+        e2.tp.follower_stats(reset_launches=True)
+        build_voice_cache(e2)   # K2's self form runs in the prompt prefill
+        runs["tp2"] = await tp_serve(e2, texts, "tp=2 bf16, concurrent")
+        per_rank = [read_launches(), e2.tp.follower_stats()[0]["launches"]]
+        gc.collect()
+        lead, (follower,) = e2.calls.stats(), e2.tp.follower_stats()
+        est = e2.params["s3gen"]["flow"]["estimator"]["down"]["tf"][0]
+        heads = {"decode_attention": e2.params["t3"]["backbone"]["layers"]["wq"].shape[1]
+                 // e2.cfg.t3.head_dim, "flash_mha": est["to_q"]["w"].shape[0]
+                 // e2.cfg.s3gen_ref.flow.dec_attention_head_dim}
+    finally:
+        for e in engines.values():
+            e.shutdown()
+        engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    digests_equal = ((lead["token_digest"], lead["token_calls"])
+                     == (follower["token_digest"], follower["token_calls"]))
+    del e1, e2
+    launches = {"decode_attention": [r["decode_attention"]["int8"] for r in per_rank],
+                "flash_mha": [r["flash_mha"]["float32"] for r in per_rank],
+                "flash_mha_context": [r["flash_mha"]["float32_ctx"] for r in per_rank]}
+    bf16 = {"tp2_vs_tp1": token_diff(runs["tp1"], runs["tp2"]),
+            "control_alone_vs_concurrent": token_diff(runs["tp1"], runs["alone"])}
+    print(f"  tp=2: follower's token digest equal to rank 0's {digests_equal} "
+          f"({lead['token_calls']} T3 calls); launches per rank {json.dumps(launches)} at "
+          f"{json.dumps(heads)} heads per rank; follower handles {follower['handles']}",
+          flush=True)
+    print(f"  bf16 tokens, tp=2 against tp=1: {json.dumps(bf16['tp2_vs_tp1'])}; control "
+          f"(tp=1, the first request alone against all four): "
+          f"{json.dumps(bf16['control_alone_vs_concurrent'])}", flush=True)
+    os.environ["MAX_DECODE_SLOTS"] = "1"
+    try:
+        for tp in (1, 2):
+            engines[tp], walls[f"boot_tp{tp}_f32_s"] = await tp_start(tp, "float32")
+        for tp in (1, 2):
+            runs[f"f32_tp{tp}"] = await tp_serve(engines[tp], texts[:1],
+                                                 f"tp={tp} float32, per request")
+        s3 = tp_s3gen_call(engines[1], engines[2])
+    finally:
+        os.environ["MAX_DECODE_SLOTS"] = str(SLOTS)
+        for e in engines.values():
+            e.shutdown()
+        engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    f32 = token_diff(runs["f32_tp1"], runs["f32_tp2"])
+    print(f"  float32 tokens, tp=2 against tp=1: {json.dumps(f32)}", flush=True)
+    walls.update({f"serve_{k}_s": r["wall_s"] for k, r in runs.items()})
+    print(f"  walls (s), {gpu_line()}; two ranks on one card over gloo, so no tensor-parallel "
+          f"speed figure: {json.dumps({k: round(v, 3) for k, v in walls.items()})}", flush=True)
+    out.update(backend="gloo", launches_per_rank=launches, heads_per_rank=heads,
+               digests_equal=digests_equal, bf16=bf16, float32=f32, s3gen_call=s3, walls=walls)
+    bad = []
+    if not digests_equal:
+        bad.append("the follower's tokens differ from rank 0's")
+    if heads != {"decode_attention": 8, "flash_mha": 4}:
+        bad.append(f"heads per rank {heads}")
+    if any(n == 0 for v in launches.values() for n in v):
+        bad.append(f"a kernel did not launch on every rank: {launches}")
+    if f32["differ"] or not f32["samples_equal"]:
+        bad.append(f"float32 tokens or sample counts differ: {f32}")
+    if bad:
+        raise AssertionError(f"phase 13: {bad}")
+    return {"launches": launches, "heads": heads}
+
+
 def phase(title: str):
     print(f"== {title}", flush=True)
     return time.perf_counter()
@@ -2620,6 +2955,26 @@ def done(t0: float, walls: dict, key: str) -> None:
     print(f"  [phase wall {walls[key]:.1f} s]", flush=True)
 
 
+class _Tee:
+    """Standard output also written to a file: the whole run's log (the
+    output's last lines hold little more than the summary records)."""
+
+    def __init__(self, stream, path: Path):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        self.stream, self.file = stream, open(path, "w")
+
+    def write(self, text):
+        self.file.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.file.flush()
+        self.stream.flush()
+
+    def __getattr__(self, name):   # fileno, isatty, encoding …: the stream's
+        return getattr(self.stream, name)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -2627,6 +2982,8 @@ def main() -> int:
         return 2
     import chatterbox_tpu_torch  # noqa: F401  (fails outside a checkout)
     from chatterbox_tpu_torch.ops import _build
+
+    sys.stdout = _Tee(sys.stdout, Path.cwd() / "chiprun_out" / "chip_smoke.log")
 
     walls: dict = {}
     t0 = phase("1. machine")
@@ -2662,6 +3019,8 @@ def main() -> int:
     check_flash_mha(k2c, context=True)
     check_other_shapes(k1, k2, k3)
     check_batched_decode(k1, k3)
+    k2_h4, k2c_h4 = {}, {}
+    check_tp_heads(k1, k2_h4, k2c_h4)
     k3_launches = read_launches()["decode_attention_pipelined"]["native"]
     done(t0, walls, "kernels")
 
@@ -2772,14 +3131,26 @@ def main() -> int:
         bench_phase(Path(tmp), serving["bench"])
         done(t0, walls, "kernels_off_and_bench")
 
-    t0 = phase("12. tensor- and data-parallel T3: 2 ranks on the card (gloo)")
-    serving["parallel"] = {}
-    tp_launches = parallel_phase(serving["parallel"])
-    done(t0, walls, "parallel")
+        t0 = phase("12. tensor- and data-parallel T3: 2 ranks on the card (gloo)")
+        serving["parallel"] = {}
+        tp_launches = parallel_phase(serving["parallel"])
+        done(t0, walls, "parallel")
 
-    print("== 13. summary", flush=True)
-    rounded = {k: round(v, 1) for k, v in walls.items()}
-    print(f"  phase walls (s): {json.dumps(rounded)}", flush=True)
+        t0 = phase("13. tensor-parallel serving (CHATTERBOX_TP=2): 2 ranks on the card (gloo), "
+                   "4 requests batched with the prompt cache and streaming CFM; one S3Gen-ref "
+                   "call against tp=1; float32 against tp=1")
+        serving["tp_serving"] = {}
+        os.environ.update(MODEL_PATH=str(model_dir), MAX_DECODE_SLOTS=str(SLOTS),
+                          CHATTERBOX_MAX_NEW_TOKENS=TP_SERVE_NEW_TOKENS)
+        try:
+            tp_serving = asyncio.run(tp_serving_phase(serving["tp_serving"]))
+        finally:
+            os.environ["CHATTERBOX_MAX_NEW_TOKENS"] = MAX_NEW_TOKENS
+        gc.collect()
+        torch.cuda.empty_cache()
+        done(t0, walls, "tp_serving")
+
+    print("== 14. summary", flush=True)
     # ms / plain_ms / library_ms: device time per call; call_ms: with the
     # host's dispatch; bound_ms: bytes over 3.35 TB/s or operations over peak
     k3_main = {**k3["bfloat16"], "max_abs_err": max(k3["bfloat16"]["max_abs_err"], k3_live["live"]),
@@ -2794,10 +3165,13 @@ def main() -> int:
              launches_kernels_off=knob_launches["off"]["decode_attention"]["int8"],
              launches_kernels_on=knob_launches["on"]["decode_attention"]["int8"],
              launches_tp=tp_launches["per_rank"], heads_tp=tp_launches["heads_per_rank"],
+             launches_tp_serving=tp_serving["launches"]["decode_attention"],
+             heads_tp_serving=tp_serving["heads"]["decode_attention"],
              other_bodies={"bfloat16": k1[f"bfloat16_B{LANES}"], "B2_checks": {
                  c: k1[c] for c in ("int8", "bfloat16", "float32")}, "slice_edge_checks": {
                  c: k1[f"slice_edges_B{LANES}_{c}"] for c in ("int8", "bfloat16", "float32")},
                  "other_shapes": {c: k1[f"other_shapes_{c}"] for c in ("int8", "bfloat16", "float32")},
+                 "tp_heads": {c: k1[f"tp_heads_{c}"] for c in ("int8", "bfloat16")},
                  "live_bf16_ms": k1["live_bf16_ms"]}),
         dict(name="flash_mha", route="cuda", **KERNELS["flash_mha"],
              launches=launches["flash_mha"]["float32"], body="float32, self form",
@@ -2806,9 +3180,12 @@ def main() -> int:
              launches_training=training_launches["flash_mha"]["float32"],
              launches_kernels_off=knob_launches["off"]["flash_mha"]["float32"],
              launches_kernels_on=knob_launches["on"]["flash_mha"]["float32"],
+             launches_tp_serving=tp_serving["launches"]["flash_mha"],
+             heads_tp_serving=tp_serving["heads"]["flash_mha"],
              launches_from="phase 4: the default voice's prompt prefill", **k2["float32"],
              other_bodies={"bfloat16": k2["bfloat16"], "other_head_dims": {
-                 c: k2[f"other_dh_{c}"] for c in ("float32", "bfloat16")}}),
+                 c: k2[f"other_dh_{c}"] for c in ("float32", "bfloat16")},
+                 "tp_heads_4": k2_h4}),
         dict(name="flash_mha_context", route="cuda", **KERNELS["flash_mha"],
              launches=launches["flash_mha"]["float32_ctx"], body="float32, context form",
              launches_loaded_checkpoint=loaded_launches["flash_mha"]["float32_ctx"],
@@ -2816,8 +3193,10 @@ def main() -> int:
              launches_training=training_launches["flash_mha"]["float32_ctx"],
              launches_kernels_off=knob_launches["off"]["flash_mha"]["float32_ctx"],
              launches_kernels_on=knob_launches["on"]["flash_mha"]["float32_ctx"],
+             launches_tp_serving=tp_serving["launches"]["flash_mha_context"],
+             heads_tp_serving=tp_serving["heads"]["flash_mha"],
              launches_from="phase 4: every cached and streaming estimator evaluation",
-             **k2c["float32"], other_bodies={"bfloat16": k2c["bfloat16"]}),
+             **k2c["float32"], other_bodies={"bfloat16": k2c["bfloat16"], "tp_heads_4": k2c_h4}),
         dict(name="decode_attention_pipelined", route="cuda",
              **KERNELS["decode_attention_pipelined"], launches=k3_launches, body="bfloat16",
              launches_loaded_checkpoint=loaded_launches["decode_attention_pipelined"]["native"],
@@ -2833,6 +3212,9 @@ def main() -> int:
                  "ptxas": k3_ptxas}),
     ]}
     print(f"  serving: {json.dumps(serving)}", flush=True)
+    # after the long serving record, so the end of the output keeps it
+    print(f"  phase walls (s): {json.dumps({k: round(v, 1) for k, v in walls.items()})}",
+          flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

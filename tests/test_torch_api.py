@@ -188,6 +188,7 @@ def test_system_status(api):
     assert status["engine"]["state"] == "ready" and status["metrics"]["requests"]["total"] >= 1
     assert status["kernels"] == {"decode_attention": {"env": "CHATTERBOX_PALLAS", "on": True},
                                  "flash_mha": {"env": "CHATTERBOX_FLASH", "on": True}}
+    assert status["tp"] == {"size": 1, "devices": None}
 
 
 def test_root_serves_console(api):
@@ -286,8 +287,8 @@ def test_system_status_keys_match_jax(api):
         return want, got
 
     want, got = api.run(go())
-    # every key of the JAX server's, and the port's "kernels"
-    assert set(got) == set(want) | {"kernels"}
+    # every key of the JAX server's, and the port's "kernels" and "tp"
+    assert set(got) == set(want) | {"kernels", "tp"}
     for k in ("cpu", "engine", "metrics"):
         assert set(got[k]) == set(want[k]), k
 

@@ -11,15 +11,18 @@ vocoder turns 1e-7 of mel into 3e-2 of waveform. Four cases:
 ``EngineConfig.tiny_ref()`` (the main path) and ``tiny()`` (the DiT), each on
 the per-request path (MAX_DECODE_SLOTS=1) and the batched one
 (MAX_DECODE_SLOTS=4, two concurrent requests), with the serving defaults (the
-CFM prompt cache in "step" mode, streaming CFM on the batched path).
+CFM prompt cache in "step" mode, streaming CFM on the batched path), and
+queues that hold every slice of a request (``QUEUE_ROOM``).
 
-The port draws its noise through one hook, ``engine._draw_noise``; the test
-replaces it on the port's engine with the JAX engine's own draws: the key
+The port draws its noise through two hooks, ``engine._draw_noise`` and
+``engine._prompt_noise``; the test replaces them on the port's engine with
+the JAX engine's own draws: the key
 ``fold_in(fold_in(PRNGKey(1234), _stable_seed(request_id)), chunk_idx)`` of
 ``chatterbox_tpu/runtime/engine.py``, and from it the CFM, HiFT and NSF draws
 of the ref S3Gen (``jax_s3gen_noise``) or the DiT's flow and source draws;
-the prompt cache's noise is JAX's ``PRNGKey(777)`` buffer. The hook finds
-the request and chunk from the seed the port's engine gives the generator.
+the prompt cache's noise is JAX's ``PRNGKey(777)`` buffer (``prompt_noise``).
+The hook finds the request and chunk from the seed the port's engine gives
+the generator.
 Nothing in either package changes.
 
 Held: equal sample counts; MCD and LSD (``chatterbox_tpu_torch.audio.quality``)
@@ -65,6 +68,13 @@ REQUEST = dict(output_format="wav", voice_id=None, cfg_guidance_weight=0.5,
                chunk_overlap_strategy="full", crossfade_duration_milliseconds=10)
 TEXTS = ["Hello there. This is a test of the port.", "A short one."]
 MAX_CHUNKS = 8
+# room in both engines' token and PCM queues for every slice of a request.
+# A producer that ends waits 10 s for room for its end marker, then drops
+# the oldest queued slice to make room (both engines do so by design); on a
+# loaded host the JAX engine's consumer can stall that long while XLA
+# compiles an S3Gen bucket, and one request then came out a slice short
+# (1132 bytes against 1164). With room the marker never waits.
+QUEUE_ROOM = 64
 # parity at no more than this share of the two-key JAX yardstick, and under
 # these absolute bounds (dB)
 YARDSTICK_SHARE = 0.1
@@ -95,7 +105,7 @@ def _dit_noise(jcfg, key, B, T, frames):
             "source": to_t(src)[..., 0]}
 
 
-def _inject_jax_noise(engine, jcfg, request_ids, monkeypatch) -> dict:
+def _inject_jax_noise(engine, jcfg, request_ids) -> dict:
     """Replace the port engine's noise draw (and the prompt cache's) by the
     JAX engine's for ``request_ids`` → the draws made, counted as they run."""
     calls = {"draws": 0, "prompt": 0}
@@ -117,15 +127,16 @@ def _inject_jax_noise(engine, jcfg, request_ids, monkeypatch) -> dict:
         return got
 
     engine._draw_noise = draw
-    prefill = teng_mod.s3gen_ref_prompt_prefill
+    port_prompt_noise = engine._prompt_noise
 
-    def jax_prompt_prefill(params, cfg, ref, noise):
-        jnoise = prompt_noise(cfg.flow.output_size)
+    def jax_prompt_noise():
+        noise = port_prompt_noise()   # the shape only
+        jnoise = prompt_noise(engine.cfg.s3gen_ref.flow.output_size)
         assert jnoise.shape == noise.shape
         calls["prompt"] += 1
-        return prefill(params, cfg, ref, jnoise)
+        return jnoise
 
-    monkeypatch.setattr(teng_mod, "s3gen_ref_prompt_prefill", jax_prompt_prefill)
+    engine._prompt_noise = jax_prompt_noise
     return calls
 
 
@@ -161,7 +172,8 @@ def served(request, tmp_path_factory):
     mp = pytest.MonkeyPatch()
     for k, v in {"MODEL_PATH": str(tmp / "models"), "VOICES_DIR": str(tmp / "voices"),
                  "PRELOADED_VOICES_DIR": str(tmp / "preloaded"), "MAX_DECODE_SLOTS": str(slots),
-                 "CHATTERBOX_PRECOMPILE": "0"}.items():
+                 "CHATTERBOX_PRECOMPILE": "0", "TTS_SPEECH_TOKEN_QUEUE_MAX_SIZE": str(QUEUE_ROOM),
+                 "TTS_PCM_CHUNK_QUEUE_MAX_SIZE": str(QUEUE_ROOM)}.items():
         mp.setenv(k, v)
     for k in ("CHATTERBOX_S3GEN_ARCH", "CHATTERBOX_TINY_MODEL", "CHATTERBOX_CFM_PROMPT_CACHE",
               "CHATTERBOX_CFM_STREAM"):
@@ -189,7 +201,7 @@ def served(request, tmp_path_factory):
         params = {k: convert_params(jax_tree_to_np(v), "cpu") for k, v in jeng.params.items()}
         jeng.shutdown()
         teng = TTSEngine(cfg, seed=3, device="cpu", params=params)
-        calls = _inject_jax_noise(teng, jcfg, _ids("parity", n), mp)
+        calls = _inject_jax_noise(teng, jcfg, _ids("parity", n))
         asyncio.run(teng.ainit())
         twavs = asyncio.run(_serve(teng, CancellationToken, _ids("parity", n)))
         stats = [teng.request_stats[r] for r in _ids("parity", n)]

@@ -26,8 +26,8 @@ The T3 config is tests/test_parallel_training.py's (8 heads, 128 wide).
 * ``train_t3 --tiny --cpu --dp 2 --tp 2``: its checkpoint matches the
   single-process run's to stated multiples of lr and serves in both
   engines; a tp that does not divide the heads and a batch that does not
-  divide over dp refuse before any rank starts; ``CHATTERBOX_TP`` > 1 still
-  refuses, naming the next slice.
+  divide over dp refuse before any rank starts, and so does an engine at a
+  ``CHATTERBOX_TP`` that does not divide the heads.
 """
 import asyncio
 from pathlib import Path
@@ -428,9 +428,14 @@ def test_train_t3_refuses_a_mesh_that_does_not_fit(trained, tmp_path):
 
 
 def test_tensor_parallel_serving_still_refuses(monkeypatch):
-    from chatterbox_tpu_torch.settings import check_supported
+    """Serving under CHATTERBOX_TP is ported (tests/test_torch_tp_serving.py),
+    but a tp that does not divide T3's heads still refuses, naming the
+    leaf, before any rank starts."""
+    import multiprocessing
 
-    monkeypatch.setenv("CHATTERBOX_TP", "2")
-    with pytest.raises(NotImplementedError,
-                       match="serving under tensor parallelism is the next slice.*item 11, continued"):
-        check_supported()
+    from chatterbox_tpu_torch.runtime.engine import EngineConfig, TTSEngine
+
+    monkeypatch.setenv("CHATTERBOX_TP", "3")
+    with pytest.raises(ValueError, match="backbone/layers/wq: 4 query heads do not split over tp=3"):
+        TTSEngine(EngineConfig.tiny_ref(), device="cpu", devices=["cpu"] * 3)
+    assert not multiprocessing.active_children()

@@ -216,16 +216,11 @@ def test_three_jobs_run_three_lanes(setup):
         np.testing.assert_array_equal(tail, results[0][0])
 
 
-def test_unported_jobs_raise(setup, monkeypatch):
-    """Progressive slices are accepted now (settings), as are prompt-cached
-    and streaming jobs; a streaming job the block cannot hold, one without
-    the prompt cache, or one with a window shift, is refused, as is an
-    out-of-range shift."""
-    from chatterbox_tpu_torch.settings import check_supported
-
+def test_unported_jobs_raise(setup):
+    """Prompt-cached and streaming jobs are accepted; a streaming job the
+    block cannot hold, one without the prompt cache, or one with a window
+    shift, is refused, as is an out-of-range shift."""
     _, _, params, _, ref = setup
-    monkeypatch.setenv("CHATTERBOX_PROGRESSIVE_SLICES", "1")
-    check_supported()
 
     async def run(**kw):
         sched = S3GenScheduler(params, CFG, state_tokens=STATE_TOKENS)
