@@ -384,6 +384,22 @@ def _resolve_devices(tp: int, devices, device) -> Tuple[str, ...]:
     return devices
 
 
+def config_from_env() -> EngineConfig:
+    """The config ``TTSEngine()`` builds when given none, as the JAX engine
+    chooses it: with CHATTERBOX_TINY_MODEL the tiny DiT config, or
+    ``tiny_ref()`` when CHATTERBOX_S3GEN_ARCH=ref; else ``full()`` in the
+    DTYPE_POLICY dtype; KV_CACHE_DTYPE, when not "native", sets T3's cache."""
+    settings = get_settings()
+    if os.environ.get("CHATTERBOX_TINY_MODEL"):
+        cfg = (EngineConfig.tiny_ref() if os.environ.get("CHATTERBOX_S3GEN_ARCH", "dit") == "ref"
+               else EngineConfig.tiny())
+    else:
+        cfg = EngineConfig.full(settings.DTYPE_POLICY)
+    if settings.KV_CACHE_DTYPE != "native":
+        cfg = dataclasses.replace(cfg, t3=cfg.t3.with_(kv_cache_dtype=settings.KV_CACHE_DTYPE))
+    return cfg
+
+
 class TTSEngine:
     def __init__(self, engine_cfg: Optional[EngineConfig] = None, seed: int = 0,
                  device=None, params: Optional[Dict] = None, devices=None):
@@ -394,16 +410,7 @@ class TTSEngine:
         divide T3's heads refuses here, before any rank starts."""
         settings = get_settings()
         if engine_cfg is None:
-            if os.environ.get("CHATTERBOX_TINY_MODEL"):
-                # the JAX engine's choice: the DiT unless the ref arch is named
-                engine_cfg = (EngineConfig.tiny_ref()
-                              if os.environ.get("CHATTERBOX_S3GEN_ARCH", "dit") == "ref"
-                              else EngineConfig.tiny())
-            else:
-                engine_cfg = EngineConfig.full(settings.DTYPE_POLICY)
-            if settings.KV_CACHE_DTYPE != "native":
-                engine_cfg = dataclasses.replace(
-                    engine_cfg, t3=engine_cfg.t3.with_(kv_cache_dtype=settings.KV_CACHE_DTYPE))
+            engine_cfg = config_from_env()
         self.cfg = engine_cfg
         self.seed = seed
         self.tp_size = max(1, tp_size())

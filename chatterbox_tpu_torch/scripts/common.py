@@ -44,6 +44,10 @@ REPO = Path(__file__).resolve().parents[2]
 OUT_DIR = REPO / "chiprun_out"
 # the JAX package's serving results (the TPU's numbers): never read or written here
 TPU_RESULTS = "serve_bench_results.json"
+# every result file of the JAX package's scripts: never an output here
+JAX_RESULTS = (TPU_RESULTS, "quality_study_results.json", "quality_study_results_r4.json")
+# each kernel swapped by ``plain_attention``, and the knob that turns it off
+KERNEL_KNOBS = {"decode_attention": "CHATTERBOX_PALLAS", "flash_mha": "CHATTERBOX_FLASH"}
 
 # scripts/serve_bench.py's request text (two text chunks at the default chunk size)
 TEXT = (
@@ -305,21 +309,40 @@ async def boot_engine(args, workdir: Path, max_streams: int) -> tuple:
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """K1's and K2's plain versions in place of their wrappers at the two
-    call sites (the T3 decode step's attention, the ref CFM estimator's)
-    while the block runs: serve_bench's ``--plain-attention``, the
-    kernels-off arm of an A/B. The wrappers stay as they are, so nothing in
-    a server's environment can take serving off the kernels."""
+def plain_attention(kernels=tuple(KERNEL_KNOBS)):
+    """The plain versions of ``kernels`` ("decode_attention" for K1,
+    "flash_mha" for K2; both by default) in place of their wrappers at the
+    two call sites (the T3 decode step's attention, the ref CFM
+    estimator's) while the block runs: serve_bench's ``--plain-attention``,
+    the kernels-off arm of an A/B, and a study variant's knobs
+    (``kernel_swap``). The wrappers stay as they are, so nothing in a
+    server's environment can take serving off the kernels."""
     from ..models.s3gen_ref import decoder
     from ..models.t3 import model as t3_model
 
-    saved = t3_model.decode_attention, decoder.flash_mha
-    t3_model.decode_attention, decoder.flash_mha = decode_attention_plain, flash_mha_plain
+    sites = {"decode_attention": (t3_model, decode_attention_plain),
+             "flash_mha": (decoder, flash_mha_plain)}
+    unknown = set(kernels) - set(sites)
+    if unknown:
+        raise ValueError(f"plain_attention: no kernel {sorted(unknown)}")
+    saved = {name: getattr(sites[name][0], name) for name in kernels}
+    for name in kernels:
+        setattr(sites[name][0], name, sites[name][1])
     try:
         yield
     finally:
-        t3_model.decode_attention, decoder.flash_mha = saved
+        for name, fn in saved.items():
+            setattr(sites[name][0], name, fn)
+
+
+def kernel_swap(env) -> tuple:
+    """A run's ``CHATTERBOX_PALLAS`` / ``CHATTERBOX_FLASH`` → the kernels
+    whose plain versions ``plain_attention`` must swap in: a knob at
+    anything but "1" names its kernel, as ``pallas_enabled`` and
+    ``flash_enabled`` read it. Both knobs are removed from ``env`` (the
+    environment the engine will see): left at "0" they would make the
+    kernel's CUDA calls raise, and the swap is the port's one plain route."""
+    return tuple(name for name, knob in KERNEL_KNOBS.items() if env.pop(knob, "1") != "1")
 
 
 def describe(engine) -> dict:
@@ -331,8 +354,8 @@ def describe(engine) -> dict:
 # ------------------------------------------------------------------ output
 def check_out_path(path: str) -> Path:
     out = Path(path)
-    if out.name == TPU_RESULTS:
-        raise SystemExit(f"{TPU_RESULTS} holds the JAX package's TPU results; "
+    if out.name in JAX_RESULTS:
+        raise SystemExit(f"{out.name} holds the JAX package's TPU results; "
                          "the port writes its rows elsewhere")
     return out
 

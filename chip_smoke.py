@@ -160,7 +160,29 @@ the script exits non-zero without printing the final line:
    through a conditioned vocoder). Phase 3 holds K1 at
    8 heads and both K2 forms at 4 heads (one rank's) to their plain
    versions (``check_tp_heads``);
-14. the kernels' JSON summary, the GPU line, then the final JSON line.
+14. the port's scripts at full width, each a ``python -m`` process on the
+   card as a user starts it, every engine EngineConfig.full() (ref, bf16)
+   from phase 4's model directory (a seeded conds.pt; the random init from
+   seed 0, which boots faster than loading a full-size directory) at a
+   decode cap of 70 tokens: (a) ``quality_study --only
+   kv_native,reference_exact,prompt_cache_static`` (each variant and its
+   ``default`` baseline a child process): every WAV checked against its
+   request's record (the child's sidecar), each variant's MCD and LSD
+   against default finite and its MCD > 0, and each sidecar's launches:
+   default K1's int8 body and K2's context form, kv_native K1's float body
+   at every decode step and no int8 one, reference_exact no K1 at all (its
+   plain version swapped in for CHATTERBOX_PALLAS=0) and K2's self form,
+   prompt_cache_static K2; (b) ``parity_check`` with reference_exact's
+   WAV as its reference and the study's request id and text: the same pinned
+   stack in a fresh process, exit 0 and MCD <= 0.01 dB; (c)
+   ``export_checkpoint`` into a temporary directory, read back with
+   ``load_checkpoint``, every leaf bitwise equal to the weights it was made
+   from, with its bytes and wall; (d) ``demo_synthesis --full-model``, its
+   TTFA and total printed and its WAV checked against the request's record
+   (its log line); (c) and (d) run beside (a) and (b). Walls print beside
+   the card's name and power limit; the weights are random, so none is a
+   quality or speed result;
+15. the kernels' JSON summary, the GPU line, then the final JSON line.
 
 K1 and K2 report the launches of the batched serving phase (the main path),
 K2 once per form; K3, which no serving path calls, reports its launches in
@@ -173,7 +195,9 @@ K1 and K2) and on the kernels (``launches_kernels_on``); K1 also reports
 each rank's launches in phase 12(a)'s sharded slice (``launches_tp``) and
 its query heads per rank there (``heads_tp``); K1 and both K2 forms report
 each rank's launches while phase 13's tp = 2 engine served
-(``launches_tp_serving``) and their heads per rank (``heads_tp_serving``).
+(``launches_tp_serving``) and their heads per rank (``heads_tp_serving``);
+K1 (per cache body) and both K2 forms report each phase 14 study child's
+request launches (``launches_study``).
 """
 from __future__ import annotations
 
@@ -185,6 +209,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2945,6 +2970,181 @@ async def tp_serving_phase(out: dict) -> dict:
     return {"launches": launches, "heads": heads}
 
 
+# ------------------------------------------------ the scripts at full width
+# Phase 14 runs the port's scripts as a user starts them (``python -m``, a
+# process each, on the card): the quality study of three variants against
+# its default, parity_check against the study's reference_exact WAV,
+# export_checkpoint and demo_synthesis --full-model. Every child boots
+# EngineConfig.full() (ref) from one model directory. The weights are random,
+# so no wall and no MCD here is a quality or speed result: an MCD says only
+# whether a knob reaches the output.
+STUDY_NEW_TOKENS = "70"
+STUDY_ONLY = ("kv_native", "reference_exact", "prompt_cache_static")
+# parity_check runs reference_exact's pinned stack again in a fresh process
+PARITY_MCD_DB = 0.01
+# variables a study variant or a script sets: the children start without them
+SCRIPT_KNOBS = ("CHATTERBOX_S3GEN_ARCH", "CHATTERBOX_KV", "KV_CACHE_DTYPE",
+                "CHATTERBOX_CFM_PROMPT_CACHE", "CHATTERBOX_CFM_STREAM", "CHATTERBOX_CFM_STEPS",
+                "CHATTERBOX_PROGRESSIVE_SLICES", "CHATTERBOX_PALLAS", "CHATTERBOX_FLASH",
+                "CHATTERBOX_TP", "CHATTERBOX_TINY_MODEL", "CHATTERBOX_FORCE_CPU",
+                "CHATTERBOX_STREAM_WINDOW", "CHATTERBOX_FLOW_BF16", "CHATTERBOX_FLOW_PROMPT_TOKENS",
+                "CHATTERBOX_OVERLAP_WINDOW_TOKENS", "STUDY_TEXT", "STUDY_SLICE")
+
+
+def study_launch_faults(name: str, record: dict) -> list:
+    """What a study child's sidecar must show: ``default`` K1's int8 body
+    and K2's context form; ``kv_native`` K1's float body and no int8 one;
+    ``reference_exact`` no K1 launch at all (its plain version swapped in)
+    and K2's self form; ``prompt_cache_static`` K2. Request counts, and for a
+    launch that must not happen, ainit's too."""
+    req, init = record["launches"], record["launches_ainit"]
+    k1, k2 = req["decode_attention"], req["flash_mha"]
+    k1_all = {b: n + init["decode_attention"][b] for b, n in k1.items()}
+    rules = {"default": {"K1 int8 > 0": k1["int8"] > 0, "K2 context > 0": k2["float32_ctx"] > 0},
+             "kv_native": {"K1 float > 0": k1["native"] > 0, "K1 int8 = 0": k1_all["int8"] == 0},
+             "reference_exact": {"K1 = 0": not any(k1_all.values()),
+                                 "K2 self > 0": k2["float32"] > 0,
+                                 "K1 swapped": record["plain"] == ["decode_attention"]},
+             "prompt_cache_static": {"K2 > 0": any(k2.values())}}[name]
+    if name != "reference_exact" and record["plain"]:
+        rules["no swap"] = False
+    return [rule for rule, ok in rules.items() if not ok]
+
+
+def run_script(name: str, args: list, env: dict, timeout: float = 600):
+    """``python -m chatterbox_tpu_torch.scripts.<name> args`` in ``env`` →
+    (the finished process, its wall); a run past ``timeout`` is killed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"chatterbox_tpu_torch.scripts.{name}", *args],
+                          env=env, cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    print(f"  {name} exited {proc.returncode} after {wall:.1f} s", flush=True)
+    return proc, wall
+
+
+def export_and_demo(tmp: Path, env: dict) -> dict:
+    """(c) and (d)'s processes, run beside the study: export_checkpoint into
+    ``tmp/exported``, then demo_synthesis --full-model → each one's finished
+    process and wall."""
+    runs = {}
+    for name, args in (("export_checkpoint", [str(tmp / "exported")]),
+                       ("demo_synthesis", ["--full-model", "--out", str(tmp / "demo.wav")])):
+        runs[name] = run_script(name, args, env)
+        if runs[name][0].returncode != 0:
+            break
+    return runs
+
+
+def scripts_phase(tmp: Path, model_dir: Path, out: dict) -> dict:
+    """Phase 14 (see the module's docstring): the study and then
+    parity_check in this thread, export_checkpoint and then demo_synthesis
+    beside them → each study child's request launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from chatterbox_tpu_torch.runtime.checkpoint import load_checkpoint
+    from chatterbox_tpu_torch.runtime.engine import EngineConfig
+    from chatterbox_tpu_torch.runtime.loader import load_params
+    from chatterbox_tpu_torch.scripts import quality_study
+
+    card = gpu_line()
+    env = {k: v for k, v in os.environ.items() if k not in SCRIPT_KNOBS}
+    env.update(MODEL_PATH=str(model_dir), CHATTERBOX_MAX_NEW_TOKENS=STUDY_NEW_TOKENS,
+               MAX_DECODE_SLOTS=str(SLOTS), TMPDIR=str(tmp / "scripts-tmp"))
+    (tmp / "scripts-tmp").mkdir()
+    walls = {}
+    with ThreadPoolExecutor(1) as pool:
+        side = pool.submit(export_and_demo, tmp, env)
+        # (a) the study: default and three variants, a child process each
+        proc, walls["quality_study"] = run_script(
+            "quality_study", ["--only", ",".join(STUDY_ONLY), "--out", str(tmp / "study.json")], env)
+        if proc.returncode == 0:
+            study_proc = proc
+            # (b) parity_check: reference_exact's stack in a fresh process
+            (study_dir,) = (tmp / "scripts-tmp").glob("quality_study_*")
+            proc, walls["parity_check"] = run_script(
+                "parity_check", ["--text", quality_study.TEXT,
+                                 "--ref", str(study_dir / "reference_exact.wav"),
+                                 "--seed-request-id", quality_study.REQUEST_ID,
+                                 "--out", str(tmp / "parity_hyp.wav")], env)
+        side_runs = side.result()
+    if "parity_check" not in walls:
+        raise AssertionError(f"quality_study exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    parity_proc = proc
+
+    report = json.loads(study_proc.stdout)
+    records, faults = {}, {}
+    for name in ("default", *STUDY_ONLY):
+        if name != "default" and name not in report["variants"]:
+            raise AssertionError(f"study variant {name} failed:\n{study_proc.stderr[-4000:]}")
+        record = json.loads((study_dir / f"{name}.json").read_text())
+        records[name] = record
+        st, sr = record["request_stats"], record["sample_rate"]
+        audio_s = check_wav(name, (study_dir / f"{name}.wav").read_bytes(), st, sr,
+                            record["samples_per_token"], int(sr * 30 / 1000))
+        if record["device"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"study variant {name} ran on {record['device']}")
+        row = report["variants"].get(name, {})
+        print(f"  {name}: {audio_s:.2f} s audio, tokens {st['t3_tokens']}, MCD "
+              f"{row.get('mcd_db', '-')} dB, LSD {row.get('lsd_db', '-')} dB; ainit "
+              f"{record['ainit_s']:.2f} s (load {record['load_s']}); plain {record['plain']}; "
+              f"launches {record['launches']} (ainit {record['launches_ainit']})", flush=True)
+        faults[name] = study_launch_faults(name, record)
+    # kv_native's K1 float body at every decode step of default's int8 one
+    k1_steps = records["default"]["launches"]["decode_attention"]["int8"]
+    if records["kv_native"]["launches"]["decode_attention"]["native"] != k1_steps:
+        faults["kv_native"].append(f"K1 float launches != default's int8 launches {k1_steps}")
+    for name, row in report["variants"].items():
+        if not (math.isfinite(row["mcd_db"]) and math.isfinite(row["lsd_db"])
+                and row["mcd_db"] > 0):
+            faults[name].append(f"MCD {row['mcd_db']} / LSD {row['lsd_db']}: not finite and > 0 "
+                                "(a knob that leaves the WAV unchanged)")
+    if any(faults.values()):
+        raise AssertionError(f"phase 14(a): {faults}")
+
+    parity = (json.loads(parity_proc.stdout.strip().splitlines()[-1])
+              if parity_proc.stdout.strip() else {})
+    print(f"  parity_check against reference_exact.wav: {parity}", flush=True)
+    if parity_proc.returncode != 0 or not parity.get("mcd_db", math.inf) <= PARITY_MCD_DB:
+        raise AssertionError(f"parity_check: exit {parity_proc.returncode}, MCD "
+                             f"{parity.get('mcd_db')} (bound {PARITY_MCD_DB} dB):\n"
+                             f"{parity_proc.stderr[-4000:]}")
+
+    for name, (proc, wall) in side_runs.items():
+        walls[name] = wall
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    # (c) the export, read back bitwise against the weights it was made from
+    export_dir = tmp / "exported"
+    cfg = EngineConfig.full()
+    exported = load_checkpoint(export_dir, cfg, torch.bfloat16, "cuda")
+    source = load_params(model_dir, cfg, torch.bfloat16, torch.device("cuda"), 0, {})
+    export = compare_params(exported, source, "the exported checkpoint against its source weights")
+    del exported, source
+    export["bytes"] = sum(f.stat().st_size for f in export_dir.iterdir())
+    print(f"  exported {export['bytes'] / 2**30:.2f} GiB; the process took "
+          f"{walls['export_checkpoint']:.1f} s", flush=True)
+    shutil.rmtree(export_dir)
+
+    # (d) the demo's WAV against the request's record (its log line)
+    proc = side_runs["demo_synthesis"][0]
+    demo_lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("init:", "TTFA:"))]
+    stats = json.loads(re.search(r"request_stats (\{.*\})", proc.stderr).group(1))
+    gen = cfg.gen
+    demo_audio = check_wav("demo", (tmp / "demo.wav").read_bytes(), stats, gen.sample_rate,
+                           gen.samples_per_token, int(gen.sample_rate * 30 / 1000))
+    print(f"  demo_synthesis: {'; '.join(demo_lines)}; {demo_audio:.2f} s audio, "
+          f"tokens {stats['t3_tokens']}", flush=True)
+
+    print(f"  walls (s), {card}; random weights, so neither a quality nor a speed result; "
+          f"export and demo ran beside the study: "
+          f"{json.dumps({k: round(v, 1) for k, v in walls.items()})}", flush=True)
+    out.update(card=card, study=report, parity=parity, export=export, walls=walls,
+               demo={"lines": demo_lines, "audio_s": demo_audio},
+               ainit_s={n: r["ainit_s"] for n, r in records.items()})
+    return {n: r["launches"] for n, r in records.items()}
+
+
 def phase(title: str):
     print(f"== {title}", flush=True)
     return time.perf_counter()
@@ -3150,7 +3350,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         done(t0, walls, "tp_serving")
 
-    print("== 14. summary", flush=True)
+        t0 = phase("14. the scripts at full width, each a process on the card: the quality "
+                   f"study ({', '.join(STUDY_ONLY)} against default), parity_check, "
+                   "export_checkpoint, demo_synthesis --full-model")
+        serving["scripts"] = {}
+        study_launches = scripts_phase(Path(tmp), model_dir, serving["scripts"])
+        done(t0, walls, "scripts")
+
+    print("== 15. summary", flush=True)
     # ms / plain_ms / library_ms: device time per call; call_ms: with the
     # host's dispatch; bound_ms: bytes over 3.35 TB/s or operations over peak
     k3_main = {**k3["bfloat16"], "max_abs_err": max(k3["bfloat16"]["max_abs_err"], k3_live["live"]),
@@ -3167,6 +3374,7 @@ def main() -> int:
              launches_tp=tp_launches["per_rank"], heads_tp=tp_launches["heads_per_rank"],
              launches_tp_serving=tp_serving["launches"]["decode_attention"],
              heads_tp_serving=tp_serving["heads"]["decode_attention"],
+             launches_study={n: l["decode_attention"] for n, l in study_launches.items()},
              other_bodies={"bfloat16": k1[f"bfloat16_B{LANES}"], "B2_checks": {
                  c: k1[c] for c in ("int8", "bfloat16", "float32")}, "slice_edge_checks": {
                  c: k1[f"slice_edges_B{LANES}_{c}"] for c in ("int8", "bfloat16", "float32")},
@@ -3182,6 +3390,7 @@ def main() -> int:
              launches_kernels_on=knob_launches["on"]["flash_mha"]["float32"],
              launches_tp_serving=tp_serving["launches"]["flash_mha"],
              heads_tp_serving=tp_serving["heads"]["flash_mha"],
+             launches_study={n: l["flash_mha"]["float32"] for n, l in study_launches.items()},
              launches_from="phase 4: the default voice's prompt prefill", **k2["float32"],
              other_bodies={"bfloat16": k2["bfloat16"], "other_head_dims": {
                  c: k2[f"other_dh_{c}"] for c in ("float32", "bfloat16")},
@@ -3195,6 +3404,7 @@ def main() -> int:
              launches_kernels_on=knob_launches["on"]["flash_mha"]["float32_ctx"],
              launches_tp_serving=tp_serving["launches"]["flash_mha_context"],
              heads_tp_serving=tp_serving["heads"]["flash_mha"],
+             launches_study={n: l["flash_mha"]["float32_ctx"] for n, l in study_launches.items()},
              launches_from="phase 4: every cached and streaming estimator evaluation",
              **k2c["float32"], other_bodies={"bfloat16": k2c["bfloat16"], "tp_heads_4": k2c_h4}),
         dict(name="decode_attention_pipelined", route="cuda",
