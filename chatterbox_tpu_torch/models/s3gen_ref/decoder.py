@@ -6,8 +6,9 @@ Sinusoidal time embedding (scale 1000) → MLP; one down level [resnet →
 transformer×n → conv k3], N mid levels, one up level with the skip concat;
 final block + 1×1 projection. The transformer blocks' attention is the
 flash-MHA kernel K2 (``ops/flash_mha.py``): its self form on the uncached
-path and in the per-voice prompt prefill, its context form in every cached
-and streaming evaluation.
+path and in the per-voice prompt prefill, its context form
+(``flash_mha_context``: the frozen prompt's and ring's K/V read where they
+lie, in the weights' dtype) in every cached and streaming evaluation.
 
 Three solvers: ``cfm_generate`` (uncached: [prompt | generated] frames
 together), ``cfm_generate_cached`` (generated frames only, against the
@@ -41,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.conv import conv1d
-from ...ops.flash_mha import flash_mha
+from ...ops.flash_mha import flash_mha, flash_mha_context
 from ...ops.nn import layer_norm, linear
 from ...parallel.tp import row_parallel, row_parallel_conv
 from .config import FlowRefConfig
@@ -234,36 +235,6 @@ def _layout(cfg: FlowRefConfig, h2: int | None = None):
     return halos, offsets, gns, tfs
 
 
-def _put(buf: torch.Tensor, off: int, piece: torch.Tensor) -> None:
-    """Copy context keys (or values) ``piece`` [..., Bx, H, n, dh] into key
-    positions [off, off + n) of ``buf`` [..., B2, H, L, dh], converting to
-    the buffer's dtype. A piece with 2 lanes where B2 > 2 is a per-voice
-    context captured at batch 1 ([cond, uncond]); the copy broadcasts it
-    over the batch ([c×B, u×B])."""
-    dst = buf[..., off:off + piece.shape[-2], :]
-    B2 = buf.shape[-4]
-    if piece.shape[-4] != B2:
-        dst = dst.unflatten(-4, (2, B2 // 2))
-        piece = piece.unsqueeze(-4)
-    dst.copy_(piece)
-
-
-def _context_buffer(pieces, B2: int, T: int, dtype: torch.dtype) -> torch.Tensor:
-    """One solve's attention keys (or values): the context ``pieces``
-    ([..., Bx, H, L_i, dh] each, e.g. [prompt, ring]) side by side, then room
-    for an evaluation's T own keys, which ``_tf_block`` writes per block →
-    [..., B2, H, ΣL_i + T, dh]. Built once per solve, so an evaluation
-    copies only what changed (the prompt's step, its own keys)."""
-    ref = pieces[0]
-    L = sum(p.shape[-2] for p in pieces)
-    buf = ref.new_empty((*ref.shape[:-4], B2, ref.shape[-3], L + T, ref.shape[-1]), dtype=dtype)
-    off = 0
-    for p in pieces:
-        _put(buf, off, p)
-        off += p.shape[-2]
-    return buf
-
-
 class _Walk:
     """One estimator evaluation's frozen context and captures, in the flat
     layout (see ``_layout``). A context ("est") is a dict of
@@ -275,10 +246,12 @@ class _Walk:
       (the kernel's layout), Bx = B2 or 2 (a batch-1 voice context).
 
     The request's halos replace the prompt's and the GroupNorm statistics
-    add. The keys and values reach the walk as ``kv`` = (keys, values, key
-    mask): [NB, B2, H, L + T, dh] buffers from ``_context_buffer`` holding
-    [prompt | ring | room for own], and the mask [B2, L + T]. With no
-    context, every node is the plain one (zero conv pad, own statistics,
+    add. The keys and values reach the walk as ``kv`` = (prompt keys,
+    prompt values, ring keys, ring values, key mask): one Euler step's
+    prompt [NB, Bx, H, P, dh], a streaming request's ring [NB, B2, H, W, dh]
+    (or None, None) and the mask [B2, P + W + T] over [prompt | ring | own];
+    block i attends over their i-th entries in place. With no context,
+    every node is the plain one (zero conv pad, own statistics,
     self-attention)."""
 
     def __init__(self, cfg: FlowRefConfig, pc: Dict | None, rc: Dict | None, kv,
@@ -337,7 +310,10 @@ class _Walk:
     def tf(self, p: Dict, cfg: FlowRefConfig, x: torch.Tensor, valid: torch.Tensor):
         i = self.ti
         self.ti += 1
-        ctx = None if self.kv is None else (self.kv[0][i], self.kv[1][i], self.kv[2])
+        ctx = None
+        if self.kv is not None:
+            kp, vp, kr, vr, mask = self.kv
+            ctx = (kp[i], vp[i], None if kr is None else kr[i], None if vr is None else vr[i], mask)
         r = _tf_block(p, cfg, x, valid, cap=self.cap_kv, ctx=ctx, tp_group=self.tp_group)
         if not self.cap_kv:
             return r
@@ -376,10 +352,11 @@ def _tf_block(p: Dict, cfg: FlowRefConfig, x: torch.Tensor, valid: torch.Tensor,
               cap: bool = False, ctx=None, tp_group=None):
     """DiT-style block without positional encoding; its attention is K2.
 
-    ``ctx`` = (keys, values, key mask [B, L + T]): [B, H, L + T, dh]
-    buffers (``_context_buffer``) whose first L keys are the frozen context
-    (the prompt's, a streaming ring's); this call writes its own K/V into the
-    last T, so its attention is K2's context form over [context | own] (no
+    ``ctx`` = (prompt keys, prompt values [Bp, H, P, dh], ring keys, ring
+    values [B, H, W, dh] or None, key mask [B, P + W + T]): the frozen
+    context (the voice prompt's, a streaming request's ring; Bp = B, or 2
+    for a voice captured at batch 1), so this call's attention is K2's
+    context form over [prompt | ring | own], each read where it lies (no
     positional encoding: frozen keys need no index bookkeeping). ``cap``
     also returns this call's K/V in the weights' dtype, head-major.
     ``tp_group``: a block whose to_q/k/v hold this rank's heads attends over
@@ -392,15 +369,12 @@ def _tf_block(p: Dict, cfg: FlowRefConfig, x: torch.Tensor, valid: torch.Tensor,
     ff_group = tp_group if p["ff1"]["w"].shape[0] < 4 * C else None
     h = layer_norm(x, p["norm1"]["w"], p["norm1"]["b"])
     heads = lambda w: linear(h, w).reshape(B, T, H, dh).transpose(1, 2)  # noqa: E731
-    q, k, v = heads(p["to_q"]["w"]).contiguous(), heads(p["to_k"]["w"]), heads(p["to_v"]["w"])
+    q, k, v = (heads(p[n]["w"]).contiguous() for n in ("to_q", "to_k", "to_v"))
     scale = float(1.0 / np.sqrt(dh))
     if ctx is not None:
-        kb, vb, kv_valid = ctx
-        kb[:, :, kb.shape[2] - T:].copy_(k)
-        vb[:, :, vb.shape[2] - T:].copy_(v)
-        o = flash_mha(q, kb, vb, kv_valid, scale=scale)
+        o = flash_mha_context(q, k, v, *ctx, scale=scale)
     else:
-        o = flash_mha(q, k.contiguous(), v.contiguous(), valid.contiguous(), scale=scale)
+        o = flash_mha(q, k, v, valid.contiguous(), scale=scale)
     out = o.transpose(1, 2).reshape(B, T, H * dh)
     x = x + row_parallel(out.to(x.dtype), p["to_out"]["w"], p["to_out"]["b"], attn_group)
     h = layer_norm(x, p["norm3"]["w"], p["norm3"]["b"])
@@ -436,9 +410,9 @@ def estimator_forward(
     prompt instead of carrying it in ``x``. ``rc`` ({"est": one step's
     request halos and GroupNorm running statistics, "pos": [B] first valid
     row of a right-packed block}): a streaming request's own frozen frames.
-    ``kv`` (keys, values, key mask): the frozen K/V the frames attend to,
-    [prompt | ring | room for own] per transformer block. Context layout: see
-    ``_Walk``.
+    ``kv`` (prompt keys, prompt values, ring keys, ring values, key mask):
+    the frozen K/V the frames attend to, per transformer block, read in
+    place. Context layout: see ``_Walk``.
 
     ``cap`` / ``cap_mode`` → (out, captured context): "full" (``cap``)
     captures everything (the prompt prefill), "light" the halos and
@@ -577,8 +551,8 @@ def static_prompt_cache(cache: Dict) -> Dict:
 def _voice_lanes(cache: Dict, B: int):
     """A voice context (captured at batch 1: lanes [cond, uncond]) for a
     batch of B → (pv [2B, P], est): the small leaves repeated to
-    [c×B, u×B] as the JAX package repeats them; K/V stay at 2 lanes and are
-    broadcast by the copy into the attention's buffer (``_put``)."""
+    [c×B, u×B] as the JAX package repeats them; K/V stay at 2 lanes:
+    K2 reads lane b's prompt from row b // B."""
     pv, est = cache["pv"], cache["est"]
     if pv.shape[0] == 2 * B:
         return pv, est
@@ -588,8 +562,8 @@ def _voice_lanes(cache: Dict, B: int):
 
 
 def _step(est: Dict, s: int) -> Dict:
-    """One Euler step's halos and GroupNorm statistics (the K/V go through
-    the attention's buffer)."""
+    """One Euler step's halos and GroupNorm statistics (the K/V reach the
+    attention through ``kv``)."""
     return {k: est[k][s] for k in ("halo", "gs", "gn")}
 
 
@@ -615,17 +589,14 @@ def cfm_generate_cached(
     mu2, spk2, cond2, valid2 = _cfg_lanes(mu_g, spk, valid_g)
     pv, est = _voice_lanes(cache, B)
     per_step = est["k"].shape[0] == cfg.n_timesteps
-    kv = (_context_buffer([est["k"][0]], 2 * B, Tg, mu_g.dtype),
-          _context_buffer([est["v"][0]], 2 * B, Tg, mu_g.dtype), torch.cat([pv, valid2], 1))
+    kv_valid = torch.cat([pv, valid2], 1)
     t_span = _t_span(cfg)
     for i, (t_i, dt) in enumerate(zip(t_span[:-1], t_span[1:] - t_span[:-1])):
         t = torch.full((2 * B,), float(t_i), dtype=torch.float32, device=mu_g.device)
-        if i and per_step:
-            _put(kv[0], 0, est["k"][i])
-            _put(kv[1], 0, est["v"][i])
-        pc = {"est": _step(est, i if per_step else 0)}
+        s = i if per_step else 0
+        kv = (est["k"][s].contiguous(), est["v"][s].contiguous(), None, None, kv_valid)
         v = estimator_forward(params, cfg, torch.cat([x, x]).to(mu_g.dtype), mu2, spk2, cond2,
-                              t, valid2, pc=pc, kv=kv, tp_group=tp_group)
+                              t, valid2, pc={"est": _step(est, s)}, kv=kv, tp_group=tp_group)
         x = _euler(x, v.float(), dt, w)
     return x.to(mu_g.dtype)
 
@@ -726,16 +697,16 @@ def cfm_generate_streaming(
     W = rstate["k"].shape[3]
     klen2 = torch.cat([rstate["klen"], rstate["klen"]]).long()
     rmask = torch.arange(W, device=dev)[None, :] < klen2[:, None]
-    # [prompt | ring | own] keys and values, built once: an evaluation
-    # copies in its step's prompt K/V, a block its own
-    kv = (_context_buffer([est["k"][0], rstate["k"]], 2 * B, Tg, mu_g.dtype),
-          _context_buffer([est["v"][0], rstate["v"]], 2 * B, Tg, mu_g.dtype),
-          torch.cat([pv, rmask, valid2], 1))
+    # the key mask over [prompt | ring | own]; K2 reads each step's prompt
+    # K/V and the ring in place (a state split off a batch holds views: made
+    # contiguous here, once per solve)
+    kv_valid = torch.cat([pv, rmask, valid2], 1)
+    ring_k, ring_v = rstate["k"].contiguous(), rstate["v"].contiguous()
+
+    def kv(s):
+        return est["k"][s].contiguous(), est["v"][s].contiguous(), ring_k, ring_v, kv_valid
 
     def ctx(s):
-        if s:
-            _put(kv[0], 0, est["k"][s])
-            _put(kv[1], 0, est["v"][s])
         return {"est": _step(est, s)}, {"est": _step(rstate, s), "pos": pos2}
 
     t_span = _t_span(cfg)
@@ -744,20 +715,20 @@ def cfm_generate_streaming(
         t = torch.full((2 * B,), float(t_i), dtype=torch.float32, device=dev)
         pc, rc = ctx(s)
         v, cap = estimator_forward(params, cfg, torch.cat([x, x]).to(mu_g.dtype), mu2, spk2,
-                                   cond2, t, valid2, pc=pc, rc=rc, cap_mode="light", kv=kv,
+                                   cond2, t, valid2, pc=pc, rc=rc, cap_mode="light", kv=kv(s),
                                    tp_group=tp_group)
         x = _euler(x, v.float(), dt, w)
         caps.append(cap)
     mel = x.to(mu_g.dtype)
 
     # clean context: one evaluation at t = 1 on the solved mel, against the
-    # last step's context (already in the buffer); later slices attend to
-    # keys computed from (near-)clean frames
+    # last step's context; later slices attend to keys computed from
+    # (near-)clean frames
     _, clean = estimator_forward(params, cfg, torch.cat([mel, mel]), mu2, spk2, cond2,
                                  torch.ones((2 * B,), dtype=torch.float32, device=dev), valid2,
                                  pc={"est": _step(est, S - 1)},
                                  rc={"est": _step(rstate, S - 1), "pos": pos2},
-                                 cap_mode="kv", kv=kv, tp_group=tp_group)
+                                 cap_mode="kv", kv=kv(S - 1), tp_group=tp_group)
     k, v, klen_new = _ring_append(rstate["k"], rstate["v"], clean["k"], clean["v"], klen2, tg2,
                                   Tg)
     # halos ← this slice's last frames, except on lanes without new frames;

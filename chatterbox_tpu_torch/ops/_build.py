@@ -52,6 +52,9 @@ _SIGNATURES = {
     "decode_attention_slice_rows": [],
     # q, k, v, valid, out, B, H, Tq, Tk, Dh, dtype, scale, stream
     "flash_mha_launch": [_P] * 5 + [_I] * 6 + [_F, _P],
+    # q, k_own, v_own, k_prompt, v_prompt, k_ring, v_ring, valid, out,
+    # B2, Bp, H, Tq, P, W, Dh, q_dtype, ctx_dtype, scale, stream
+    "flash_mha_context_launch": [_P] * 9 + [_I] * 9 + [_F, _P],
     # q, k, v, k_new, v_new, start, pos, out, scratch, B, H, Hk, S, Dh, dtype, scale, stream
     "decode_attention_pipelined_launch": [_P] * 9 + [_I] * 6 + [_F, _P],
     # () → cache rows per slice of decode_attention_pipelined_launch

@@ -7,19 +7,25 @@ Semantics: softmax(q·kᵀ·scale) over the valid keys, float32 accumulation; a
 query row whose keys are all masked returns 0 (not the uniform average a
 plain masked softmax gives).
 
-Two forms: the self form (q, k, v share one length T) and the context form
-(Tq queries over Tk keys), which every cached and streaming estimator
-evaluation runs over its [prompt | ring | own] keys (the JAX package computes
-that one as a plain einsum, ``decoder.py:280-298``).
+Two forms. The self form (q, k, v share one length T; ``flash_mha``) runs
+the uncached path and the per-voice prompt prefill. The context form
+(``flash_mha_context``) runs every cached and streaming estimator
+evaluation: Tq new frames over three key segments read where they lie, the
+voice prompt's and the request's ring in the weights' dtype and the frames'
+own (the JAX package computes it as a plain einsum over their
+concatenation, ``decoder.py:280-298``). ``flash_mha`` still takes Tq ≠ Tk
+over one concatenated buffer (``csrc/flash_mha.cu``, the earlier design of
+the context form); the model no longer calls it so.
 
-``flash_mha`` is the wrapper the model calls: on a CPU tensor it runs
-``flash_mha_plain``; on a CUDA tensor it launches ``csrc/flash_mha.cu`` or
-raises. It also raises for a CUDA tensor when ``CHATTERBOX_FLASH`` is set
+``flash_mha`` and ``flash_mha_context`` are the wrappers the model calls:
+on CPU tensors they run ``flash_mha_plain`` / ``flash_mha_context_plain``;
+on CUDA tensors they launch ``csrc/flash_mha.cu`` /
+``csrc/flash_mha_context.cu`` or raise. It also raises for a CUDA tensor when ``CHATTERBOX_FLASH`` is set
 to anything but "1" (``flash_enabled``, read at each call as the JAX
 package's ``decoder._flash_active`` reads it, where it picks the einsum
 route): the port never sends CUDA tensors to the plain version.
 ``launches`` counts kernel launches per input dtype, the context form under
-``<dtype>_ctx``.
+``<dtype>_ctx`` (q's dtype).
 
 The kernel multiplies on the tensor cores (``mma.sync`` m16n8k16, bf16 in,
 float32 accumulation), under this precision contract:
@@ -137,4 +143,127 @@ def flash_mha(
         )
     _build.check(err, "flash_mha")
     launches[str(q.dtype).removeprefix("torch.") + ("_ctx" if Tk != Tq else "")] += 1
+    return out
+
+
+# the context form's (q, context) dtype pairs: float32 activations over bf16
+# or float32 weights, or bf16 throughout (CHATTERBOX_FLOW_BF16=1)
+_CTX_PAIRS = ((torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+              (torch.bfloat16, torch.bfloat16))
+
+
+def _check_context(q, k_own, v_own, k_prompt, v_prompt, k_ring, v_ring, valid) -> None:
+    """Raise unless the context form's arguments fit each other (the same
+    checks on the CPU as on the card)."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B2, H, Tq, dh], got {tuple(q.shape)}")
+    B2, H, Tq, dh = q.shape
+    for name, t in (("k_own", k_own), ("v_own", v_own)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)}/{t.dtype} must match q "
+                             f"{tuple(q.shape)}/{q.dtype}")
+    if k_prompt.dim() != 4:
+        raise ValueError(f"k_prompt must be [Bp, H, P, dh], got {tuple(k_prompt.shape)}")
+    Bp, P = k_prompt.shape[0], k_prompt.shape[2]
+    if Bp not in (B2, 2) or B2 % Bp or tuple(k_prompt.shape) != (Bp, H, P, dh):
+        raise ValueError(f"k_prompt {tuple(k_prompt.shape)} does not fit q {tuple(q.shape)} "
+                         "(want [B2 or 2, H, P, dh])")
+    if (k_ring is None) != (v_ring is None):
+        raise ValueError("k_ring and v_ring must both be given or both be None")
+    ctx = [("k_prompt", k_prompt), ("v_prompt", v_prompt)]
+    W = 0
+    if k_ring is not None:
+        W = k_ring.shape[2] if k_ring.dim() == 4 else -1
+        if tuple(k_ring.shape) != (B2, H, W, dh):
+            raise ValueError(f"k_ring {tuple(k_ring.shape)} does not fit q {tuple(q.shape)} "
+                             "(want [B2, H, W, dh])")
+        ctx += [("k_ring", k_ring), ("v_ring", v_ring)]
+    for name, t in ctx:
+        ref = k_prompt if name.endswith("prompt") else k_ring
+        if t.shape != ref.shape or t.dtype != k_prompt.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)}/{t.dtype} does not fit k_prompt "
+                             f"{tuple(k_prompt.shape)}/{k_prompt.dtype} (and k_ring's shape)")
+    if (q.dtype, k_prompt.dtype) not in _CTX_PAIRS:
+        raise ValueError(f"dtype pair (q {q.dtype}, context {k_prompt.dtype}) not supported: "
+                         f"{[(str(a), str(b)) for a, b in _CTX_PAIRS]}")
+    if tuple(valid.shape) != (B2, P + W + Tq) or valid.dtype != torch.bool:
+        raise ValueError(f"valid must be bool [B2, P + W + Tq] = [{B2}, {P + W + Tq}], got "
+                         f"{tuple(valid.shape)}/{valid.dtype}")
+    for name, t in (("q", q), ("k_own", k_own), ("v_own", v_own), *ctx, ("valid", valid)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _prompt_lanes(x: torch.Tensor, B2: int) -> torch.Tensor:
+    """[Bp, H, P, dh] prompt → [B2, H, P, dh]: lane b takes row b // (B2 // Bp)
+    (Bp = 2: the [cond × B, uncond × B] lanes of a batch-1 voice)."""
+    return x.repeat_interleave(B2 // x.shape[0], dim=0)
+
+
+def flash_mha_context_plain(
+    q: torch.Tensor,         # [B2, H, Tq, dh]
+    k_own: torch.Tensor,     # [B2, H, Tq, dh]
+    v_own: torch.Tensor,
+    k_prompt: torch.Tensor,  # [Bp, H, P, dh], Bp = B2 or 2
+    v_prompt: torch.Tensor,
+    k_ring: Optional[torch.Tensor],  # [B2, H, W, dh] or None (W = 0)
+    v_ring: Optional[torch.Tensor],
+    valid: torch.Tensor,     # [B2, P + W + Tq] bool: [prompt | ring | own] key validity
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version: ``flash_mha_plain`` over the float32
+    concatenation [prompt | ring | own] → [B2, H, Tq, dh] in q's dtype."""
+    B2 = q.shape[0]
+    parts = [(_prompt_lanes(k_prompt, B2), _prompt_lanes(v_prompt, B2))]
+    if k_ring is not None:
+        parts.append((k_ring, v_ring))
+    parts.append((k_own, v_own))
+    k = torch.cat([kp.float() for kp, _ in parts], dim=2)
+    v = torch.cat([vp.float() for _, vp in parts], dim=2)
+    return flash_mha_plain(q, k, v, valid, scale)
+
+
+def flash_mha_context(
+    q: torch.Tensor,
+    k_own: torch.Tensor,
+    v_own: torch.Tensor,
+    k_prompt: torch.Tensor,
+    v_prompt: torch.Tensor,
+    k_ring: Optional[torch.Tensor],
+    v_ring: Optional[torch.Tensor],
+    valid: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """K2's context form → [B2, H, Tq, dh] in q's dtype: softmax over the
+    valid keys of [prompt | ring | own], each segment read where it lies.
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/flash_mha_context.cu`` (dh = 64) or raise. The argument checks
+    are the same on both."""
+    kernel = launches_kernel(q.device)
+    _check_context(q, k_own, v_own, k_prompt, v_prompt, k_ring, v_ring, valid)
+    if not kernel:
+        return flash_mha_context_plain(q, k_own, v_own, k_prompt, v_prompt, k_ring, v_ring,
+                                       valid, scale)
+    B2, H, Tq, dh = q.shape
+    if dh != 64:
+        raise ValueError(f"flash_mha_context: head dim {dh} not supported on the card (64)")
+    if scale is None:
+        scale = 1.0 / dh ** 0.5
+    W = 0 if k_ring is None else k_ring.shape[2]
+    ring = (0, 0) if k_ring is None else (k_ring.data_ptr(), v_ring.data_ptr())
+    out = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_mha_context_launch(
+            q.data_ptr(), k_own.data_ptr(), v_own.data_ptr(), k_prompt.data_ptr(),
+            v_prompt.data_ptr(), *ring, valid.data_ptr(), out.data_ptr(),
+            B2, k_prompt.shape[0], H, Tq, k_prompt.shape[2], W, dh,
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_prompt.dtype], ctypes.c_float(scale),
+            ctypes.c_void_p(stream),
+        )
+    _build.check(err, "flash_mha_context")
+    launches[str(q.dtype).removeprefix("torch.") + "_ctx"] += 1
     return out

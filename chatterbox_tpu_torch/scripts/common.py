@@ -33,7 +33,7 @@ import torch
 
 from ..ops import _build
 from ..ops.decode_attention import decode_attention_plain
-from ..ops.flash_mha import flash_mha_plain
+from ..ops.flash_mha import flash_mha_context_plain, flash_mha_plain
 from ..runtime.cancellation import CancellationToken
 from ..runtime.engine import EngineConfig, TTSEngine
 from ..runtime.metrics import metrics
@@ -311,28 +311,30 @@ async def boot_engine(args, workdir: Path, max_streams: int) -> tuple:
 @contextlib.contextmanager
 def plain_attention(kernels=tuple(KERNEL_KNOBS)):
     """The plain versions of ``kernels`` ("decode_attention" for K1,
-    "flash_mha" for K2; both by default) in place of their wrappers at the
-    two call sites (the T3 decode step's attention, the ref CFM
-    estimator's) while the block runs: serve_bench's ``--plain-attention``,
+    "flash_mha" for K2, both of its forms; both kernels by default) in place
+    of their wrappers at their call sites (the T3 decode step's attention,
+    the ref CFM estimator's) while the block runs: serve_bench's ``--plain-attention``,
     the kernels-off arm of an A/B, and a study variant's knobs
     (``kernel_swap``). The wrappers stay as they are, so nothing in a
     server's environment can take serving off the kernels."""
     from ..models.s3gen_ref import decoder
     from ..models.t3 import model as t3_model
 
-    sites = {"decode_attention": (t3_model, decode_attention_plain),
-             "flash_mha": (decoder, flash_mha_plain)}
+    sites = {"decode_attention": [(t3_model, "decode_attention", decode_attention_plain)],
+             "flash_mha": [(decoder, "flash_mha", flash_mha_plain),
+                           (decoder, "flash_mha_context", flash_mha_context_plain)]}
     unknown = set(kernels) - set(sites)
     if unknown:
         raise ValueError(f"plain_attention: no kernel {sorted(unknown)}")
-    saved = {name: getattr(sites[name][0], name) for name in kernels}
-    for name in kernels:
-        setattr(sites[name][0], name, sites[name][1])
+    swaps = [site for name in kernels for site in sites[name]]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
+    for mod, attr, plain in swaps:
+        setattr(mod, attr, plain)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(sites[name][0], name, fn)
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def kernel_swap(env) -> tuple:

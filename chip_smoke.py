@@ -9,8 +9,9 @@ the script exits non-zero without printing the final line:
 1. the machine: GPU name and power limit (nvidia-smi), torch/CUDA versions,
    TF32 switched off for matmuls and cuDNN (float32 means float32 here);
 2. build: one nvcc per chatterbox_tpu_torch/csrc/*.cu, all started together,
-   for sm_90a, then one link; ptxas's report, and K3's registers and spills
-   per compiled instance;
+   for sm_90a, then one link; ptxas's report, and K3's and K2's segment
+   kernel's registers and spills per compiled instance (and whether ptxas
+   serialized the latter's wgmma instructions);
 3. kernels against their plain PyTorch versions (max-abs error against a
    stated tolerance): K1 and K2 at two lanes, K1 (every body, at 2 and at
    32 lanes) on windows that start and end at, one row before and one row
@@ -19,9 +20,14 @@ the script exits non-zero without printing the final line:
    across its ring's tile edges, the bodies no serving path runs (K2 at
    dh = 32 and 128; K1 and K3 at Dh = 32 and 128, G = 2 and 4; K3 also at
    G = 8 and 3), then K1 (int8 and bf16 bodies), K2 and K3 at the batched
-   path's shapes (32 lanes; 16 CFG pairs), and K2's context form at the
-   streaming batch's (32 lanes, Tq = 72, 142 and 202 new frames over
-   Tk = Tq + 1012 keys) and at a ragged Tq and Tk with an all-masked lane.
+   path's shapes (32 lanes; 16 CFG pairs), and K2's context form
+   (csrc/flash_mha_context.cu, over the prompt, ring and own segments read
+   in place) in each dtype pair (float32 over bf16, float32, bf16) at the
+   streaming batch's shapes (32 lanes, Tq = 72, 142 and 202 new frames over
+   500 prompt and 512 ring keys; the prompt shared by the lanes, and per
+   lane), without a ring, and at a ragged Tq, P and W with an all-masked
+   lane, timed in two turns against the earlier design (K2 over the float32
+   concatenation, alone and with its copies).
    Each gets its device time (CUDA events around calls queued
    behind a spin kernel), its time per call with the host's dispatch (CUDA
    events around one call on an idle GPU), its plain version's device time,
@@ -38,7 +44,8 @@ the script exits non-zero without printing the final line:
    size, and one request's streaming state), then 16 concurrent requests
    through engine.stream(..., output_format="wav") with the HTTP handler's
    arguments, some spanning two text chunks, under torch.profiler (CUDA
-   activity only) for the device's busy share. Every WAV is checked (RIFF
+   activity only) for the device's busy share and the peak memory (beside
+   the earlier float32-buffer design's). Every WAV is checked (RIFF
    header, sample count against the tokens produced, finite, not silent);
    the decoder must have run 12 or more slots at once, S3Gen must have
    batched 2 or more streaming jobs, every S3Gen call must have streamed (no
@@ -49,7 +56,8 @@ the script exits non-zero without printing the final line:
    from a fresh state against the prompt-cached tail path with the same
    cache and noise (FIRST_SLICE_TOL); one batched call (16 jobs, 128-token
    bucket) per path, streaming, cached re-solve and uncached re-solve, with
-   its device time and its device time by kernel; then 4 concurrent
+   its device time and its device time by kernel (the streaming call's
+   beside the earlier float32-buffer design's); then 4 concurrent
    one-chunk requests on the uncached batched path
    (CHATTERBOX_CFM_PROMPT_CACHE=0) at a decode cap of 35 tokens, which must
    run K2's self form only and batch 2 or more uncached S3Gen jobs;
@@ -235,6 +243,12 @@ KERNELS = {
         "source": "chatterbox_tpu_torch/csrc/flash_mha.cu",
         "replaces": "chatterbox_tpu/ops/pallas_mha.py:85",
     },
+    # K2's context form: the TPU kernel is K2's; the JAX package computes this
+    # form as an einsum (chatterbox_tpu/models/s3gen_ref/decoder.py:293)
+    "flash_mha_context": {
+        "source": "chatterbox_tpu_torch/csrc/flash_mha_context.cu",
+        "replaces": "chatterbox_tpu/ops/pallas_mha.py:85",
+    },
     "decode_attention_pipelined": {
         "source": "chatterbox_tpu_torch/csrc/decode_attention_pipelined.cu",
         "replaces": "chatterbox_tpu/ops/pallas_attention_v3.py:415",
@@ -409,19 +423,16 @@ def check_decode_attention(results: dict) -> None:
         results[cache] = {"max_abs_err": worst, "tol": TOL[q_dtype]}
 
 
-def check_flash_mha(results: dict, context: bool = False, H: int = 8) -> None:
-    """K2 against its plain version, float32 and bfloat16. Self form: at 2
+def check_flash_mha(results: dict, H: int = 8) -> None:
+    """K2's self form against its plain version, float32 and bfloat16: at 2
     lanes (T = 1012 with an all-masked lane, and 2500), then at the batched
     path's shape (16 jobs' CFG pairs, the 64-token bucket: T = 2 × (250 + 64)
-    frames). Context form (``context``): Tq new frames over Tk = Tq + 1012
-    prepended keys at the streaming batch's shapes (32 lanes, Tq = 72, 142,
-    202), then a ragged Tq and Tk (neither a multiple of a tile) with an
-    all-masked lane. The all-masked lanes' rows must be exact zeros. ``H``:
-    the heads (8, the estimator's; 4, one rank's under CHATTERBOX_TP=2)."""
+    frames). The all-masked lane's rows must be exact zeros. ``H``: the
+    heads (8, the estimator's; 4, one rank's under CHATTERBOX_TP=2)."""
     from chatterbox_tpu_torch.ops import flash_mha as fm
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed((9 if context else 2) + H)
+    g = torch.Generator(device=dev).manual_seed(2 + H)
     dh = 64
 
     def self_mask(B, T):
@@ -430,30 +441,22 @@ def check_flash_mha(results: dict, context: bool = False, H: int = 8) -> None:
         valid[1, :100] = False
         return valid
 
-    def ctx_mask(B, Tq, n_prompt, n_ring):
-        return context_mask(g, B, Tq, n_prompt, n_ring, dev)
-
-    # (B, Tq, Tk, key mask, lane whose keys are all masked or None)
-    cases = ([(LANES, Tq, Tq + CTX_PROMPT + CTX_RING, ctx_mask(LANES, Tq, CTX_PROMPT, CTX_RING),
-               None) for Tq in (72, 142, 202)]
-             + [(LANES, 37, 37 + 990, ctx_mask(LANES, 37, 489, 501), 3)] if context else
-             [(2, 1012, 1012, self_mask(2, 1012), 1), (2, 2500, 2500, self_mask(2, 2500), None),
-              (LANES, 628, 628, self_mask(LANES, 628), None)])
-    form = ("flash_mha context" if context else "flash_mha") + ("" if H == 8 else f" H={H}")
+    # (B, T, key mask, lane whose keys are all masked or None)
+    cases = [(2, 1012, self_mask(2, 1012), 1), (2, 2500, self_mask(2, 2500), None),
+             (LANES, 628, self_mask(LANES, 628), None)]
+    form = "flash_mha" + ("" if H == 8 else f" H={H}")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         worst, timing = 0.0, {}
-        for B, Tq, Tk, valid, masked in cases:
-            q = torch.randn((B, H, Tq, dh), generator=g, device=dev).to(dtype)
-            k, v = (torch.randn((B, H, Tk, dh), generator=g, device=dev).to(dtype)
-                    for _ in range(2))
+        for B, T, valid, masked in cases:
+            q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev).to(dtype)
+                       for _ in range(3))
             valid = valid.clone()
             if masked is not None:
                 valid[masked] = False
             got = fm.flash_mha(q, k, v, valid, scale=0.125)
             want = fm.flash_mha_plain(q, k, v, valid, scale=0.125)
-            worst = max(worst, compare(f"{form}[{name}] B={B} Tq={Tq} Tk={Tk}", got, want,
-                                       TOL[dtype]))
+            worst = max(worst, compare(f"{form}[{name}] B={B} T={T}", got, want, TOL[dtype]))
             if masked is not None:
                 zero = got[masked].float().abs().max().item()
                 if zero != 0.0:
@@ -467,20 +470,134 @@ def check_flash_mha(results: dict, context: bool = False, H: int = 8) -> None:
             # QKᵀ and PV over the valid keys; q read and out written once, K
             # and V read at the valid keys only (the function needs no other)
             n_valid = valid.sum().item()
-            ops = 4.0 * dh * H * Tq * n_valid
+            ops = 4.0 * dh * H * T * n_valid
             moved = (2 * q.numel() + 2 * H * dh * n_valid) * q.element_size() + valid.numel()
             bound_ms, bound_by = bound(moved, ops, dtype)
-            print(f"  {form}[{name}] B={B} H={H} Tq={Tq} Tk={Tk} dh={dh}: device ms kernel "
-                  f"{ms:.4f}, plain {plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound_ms:.4f} "
-                  f"({bound_by}); kernel per call {call_ms:.4f}", flush=True)
-            timing[(B, Tq)] = {"shape": f"B={B} H={H} Tq={Tq} Tk={Tk} dh={dh}", "ms": ms,
-                               "plain_ms": plain_ms, "call_ms": call_ms,
-                               "library_ms": library_ms, "bound_ms": bound_ms,
-                               "bound_by": bound_by}
-        main, *rest = ((LANES, 72), (LANES, 142), (LANES, 202)) if context else \
-            ((LANES, 628), (2, 2500))
-        results[name] = {"max_abs_err": worst, "tol": TOL[dtype], **timing[main],
-                         **{f"B{b}_T{t}": timing[(b, t)] for b, t in rest}}
+            print(f"  {form}[{name}] B={B} H={H} T={T} dh={dh}: device ms kernel {ms:.4f}, plain "
+                  f"{plain_ms:.4f}, SDPA {library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); "
+                  f"kernel per call {call_ms:.4f}", flush=True)
+            timing[(B, T)] = {"shape": f"B={B} H={H} T={T} dh={dh}", "ms": ms,
+                              "plain_ms": plain_ms, "call_ms": call_ms,
+                              "library_ms": library_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by}
+        results[name] = {"max_abs_err": worst, "tol": TOL[dtype], **timing[(LANES, 628)],
+                         f"B2_T2500": timing[(2, 2500)]}
+
+
+# K2's context form: (q and own K/V dtype, prompt and ring dtype) as the
+# serving configurations give them: float32 activations over bf16 weights
+# (the default), float32 weights, CHATTERBOX_FLOW_BF16=1
+CTX_PAIRS = {"f32_bf16": (torch.float32, torch.bfloat16), "f32_f32": (torch.float32, torch.float32),
+             "bf16_bf16": (torch.bfloat16, torch.bfloat16)}
+
+
+def ctx_segments(g, B2: int, Bp: int, H: int, Tq: int, P: int, W: int, pair: str, valid):
+    """Random segments of one context call: q, own K/V [B2, H, Tq, 64] in the
+    activation dtype, prompt K/V [Bp, H, P, 64] and ring K/V [B2, H, W, 64]
+    (None when W = 0) in the context dtype, and the key mask."""
+    q_dt, c_dt = CTX_PAIRS[pair]
+    rnd = lambda b, n: torch.randn((b, H, n, 64), generator=g, device=g.device)  # noqa: E731
+    q, ko, vo = (rnd(B2, Tq).to(q_dt) for _ in range(3))
+    kp, vp = (rnd(Bp, P).to(c_dt) for _ in range(2))
+    kr, vr = ((rnd(B2, W).to(c_dt) for _ in range(2)) if W else (None, None))
+    return q, ko, vo, kp, vp, kr, vr, valid
+
+
+def ctx_bound(args) -> tuple[float, str]:
+    """The context form's least time over the bytes its segments hold: q read
+    and out written once; K and V at the valid keys only, the prompt's once
+    per row it holds (Bp = 2: two rows for all lanes); the key mask."""
+    q, ko, vo, kp, vp, kr, vr, valid = args
+    B2, H, Tq, dh = q.shape
+    P, W = kp.shape[2], 0 if kr is None else kr.shape[2]
+    rows = valid[:, :P].unflatten(0, (kp.shape[0], B2 // kp.shape[0])).any(1)
+    kv = 2 * H * dh
+    moved = (2 * q.numel() * q.element_size() + kv * valid[:, P + W:].sum().item() * q.element_size()
+             + kv * (rows.sum().item() + valid[:, P:P + W].sum().item()) * kp.element_size()
+             + valid.numel())
+    ops = 4.0 * dh * H * Tq * valid.sum().item()
+    return bound(moved, ops, q.dtype)
+
+
+def check_flash_mha_context(results: dict, H: int = 8) -> None:
+    """K2's context form (``flash_mha_context``, csrc/flash_mha_context.cu)
+    over segments read in place, against its plain version, for each dtype
+    pair: at the streaming batch's shapes (32 lanes, Tq = 72, 142 and 202 new
+    frames over 500 prompt and 512 ring keys, the prompt of a batch-1 voice
+    shared by the lanes, Bp = 2; in the default pair also Bp = 32), at the
+    cached path's (no ring, Tq = 72), and at a ragged Tq, P and W with an
+    all-masked lane, whose rows must be exact zeros. At H = 8 the streaming
+    shapes are timed in two turns: the kernel, then the earlier design
+    (``flash_mha`` over the [prompt | ring | own] concatenation in the
+    activations' dtype) alone and with the copies each of its calls paid
+    (the step's prompt and the block's own K/V into the buffer; the ring's,
+    once per solve, left out); then the plain version, SDPA on the
+    concatenation, and the bound over the segments' bytes (``ctx_bound``)."""
+    from chatterbox_tpu_torch.ops import flash_mha as fm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9 + H)
+    timed = H == 8
+    for pair, (q_dt, c_dt) in CTX_PAIRS.items():
+        worst, timing = 0.0, {}
+        # (B2, Bp, Tq, P, W, lane whose keys are all masked or None, timed)
+        cases = [(LANES, 2, Tq, CTX_PROMPT, CTX_RING, None, timed) for Tq in (72, 142, 202)]
+        if pair == "f32_bf16":
+            cases += [(LANES, LANES, Tq, CTX_PROMPT, CTX_RING, None, timed) for Tq in (72, 142, 202)]
+        cases += [(LANES, 2, 72, CTX_PROMPT, 0, None, False), (LANES, 2, 37, 489, 501, 3, False)]
+        for B2, Bp, Tq, P, W, masked, time_it in cases:
+            valid = context_mask(g, B2, Tq, P, W, dev)
+            if masked is not None:
+                valid[masked] = False
+            args = ctx_segments(g, B2, Bp, H, Tq, P, W, pair, valid)
+            shape = f"B2={B2} Bp={Bp} H={H} Tq={Tq} P={P} W={W} dh=64"
+            got = fm.flash_mha_context(*args, scale=0.125)
+            want = fm.flash_mha_context_plain(*args, scale=0.125)
+            worst = max(worst, compare(f"flash_mha_context[{pair}] {shape}", got, want,
+                                       TOL[q_dt]))
+            if masked is not None:
+                zero = got[masked].float().abs().max().item()
+                if zero != 0.0:
+                    raise AssertionError(f"flash_mha_context[{pair}]: all-masked lane gave {zero}")
+            if not time_it:
+                continue
+            q, ko, vo, kp, vp, kr, vr, _ = args
+            rep = B2 // Bp
+            # the earlier design's buffer, as its caller built it
+            buf_k = torch.cat([kp.repeat_interleave(rep, 0), kr, ko.to(c_dt)], 2).to(q_dt)
+            buf_v = torch.cat([vp.repeat_interleave(rep, 0), vr, vo.to(c_dt)], 2).to(q_dt)
+
+            def earlier_with_copies():
+                for buf, pr, own in ((buf_k, kp, ko), (buf_v, vp, vo)):
+                    buf[:, :, :P].unflatten(0, (Bp, rep)).copy_(pr.unsqueeze(1))
+                    buf[:, :, P + W:].copy_(own)
+                return fm.flash_mha(q, buf_k, buf_v, valid, scale=0.125)
+
+            new = lambda: fm.flash_mha_context(*args, scale=0.125)  # noqa: E731
+            earlier = lambda: fm.flash_mha(q, buf_k, buf_v, valid, scale=0.125)  # noqa: E731
+            turns = [[time_ms(fn)[0] for fn in (new, earlier, earlier_with_copies)]
+                     for _ in range(2)]
+            _, call_ms = time_ms(new)
+            plain_ms, _ = time_ms(lambda: fm.flash_mha_context_plain(*args, scale=0.125))
+            library_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(
+                q, buf_k, buf_v, attn_mask=valid[:, None, None, :], scale=0.125))
+            bound_ms, bound_by = ctx_bound(args)
+            (ms, old_ms, old_copies_ms), (ms2, old_ms2, old_copies_ms2) = turns
+            print(f"  flash_mha_context[{pair}] {shape}: device ms kernel {ms:.4f}, {ms2:.4f}; "
+                  f"earlier design {old_ms:.4f}, {old_ms2:.4f} (with its copies {old_copies_ms:.4f}, "
+                  f"{old_copies_ms2:.4f}); plain {plain_ms:.4f}, SDPA {library_ms:.4f}, bound "
+                  f"{bound_ms:.4f} ({bound_by}, share {100 * bound_ms / ms:.1f} %); kernel per "
+                  f"call {call_ms:.4f}", flush=True)
+            timing[(Bp, Tq)] = {"shape": shape, "ms": ms, "ms_turn2": ms2,
+                                "earlier_ms": [old_ms, old_ms2],
+                                "earlier_with_copies_ms": [old_copies_ms, old_copies_ms2],
+                                "plain_ms": plain_ms, "call_ms": call_ms,
+                                "library_ms": library_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by}
+        results[pair] = {"max_abs_err": worst, "tol": TOL[q_dt]}
+        if timed:
+            results[pair].update(timing[(2, 72)], **{
+                f"Bp{bp}_Tq{tq}": timing[(bp, tq)] for bp, tq in timing if (bp, tq) != (2, 72)})
 
 
 # the streaming batch's attention: 16 requests' CFG lanes, Tq new frames (a
@@ -715,7 +832,8 @@ def check_tp_heads(k1: dict, k2: dict, k2c: dict) -> None:
     """The kernels at one rank's head counts under CHATTERBOX_TP=2: K1's
     int8 and bf16 bodies at 32 lanes with H = Hk = 8 (T3's 16 heads over two
     ranks) at the batched decoder's S and windows, and both K2 forms at H = 4
-    (the estimator's 8 over two ranks), each against its plain version."""
+    (the estimator's 8 over two ranks), each against its plain version (the
+    context form untimed)."""
     from chatterbox_tpu_torch.ops import decode_attention as da
 
     dev = torch.device("cuda")
@@ -732,7 +850,7 @@ def check_tp_heads(k1: dict, k2: dict, k2c: dict) -> None:
         k1[f"tp_heads_{cache}"] = {"shape": f"B={LANES} H={H} Hk={Hk} S={S} Dh={Dh}",
                                    "max_abs_err": err, "tol": TOL[dtype]}
     check_flash_mha(k2, H=4)
-    check_flash_mha(k2c, context=True, H=4)
+    check_flash_mha_context(k2c, H=4)
 
 
 def ptxas_report(log: str, kernel: str) -> list[dict]:
@@ -752,6 +870,29 @@ def ptxas_report(log: str, kernel: str) -> list[dict]:
             found.append({"function": what, "registers": int(m.group(1)),
                           "spill_stores": spills[0], "spill_loads": spills[1]})
     return found
+
+
+CTX_PAIR_OF_INSTANCE = {"0": "f32_bf16", "1": "f32_f32", "2": "bf16_bf16"}
+
+
+def ctx_ptxas_report(log: str) -> dict:
+    """ptxas's registers and spill bytes for each instance of K2's segment
+    kernel (flash_ctx_kernel<pair>), and any message that it serialized the
+    kernel's wgmma instructions (C75xx "Potential Performance Loss")."""
+    found, name, spills = [], "", (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and "flash_ctx_kernel" in name:
+            t = re.search(r"flash_ctx_kernelILi(\d)E", name)
+            found.append({"function": f"flash_ctx_kernel<{CTX_PAIR_OF_INSTANCE[t.group(1)]}>",
+                          "registers": int(m.group(1)), "spill_stores": spills[0],
+                          "spill_loads": spills[1]})
+    serialized = [line.strip() for line in log.splitlines()
+                  if "flash_ctx_kernel" in line and "Performance Loss" in line]
+    return {"instances": found, "wgmma_serialized": serialized}
 
 
 def reset_launches():
@@ -920,10 +1061,12 @@ async def serve_batched(out: dict):
     fallbacks = sum(s["fallbacks"] for s in stats)
     full = [(n, k, dt) for n, k, dt in dec.slice_log if n == SLOTS]
     step_ms = 1e3 * sum(dt for *_, dt in full) / max(1, sum(k for _, k, _ in full))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"  total: {audio:.2f} s of audio in {wall:.3f} s of wall = {audio / wall:.3f} s of audio "
           f"per s at {SLOTS} streams; device busy {busy_ms / 1e3:.3f} s = "
-          f"{100 * busy_ms / 1e3 / wall:.1f} % of the wall; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"{100 * busy_ms / 1e3 / wall:.1f} % of the wall; peak memory {peak_gib:.2f} GiB "
+          "(the earlier float32 [prompt | ring | own] buffer's design: 21.85 GiB, and 14.44 "
+          "before it, on an NVIDIA H100 80GB HBM3 at 700 W)", flush=True)
     print(f"  decoder: max_active_seen {dec.max_active_seen}; {len(full)} slices at {SLOTS} "
           f"active slots, host wall {step_ms:.2f} ms per step; S3Gen max_batch_seen "
           f"{s3.max_batch_seen}, streaming max_batch_seen {s3.max_stream_batch_seen}; "
@@ -961,7 +1104,7 @@ async def serve_batched(out: dict):
                max_active_seen=dec.max_active_seen, s3gen_max_batch=s3.max_batch_seen,
                s3gen_max_stream_batch=s3.max_stream_batch_seen, s3gen_calls=slices,
                serving_step_ms=step_ms, alone_step_ms=alone_ms, slice_device_ms=slice_dev,
-               cfm_prompt_cache=cache_info)
+               peak_memory_gib=peak_gib, cfm_prompt_cache=cache_info)
     return engine, launches
 
 
@@ -1090,6 +1233,8 @@ def s3gen_call_times(engine, T: int = 128, acc: int = 105) -> dict:
               f"{summed:.1f} ms (busy {busy:.1f} ms) over {n_device} device activities, host "
               f"wall {1e3 * wall:.1f} ms; K2 launches {k2}; device ms by kernel {kernels}",
               flush=True)
+    print(f"  the streaming call's device time: {out['streaming']['device_ms']:.1f} ms (the earlier "
+          "float32-buffer design: 484.5-488.5 ms on an NVIDIA H100 80GB HBM3 at 700 W)", flush=True)
     return out
 
 
@@ -3207,6 +3352,13 @@ def main() -> int:
     for r in k3_ptxas:
         print(f"  K3 {r['function']}: {r['registers']} registers, spill stores "
               f"{r['spill_stores']} B, spill loads {r['spill_loads']} B", flush=True)
+    ctx_ptxas = ctx_ptxas_report(info.get("log", ""))
+    for r in ctx_ptxas["instances"]:
+        print(f"  K2 context {r['function']}: {r['registers']} registers at launch (setmaxnreg: "
+              f"producer 56, consumers 216), spill stores {r['spill_stores']} B, spill loads "
+              f"{r['spill_loads']} B", flush=True)
+    print("  K2 context: " + ("; ".join(ctx_ptxas["wgmma_serialized"]) or
+                              "ptxas reports no serialized wgmma"), flush=True)
     done(t0, walls, "build")
 
     t0 = phase("3. kernels against their plain versions")
@@ -3216,7 +3368,7 @@ def main() -> int:
     check_decode_slice_edges(k1)
     check_pipelined_edges(k3)
     check_flash_mha(k2)
-    check_flash_mha(k2c, context=True)
+    check_flash_mha_context(k2c)
     check_other_shapes(k1, k2, k3)
     check_batched_decode(k1, k3)
     k2_h4, k2c_h4 = {}, {}
@@ -3395,8 +3547,9 @@ def main() -> int:
              other_bodies={"bfloat16": k2["bfloat16"], "other_head_dims": {
                  c: k2[f"other_dh_{c}"] for c in ("float32", "bfloat16")},
                  "tp_heads_4": k2_h4}),
-        dict(name="flash_mha_context", route="cuda", **KERNELS["flash_mha"],
-             launches=launches["flash_mha"]["float32_ctx"], body="float32, context form",
+        dict(name="flash_mha_context", route="cuda", **KERNELS["flash_mha_context"],
+             launches=launches["flash_mha"]["float32_ctx"],
+             body="float32 q and own keys over bf16 prompt (Bp = 2) and ring, Tq = 72",
              launches_loaded_checkpoint=loaded_launches["flash_mha"]["float32_ctx"],
              launches_dit=dit_launches["flash_mha"]["float32_ctx"],
              launches_training=training_launches["flash_mha"]["float32_ctx"],
@@ -3406,7 +3559,9 @@ def main() -> int:
              heads_tp_serving=tp_serving["heads"]["flash_mha"],
              launches_study={n: l["flash_mha"]["float32_ctx"] for n, l in study_launches.items()},
              launches_from="phase 4: every cached and streaming estimator evaluation",
-             **k2c["float32"], other_bodies={"bfloat16": k2c["bfloat16"], "tp_heads_4": k2c_h4}),
+             **k2c["f32_bf16"], other_bodies={"f32_f32": k2c["f32_f32"],
+                                              "bf16_bf16": k2c["bf16_bf16"],
+                                              "tp_heads_4": k2c_h4, "ptxas": ctx_ptxas}),
         dict(name="decode_attention_pipelined", route="cuda",
              **KERNELS["decode_attention_pipelined"], launches=k3_launches, body="bfloat16",
              launches_loaded_checkpoint=loaded_launches["decode_attention_pipelined"]["native"],

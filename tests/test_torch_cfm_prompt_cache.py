@@ -234,9 +234,7 @@ def test_tf_block_cached_cross_attention_matches_concat_and_jax(est):
     vp = np.array([[1, 1, 1, 0, 0], [1] * 5], bool)
     vg = np.array([[1, 1, 1, 1], [1, 1, 0, 0]], bool)
     _, rec = tdec._tf_block(ttf, FL, to_t(xp), to_t(vp), cap=True)
-    ctx = (tdec._context_buffer([rec["k"]], 2, 4, torch.float32),
-           tdec._context_buffer([rec["v"]], 2, 4, torch.float32),
-           to_t(np.concatenate([vp, vg], 1)))
+    ctx = (rec["k"], rec["v"], None, None, to_t(np.concatenate([vp, vg], 1)))
     cached = tdec._tf_block(ttf, FL, to_t(xg), to_t(vg), ctx=ctx)
     joint = tdec._tf_block(ttf, FL, to_t(np.concatenate([xp, xg], 1)),
                            to_t(np.concatenate([vp, vg], 1)))
@@ -247,8 +245,7 @@ def test_tf_block_cached_cross_attention_matches_concat_and_jax(est):
     jring = {"k": jrec["k"][:, :3], "v": jrec["v"][:, :3], "mask": jnp.asarray(ring_mask)}
     want = jdec._tf_block(jtf, jfl, jnp.asarray(xg), jnp.asarray(vg), pc=jrec,
                           pvalid=jnp.asarray(vp), ring=jring)
-    ctx = (tdec._context_buffer([rec["k"], rec["k"][:, :, :3]], 2, 4, torch.float32),
-           tdec._context_buffer([rec["v"], rec["v"][:, :, :3]], 2, 4, torch.float32),
+    ctx = (rec["k"], rec["v"], rec["k"][:, :, :3].contiguous(), rec["v"][:, :, :3].contiguous(),
            to_t(np.concatenate([vp, ring_mask, vg], 1)))
     got = tdec._tf_block(ttf, FL, to_t(xg), to_t(vg), ctx=ctx)
     np.testing.assert_allclose(to_np(got)[vg], np.asarray(want)[vg], atol=TOL, rtol=TOL)

@@ -5,9 +5,12 @@ form (Tq queries over Tk prepended keys) against the JAX package's einsum
 branch of ``_tf_block`` on valid rows; the port's estimator transformer
 block against JAX ``_tf_block`` on its flash branch; and the precision
 contract of the CUDA kernel's tensor-core products, emulated in plain torch,
-for both forms. The CUDA kernel itself is compared with the plain version on
-the card, by chip_smoke.py. Tolerance 2e-5 (float32, as
-tests/test_pallas_mha.py).
+for both forms. The context form over segments read in place
+(``flash_mha_context``: a prompt shared by the lanes or per lane, a ring or
+none, in each dtype pair) against JAX's einsum and ``_tf_block`` with pc /
+ring, its kernel's product split emulated, and its wrapper's refusals. The
+CUDA kernels themselves are compared with the plain versions on the card, by
+chip_smoke.py. Tolerance 2e-5 (float32, as tests/test_pallas_mha.py).
 """
 import numpy as np
 import pytest
@@ -260,3 +263,274 @@ def test_split_contract_context_form_at_batched_shapes(Tq):
     err = _contract_error_ctx(32, 8, Tq, 1012, 64, _round_bf16, 3, seed=12)
     assert err <= CONTRACT_TOL, err
     assert _contract_error_ctx(8, 8, Tq, 1012, 64, _round_bf16, 1, seed=12) > CONTRACT_TOL
+
+
+# --- the context form over segments read in place (flash_mha_context) ---
+#
+# Tq new frames over [prompt | ring | own]: the prompt [Bp, H, P, dh] (Bp =
+# B2, or 2 for a voice captured at batch 1, shared by lanes [c×B, u×B]) and
+# the ring [B2, H, W, dh] in the weights' dtype, the own keys in the
+# activations'. Tolerances: TOL (2e-5) where both sides compute in float32
+# on the same values; bf16 outputs BF16_TOL, one bf16 step of |out| < 2
+# (the plain version rounds its float32 result to bf16 once).
+
+BF16_TOL = 1.6e-2
+PAIRS = {"f32_bf16": (torch.float32, torch.bfloat16), "f32_f32": (torch.float32, torch.float32),
+         "bf16_bf16": (torch.bfloat16, torch.bfloat16)}
+# ring fill per lane: empty, partial (a random klen per lane) or full
+RING_FILLS = ("empty", "partial", "full")
+
+
+def _segments(seed, B2, Bp, H, Tq, P, W, dh, fill="partial"):
+    """float32 numpy q, own K/V, prompt K/V [Bp, ...], ring K/V [B2, ...]
+    (None when W = 0) and the key mask [B2, P + W + Tq] of a cached or
+    streaming call: the prompt with a masked left pad, each lane's ring
+    filled to its klen, the own frames right-packed (lane 0 short). Every
+    row has a valid key (the prompt's)."""
+    rng = np.random.default_rng(seed)
+    rnd = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q, ko, vo = rnd(B2, H, Tq, dh), rnd(B2, H, Tq, dh), rnd(B2, H, Tq, dh)
+    kp, vp = rnd(Bp, H, P, dh), rnd(Bp, H, P, dh)
+    kr, vr = (rnd(B2, H, W, dh), rnd(B2, H, W, dh)) if W else (None, None)
+    klen = {"empty": np.zeros(B2, int), "full": np.full(B2, W),
+            "partial": rng.integers(0, W + 1, B2)}[fill]
+    own = np.ones((B2, Tq), bool)
+    own[0, : Tq // 3] = False
+    pmask = np.ones((B2, P), bool)
+    pmask[:, : P // 5] = False
+    valid = np.concatenate([pmask, np.arange(W)[None, :] < klen[:, None], own], 1)
+    return q, ko, vo, kp, vp, kr, vr, valid
+
+
+def _torch_segments(arrays, pair):
+    """numpy segments → torch, q and own K/V in the pair's activation
+    dtype, prompt and ring in its context dtype."""
+    q_dt, c_dt = PAIRS[pair]
+    q, ko, vo, kp, vp, kr, vr, valid = arrays
+    act = [to_t(x).to(q_dt) for x in (q, ko, vo)]
+    ctx = [None if x is None else to_t(x).to(c_dt) for x in (kp, vp, kr, vr)]
+    return (*act, *ctx, to_t(valid))
+
+
+def _concat(args):
+    """(q, k, v, valid) over the float32 concatenation [prompt | ring | own]
+    of torch segments, the prompt repeated to the lanes."""
+    q, ko, vo, kp, vp, kr, vr, valid = args
+    rep = q.shape[0] // kp.shape[0]
+    ks = [kp.float().repeat_interleave(rep, 0)] + ([kr.float()] if kr is not None else [])
+    vs = [vp.float().repeat_interleave(rep, 0)] + ([vr.float()] if vr is not None else [])
+    return q, torch.cat(ks + [ko.float()], 2), torch.cat(vs + [vo.float()], 2), valid
+
+
+CTX_CASES = [  # (B2, Bp, Tq, P, W, ring fill)
+    (8, 2, 9, 40, 24, "partial"),
+    (8, 2, 72, 130, 64, "full"),
+    (8, 2, 13, 70, 64, "empty"),
+    (8, 8, 9, 40, 24, "partial"),
+    (4, 4, 17, 65, 0, "empty"),     # W = 0: the cached path's prompt only
+    (8, 2, 72, 130, 0, "empty"),
+]
+
+
+@pytest.mark.parametrize("pair", list(PAIRS))
+@pytest.mark.parametrize("B2,Bp,Tq,P,W,fill", CTX_CASES)
+def test_context_plain_matches_jax_einsum_and_concat(B2, Bp, Tq, P, W, fill, pair):
+    """flash_mha_context_plain against the JAX package's context einsum
+    (decoder.py:293-298) over JAX's concatenation of the same segments (the
+    prompt rows repeated to the lanes, every part cast to the activations'
+    float32 as JAX casts it), and against flash_mha_plain over the
+    concatenation (bitwise: the same arithmetic). In float32 within TOL; a
+    bf16 output within BF16_TOL."""
+    H, dh = 2, 64
+    args = _torch_segments(_segments(13, B2, Bp, H, Tq, P, W, dh, fill), pair)
+    got = fm.flash_mha_context_plain(*args, scale=0.125)
+    assert got.shape == (B2, H, Tq, dh) and got.dtype == PAIRS[pair][0]
+    cat = _concat(args)
+    torch.testing.assert_close(got, fm.flash_mha_plain(*cat, scale=0.125), atol=0, rtol=0)
+    q, k, v, valid = (to_np(x.float()) for x in cat)
+    want = np.asarray(_jax_einsum_attention(*map(jnp.asarray, (q, k, v, valid)), 0.125))
+    tol = BF16_TOL if got.dtype == torch.bfloat16 else TOL
+    np.testing.assert_allclose(to_np(got.float()), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("fill", RING_FILLS + ("none",))
+def test_tf_block_segments_match_jax_tf_block(fill):
+    """The port's _tf_block over segments (a batch-1 voice's prompt, Bp = 2,
+    shared by B2 = 8 lanes; the ring empty, partial, full or absent) against
+    JAX's _tf_block with pc / pvalid / ring (decoder.py:260-298) on the
+    prompt repeated to the lanes, float32, on valid frames; TOL."""
+    jcfg = JFlowCfg.tiny()
+    p = jdec.init_estimator_params(jax.random.PRNGKey(4), jcfg)
+    tf_j = p["mid"][0]["tf"][0]
+    tf_t = convert_params(jax_tree_to_np(tf_j), "cpu")
+    B2, T, P, W = 8, 7, 11, 0 if fill == "none" else 5
+    H, dh, C = jcfg.dec_num_heads, jcfg.dec_attention_head_dim, jcfg.dec_channels[0]
+    _, _, _, kp, vp, kr, vr, valid = _segments(
+        21, B2, 2, H, T, P, W, dh, "empty" if fill == "none" else fill)
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal((B2, T, C)).astype(np.float32)
+    own = valid[:, P + W:]
+    got = tdec._tf_block(tf_t, FlowRefConfig.tiny(), to_t(x), to_t(own),
+                         ctx=(to_t(kp), to_t(vp), None if kr is None else to_t(kr),
+                              None if vr is None else to_t(vr), to_t(valid)))
+    lanes = lambda a: np.repeat(a, B2 // 2, 0).transpose(0, 2, 1, 3)  # noqa: E731  [B2, P, H, dh]
+    pc = {"k": jnp.asarray(lanes(kp)), "v": jnp.asarray(lanes(vp))}
+    ring = None if kr is None else {"k": jnp.asarray(kr.transpose(0, 2, 1, 3)),
+                                    "v": jnp.asarray(vr.transpose(0, 2, 1, 3)),
+                                    "mask": jnp.asarray(valid[:, P:P + W])}
+    want = jdec._tf_block(tf_j, jcfg, jnp.asarray(x), jnp.asarray(own), pc=pc,
+                          pvalid=jnp.asarray(valid[:, :P]), ring=ring)
+    np.testing.assert_allclose(to_np(got)[own], np.asarray(want)[own], atol=TOL, rtol=TOL)
+
+
+def test_tf_block_context_runs_the_context_form(monkeypatch):
+    """With a context, _tf_block calls flash_mha_context with the segments as
+    they are (no concatenation) and never flash_mha."""
+    jcfg = JFlowCfg.tiny()
+    tf_t = convert_params(jax_tree_to_np(
+        jdec.init_estimator_params(jax.random.PRNGKey(4), jcfg)["mid"][0]["tf"][0]), "cpu")
+    H, dh, C = jcfg.dec_num_heads, jcfg.dec_attention_head_dim, jcfg.dec_channels[0]
+    _, _, _, kp, vp, kr, vr, valid = _segments(23, 4, 2, H, 6, 9, 4, dh)
+    seen = []
+
+    def spy(q, k_own, v_own, k_prompt, v_prompt, k_ring, v_ring, valid, scale=None):
+        seen.append((k_prompt, k_ring))
+        return fm.flash_mha_context_plain(q, k_own, v_own, k_prompt, v_prompt, k_ring, v_ring,
+                                          valid, scale)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the context form went to flash_mha")
+
+    monkeypatch.setattr(tdec, "flash_mha_context", spy)
+    monkeypatch.setattr(tdec, "flash_mha", refuse)
+    segs = tuple(map(to_t, (kp, vp, kr, vr, valid)))
+    x = to_t(np.random.default_rng(1).standard_normal((4, 6, C)).astype(np.float32))
+    tdec._tf_block(tf_t, FlowRefConfig.tiny(), x, segs[-1][:, 9 + 4:], ctx=segs)
+    assert len(seen) == 1 and seen[0][0] is segs[0] and seen[0][1] is segs[2]
+
+
+def _lane_slice(args, b0, n):
+    """Lanes [b0, b0 + n) of torch segments, their prompt rows repeated to
+    the n lanes (Bp = n)."""
+    q, ko, vo, kp, vp, kr, vr, valid = args
+    rep = q.shape[0] // kp.shape[0]
+    lanes = lambda x: None if x is None else x[b0:b0 + n]  # noqa: E731
+    prompt = lambda x: x.repeat_interleave(rep, 0)[b0:b0 + n]  # noqa: E731
+    return (lanes(q), lanes(ko), lanes(vo), prompt(kp), prompt(vp), lanes(kr), lanes(vr),
+            lanes(valid))
+
+
+def _split_product(a, b, eq, split_b):
+    """bf16x3 product with a split into hi/lo; b's lo part taken only where
+    ``split_b`` (a float32 segment) — a bf16 segment's lo is exactly 0."""
+    a_hi = _round_bf16(a)
+    a_lo = _round_bf16(a - a_hi)
+    b_hi = _round_bf16(b)
+    out = torch.einsum(eq, a_hi, b_hi) + torch.einsum(eq, a_lo, b_hi)
+    if split_b:
+        out = out + torch.einsum(eq, a_hi, _round_bf16(b - b_hi))
+    return out
+
+
+def _emulated_context(q, ko, vo, kp, vp, kr, vr, valid, scale):
+    """flash_mha_context_plain's arithmetic with the new kernel's products:
+    two terms (Q_hi·K + Q_lo·K, P_hi·V + P_lo·V) on the bf16 prompt and ring
+    tiles, three on the float32 own tiles."""
+    rep = q.shape[0] // kp.shape[0]
+    k_ctx = torch.cat([kp.float().repeat_interleave(rep, 0)] + ([kr.float()] if kr is not None else []), 2)
+    v_ctx = torch.cat([vp.float().repeat_interleave(rep, 0)] + ([vr.float()] if vr is not None else []), 2)
+    L = k_ctx.shape[2]
+    s = torch.cat([_split_product(q, k_ctx, "bhid,bhjd->bhij", False),
+                   _split_product(q, ko, "bhid,bhjd->bhij", True)], -1) * scale
+    kmask = valid[:, None, None, :]
+    s = s.masked_fill(~kmask, -1e9)
+    p = torch.where(kmask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    out = (_split_product(p[..., :L], v_ctx, "bhij,bhjd->bhid", False)
+           + _split_product(p[..., L:], vo, "bhij,bhjd->bhid", True))
+    return out / p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("Tq", [72, 202])
+def test_split_contract_context_segments_at_streaming_shapes(Tq):
+    """The new kernel's products at the streaming batch's shapes (32 CFG
+    lanes, H = 8, dh = 64; Tq new frames over Tk = Tq + 1012 keys: a
+    500-frame bf16 prompt shared by the lanes (Bp = 2), a 512-frame bf16
+    ring filled at random, float32 own frames) stay within CONTRACT_TOL of
+    flash_mha_context_plain, and equal the three-term emulation of the
+    earlier design over the float32 concatenation (bf16-valued context keys:
+    its third term adds exact zeros there) up to float32 summation order
+    (1e-6)."""
+    B2, H, P, W, dh = 32, 8, 500, 512, 64
+    args = _torch_segments(_segments(14, B2, 2, H, Tq, P, W, dh), "f32_bf16")
+    err = gap = 0.0
+    for b0 in range(0, B2, 8):
+        lanes = _lane_slice(args, b0, 8)
+        got = _emulated_context(*lanes, 0.125)
+        err = max(err, (got - fm.flash_mha_context_plain(*lanes, scale=0.125)).abs().max().item())
+        earlier = _emulated_mha(*_concat(lanes), 0.125, _round_bf16)
+        gap = max(gap, (got - earlier).abs().max().item())
+    assert err <= CONTRACT_TOL, err
+    assert gap <= 1e-6, gap
+
+
+def test_context_wrapper_uses_plain_version_on_cpu_and_counts_no_launch():
+    """Every dtype pair, with and without a ring: on the CPU the wrapper
+    returns the plain version's result (bitwise) and counts no launch."""
+    fm.reset_launches()
+    for pair in PAIRS:
+        for W in (0, 24):
+            args = _torch_segments(_segments(15, 4, 2, 2, 9, 40, W, 64), pair)
+            got = fm.flash_mha_context(*args, scale=0.125)
+            torch.testing.assert_close(got, fm.flash_mha_context_plain(*args, scale=0.125),
+                                       atol=0, rtol=0)
+    assert fm.launches == {"float32": 0, "bfloat16": 0, "float32_ctx": 0, "bfloat16_ctx": 0}
+
+
+def _refusals():
+    """(what, arguments) the context wrapper must refuse, each one change
+    away from a valid call."""
+    ok = _torch_segments(_segments(16, 4, 2, 2, 9, 40, 24, 64), "f32_bf16")
+    q, ko, vo, kp, vp, kr, vr, valid = ok
+
+    def with_(**kw):
+        names = ("q", "k_own", "v_own", "k_prompt", "v_prompt", "k_ring", "v_ring", "valid")
+        d = dict(zip(names, ok))
+        d.update(kw)
+        return tuple(d[n] for n in names)
+
+    return [
+        ("dtype pair", with_(k_prompt=kp.half(), v_prompt=vp.half(), k_ring=kr.half(),
+                             v_ring=vr.half())),
+        ("dtype pair", with_(q=q.bfloat16(), k_own=ko.bfloat16(), v_own=vo.bfloat16(),
+                             k_prompt=kp.float(), v_prompt=vp.float(), k_ring=kr.float(),
+                             v_ring=vr.float())),
+        ("must match q", with_(k_own=ko[:, :, :8].contiguous())),
+        ("must match q", with_(v_own=vo.bfloat16())),
+        ("does not fit q", with_(k_prompt=kp[:1].repeat(3, 1, 1, 1))),
+        ("does not fit q", with_(k_prompt=kp[:, :1].contiguous())),
+        ("does not fit k_prompt", with_(v_prompt=vp[:, :, :39].contiguous())),
+        ("both be given", with_(v_ring=None)),
+        ("does not fit q", with_(k_ring=kr[:2].contiguous())),
+        ("does not fit k_prompt", with_(v_ring=vr.float())),
+        ("valid must be", with_(valid=valid[:, 1:].contiguous())),
+        ("valid must be", with_(valid=valid.to(torch.uint8))),
+        ("contiguous", with_(k_prompt=kp.transpose(2, 3).contiguous().transpose(2, 3))),
+        ("contiguous", with_(q=q.transpose(2, 3).contiguous().transpose(2, 3))),
+        ("is on", with_(valid=valid.to("meta"))),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_refusals())))
+def test_context_wrapper_refuses(case):
+    what, args = _refusals()[case]
+    fm.reset_launches()
+    with pytest.raises(ValueError, match=what):
+        fm.flash_mha_context(*args, scale=0.125)
+    assert fm.launches["float32_ctx"] == 0
+
+
+def test_context_wrapper_rejects_other_devices():
+    q = torch.zeros((2, 1, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fm.flash_mha_context(q, q, q, q, q, None, None,
+                             torch.ones((2, 8), dtype=torch.bool, device="meta"))

@@ -43,7 +43,7 @@ from chatterbox_tpu_torch.audio.pcm import read_wav, write_wav
 from chatterbox_tpu_torch.models.s3gen_ref import decoder
 from chatterbox_tpu_torch.models.t3 import model as t3_model
 from chatterbox_tpu_torch.ops.decode_attention import decode_attention_plain
-from chatterbox_tpu_torch.ops.flash_mha import flash_mha_plain
+from chatterbox_tpu_torch.ops.flash_mha import flash_mha_context_plain, flash_mha_plain
 from chatterbox_tpu_torch.runtime import checkpoint as ckpt
 from chatterbox_tpu_torch.runtime import manifest, tp_serving
 from chatterbox_tpu_torch.runtime.engine import TTSEngine
@@ -152,6 +152,18 @@ def test_plain_attention_swaps_each_kernel_alone(kernels):
     with pytest.raises(ValueError, match="no kernel"):
         with common.plain_attention(("conv",)):
             pass
+
+
+def test_plain_attention_swaps_both_k2_forms():
+    """K2's knob swaps its self form and its context form together, and
+    only under the "flash_mha" name."""
+    wrapper = decoder.flash_mha_context
+    with common.plain_attention(("decode_attention",)):
+        assert decoder.flash_mha_context is wrapper
+    with common.plain_attention(("flash_mha",)):
+        assert decoder.flash_mha_context is flash_mha_context_plain
+        assert decoder.flash_mha is flash_mha_plain
+    assert decoder.flash_mha_context is wrapper
 
 
 # ------------------------------------------------------------ salvage
