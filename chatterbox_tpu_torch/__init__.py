@@ -19,8 +19,9 @@ Package layout:
                  decoder, the S3Gen micro-batcher, serving metrics; loading
                  a model directory (safetensors reader and writer, the
                  reference and native checkpoint formats, the manifest)
-  serve/         the voice store; the aiohttp server and the multi-host
-                 dispatcher (``python -m chatterbox_tpu_torch.serve.app``)
+  serve/         the voice store; the HTTP server and the multi-host
+                 dispatcher (``python -m chatterbox_tpu_torch.serve.app``),
+                 on an HTTP/1.1 layer of the standard library's (``web``)
   data/          the full-size checkpoint key manifest
   settings.py    environment settings (same variable names as the JAX package)
   convert.py     JAX-layout parameter pytrees ↔ the port's layouts

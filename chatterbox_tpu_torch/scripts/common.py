@@ -8,8 +8,8 @@ text and overlap mode, every other argument from the ``TTS_*`` settings. Its
 TTFA is the wall from the call to ``engine.stream`` to the first PCM byte
 past the 44-byte WAV header (the engine's own ``stats["ttfa_s"]`` plus any
 wait for admission); its RTF is its wall over the seconds of audio returned.
-Every WAV is checked (``check_wav``). The engine runs in this process (the
-GPU machine has no aiohttp) on the CUDA device, or on the CPU only when
+Every WAV is checked (``check_wav``). The engine runs in this process, not
+behind the HTTP server, on the CUDA device, or on the CPU only when
 ``--device cpu`` asks for it.
 """
 from __future__ import annotations

@@ -208,18 +208,26 @@ def score(wav_dir: Path, text_chars: int, tiny: bool, names=None) -> dict:
 
 
 def merge_into(out: Path, report: dict) -> dict:
-    """Write ``report`` to ``out``, merged with the variants already there
-    when the comparison baseline (text length, tiny, default's seconds) is
-    the same → what was written."""
+    """Write ``report`` to ``out`` → what was written. A report already there
+    must have the same comparison baseline (text length, tiny, default's
+    seconds): its variant rows and its other top-level keys are kept beneath
+    the new ones. One of another baseline, or a file that is not a report,
+    is refused with a SystemExit that names it, and left as it was (the JAX
+    script writes the new rows alone over it)."""
     if out.exists():
         try:
             prev = json.loads(out.read_text())
-            if (prev.get("text_chars") == report["text_chars"]
-                    and prev.get("tiny") == report["tiny"]
-                    and prev.get("default_audio_s") == report["default_audio_s"]):
-                report = {**report, "variants": {**prev["variants"], **report["variants"]}}
-        except (OSError, ValueError, KeyError):
-            pass
+            prev_rows = dict(prev["variants"])
+        except (OSError, ValueError, KeyError, TypeError) as exc:
+            raise SystemExit(f"{out} exists and is not a quality-study report ({exc!r}); "
+                             "refusing to overwrite it: pass another --out") from None
+        base = ("text_chars", "tiny", "default_audio_s")
+        if any(prev.get(k) != report[k] for k in base):
+            raise SystemExit(
+                f"{out} holds rows of another baseline ({ {k: prev.get(k) for k in base} } "
+                f"against { {k: report[k] for k in base} }); refusing to overwrite them: "
+                "pass another --out")
+        report = {**prev, **report, "variants": {**prev_rows, **report["variants"]}}
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     return report

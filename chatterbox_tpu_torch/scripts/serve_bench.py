@@ -1,6 +1,8 @@
 """Measured serving benchmark: waves of concurrent requests through the
 in-process engine (the counterpart of ``scripts/serve_bench.py``, which
-serves through aiohttp; the GPU machine has none).
+sends them to the JAX server over HTTP). The port's server answers over
+HTTP on the card too (``serve/web.py``); this bench drives the engine in
+process, so its times hold no socket or HTTP framing.
 
     python -m chatterbox_tpu_torch.scripts.serve_bench [--streams 16] [--capacity] [--churn]
     python -m chatterbox_tpu_torch.scripts.serve_bench --device cpu --tiny   # CPU, tiny config

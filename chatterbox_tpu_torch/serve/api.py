@@ -1,4 +1,5 @@
-"""HTTP API routes (aiohttp; torch counterpart of ``chatterbox_tpu/serve/api.py``).
+"""HTTP API routes (torch counterpart of ``chatterbox_tpu/serve/api.py``, on
+the port's standard-library HTTP layer ``serve/web.py``).
 
 The JAX package's surface, endpoint for endpoint and parameter for
 parameter:
@@ -31,7 +32,6 @@ from pathlib import Path
 from typing import Mapping, Optional
 
 import torch
-from aiohttp import web
 
 from ..audio.encoding import AudioEncoder, FfmpegUnavailableError
 from ..logging_config import log
@@ -40,6 +40,7 @@ from ..ops.flash_mha import flash_enabled
 from ..runtime.cancellation import CancellationToken
 from ..runtime.metrics import metrics
 from ..settings import get_settings, get_tts_config
+from . import web
 from .telemetry import cpu_status, gpu_status
 
 STATIC_DIR = Path(__file__).resolve().parent.parent.parent / "static"

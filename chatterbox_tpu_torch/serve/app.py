@@ -18,11 +18,10 @@ import time
 import uuid
 from typing import Optional
 
-from aiohttp import web
-
 from ..logging_config import configure_logging, log
 from ..runtime.engine import TTSEngine
 from ..settings import get_settings
+from . import web
 from .api import register_api_routes
 from .voice_manager import VoiceManager
 
@@ -131,7 +130,7 @@ def create_app(engine: Optional[TTSEngine] = None, warm_voices: bool = True) -> 
 def main() -> None:
     settings = get_settings()
     configure_logging(settings.LOG_LEVEL, tag="SERVER")
-    web.run_app(create_app(), host=settings.HOST, port=settings.PORT, access_log=None)
+    web.run_app(create_app(), host=settings.HOST, port=settings.PORT)
 
 
 if __name__ == "__main__":

@@ -20,10 +20,8 @@ import asyncio
 import itertools
 from typing import Dict, List
 
-import aiohttp
-from aiohttp import web
-
 from ..logging_config import configure_logging, log
+from . import web
 
 HOP_HEADERS = {"host", "content-length", "transfer-encoding", "connection"}
 
@@ -53,11 +51,11 @@ class Dispatcher:
             pool, key=lambda b: (b.active, (n + pool.index(b)) % len(pool))
         )[0]
 
-    async def health_loop(self, session: aiohttp.ClientSession) -> None:
+    async def health_loop(self, session: web.ClientSession) -> None:
         while True:
             for b in self.backends:
                 try:
-                    async with session.get(b.url + "/health", timeout=aiohttp.ClientTimeout(total=3)) as r:
+                    async with session.get(b.url + "/health", timeout=web.ClientTimeout(total=3)) as r:
                         b.healthy = r.status == 200
                 except Exception:
                     b.healthy = False
@@ -70,7 +68,7 @@ def create_dispatcher_app(backends: List[str]) -> web.Application:
     app["dispatcher"] = dispatcher
 
     async def on_startup(app):
-        app["session"] = aiohttp.ClientSession(auto_decompress=False)
+        app["session"] = web.ClientSession()
         app["health_task"] = asyncio.ensure_future(
             dispatcher.health_loop(app["session"])
         )
@@ -90,14 +88,14 @@ def create_dispatcher_app(backends: List[str]) -> web.Application:
         channels)."""
         backend = dispatcher.pick()
         backend.active += 1
-        session: aiohttp.ClientSession = request.app["session"]
+        session: web.ClientSession = request.app["session"]
         url = backend.url + str(request.rel_url)
         response = None
         try:
             body = await request.read() if request.can_read_body else None
             async with session.request(
                 request.method, url, headers=_fwd_headers(request), data=body,
-                timeout=aiohttp.ClientTimeout(total=None, sock_read=300),
+                timeout=web.ClientTimeout(total=None, sock_read=300),
             ) as upstream:
                 response = web.StreamResponse(status=upstream.status)
                 for k, v in upstream.headers.items():
@@ -108,7 +106,7 @@ def create_dispatcher_app(backends: List[str]) -> web.Application:
                     await response.write(chunk)
                 await response.write_eof()
                 return response
-        except aiohttp.ClientError as exc:
+        except web.ClientError as exc:
             backend.healthy = False
             log.warning("backend %s failed: %s", backend.url, exc)
             if response is not None and response.prepared:
@@ -124,7 +122,7 @@ def create_dispatcher_app(backends: List[str]) -> web.Application:
     async def broadcast(request: web.Request) -> web.Response:
         """Fan a control-plane request out to ALL backends (broadcast
         channel: voice upload/delete keeps every cache coherent)."""
-        session: aiohttp.ClientSession = request.app["session"]
+        session: web.ClientSession = request.app["session"]
         body = await request.read() if request.can_read_body else None
         results = []
         for b in dispatcher.backends:
@@ -132,10 +130,10 @@ def create_dispatcher_app(backends: List[str]) -> web.Application:
                 async with session.request(
                     request.method, b.url + str(request.rel_url),
                     headers=_fwd_headers(request), data=body,
-                    timeout=aiohttp.ClientTimeout(total=60),
+                    timeout=web.ClientTimeout(total=60),
                 ) as r:
                     results.append((b.url, r.status, await r.read()))
-            except aiohttp.ClientError as exc:
+            except web.ClientError as exc:
                 b.healthy = False
                 results.append((b.url, 502, str(exc).encode()))
         # the first successful backend response defines the reply
@@ -175,7 +173,7 @@ def main() -> None:
     args = ap.parse_args()
     configure_logging(tag="DISPATCHER")
     app = create_dispatcher_app([b.strip() for b in args.backends.split(",") if b.strip()])
-    web.run_app(app, host=args.host, port=args.port, access_log=None)
+    web.run_app(app, host=args.host, port=args.port)
 
 
 if __name__ == "__main__":

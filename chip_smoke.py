@@ -42,6 +42,7 @@ the script exits non-zero without printing the final line:
    CHATTERBOX_MAX_NEW_TOKENS), MAX_DECODE_SLOTS=16; the default voice's
    prompt cache rebuilt as at a voice's first request (its build time and
    size, and one request's streaming state), then 16 concurrent requests
+   at WAVE_NEW_TOKENS (70) per chunk
    through engine.stream(..., output_format="wav") with the HTTP handler's
    arguments, some spanning two text chunks, under torch.profiler (CUDA
    activity only) for the device's busy share and the peak memory (beside
@@ -168,9 +169,11 @@ the script exits non-zero without printing the final line:
    through a conditioned vocoder). Phase 3 holds K1 at
    8 heads and both K2 forms at 4 heads (one rank's) to their plain
    versions (``check_tp_heads``);
-14. the port's scripts at full width, each a ``python -m`` process on the
-   card as a user starts it, every engine EngineConfig.full() (ref, bf16)
-   from phase 4's model directory (a seeded conds.pt; the random init from
+14. (run beside phases 12 and 13: its checks hold no time, and the
+   script's limit leaves no room to run it alone) the port's scripts at
+   full width, each a ``python -m`` process on the card as a user starts
+   it, every engine EngineConfig.full() (ref, bf16) from phase 4's model
+   directory (a seeded conds.pt; the random init from
    seed 0, which boots faster than loading a full-size directory) at a
    decode cap of 70 tokens: (a) ``quality_study --only
    kv_native,reference_exact,prompt_cache_static`` (each variant and its
@@ -190,7 +193,35 @@ the script exits non-zero without printing the final line:
    (its log line); (c) and (d) run beside (a) and (b). Walls print beside
    the card's name and power limit; the weights are random, so none is a
    quality or speed result;
-15. the kernels' JSON summary, the GPU line, then the final JSON line.
+15. the HTTP server at full width: ``python -m chatterbox_tpu_torch.serve.app``
+   as a child process (phase 4's model directory and configuration, a decode
+   cap of 35 tokens, the repo's preloaded voices), its client the standard
+   library's http.client: (1) booted and polled until ready, the voices
+   warm; (2) a two-sentence WAV request alone, streamed chunked, timed to
+   its headers, its first audio byte (beside the server engine's own TTFA
+   for it, from its log) and its end; (3) four concurrent JSON
+   POSTs inside /profile/start … /profile/stop, whose Chrome trace must
+   show K1's int8 body (decode_slice_kernel, decode_combine_kernel) and
+   K2's context form (flash_ctx_kernel); (4) an upload of
+   preloaded-voices/demo-voice.wav under a new name (multipart), listed,
+   then a request in it inside a second window that must show K2's self
+   form (flash_mha_kernel: the voice's prompt cache), then DELETE twice
+   (200, 404); (5) a client that closes its socket mid-stream (its
+   request asks for 10-token slices, so a write follows the close within
+   about a second): the handler's cancel in the server's log and
+   active_requests 0 within 10 s, then a request that streams; (6) no key
+   401, no text 400, a bad format 400; (7) ``python -m chatterbox_tpu_torch.serve.dispatcher`` in front of
+   the server: a WAV through it, served by the backend (its request id in
+   the server's log), /dispatcher-status; (8) neither child has an aiohttp
+   module mapped (the machine may have aiohttp; the port never imports
+   it), then SIGINT to both: exit 0 within 30 s, the engine's shutdown in
+   the server's log; (9) after the
+   server exits, a TTSEngine() in this process under the same environment
+   serves (2)'s text with (2)'s X-Request-ID: the HTTP body must be
+   byte-identical to its WAV (the sampling seeds come from the request id)
+   and pass ``check_wav`` against its record. The children's logs go to
+   chiprun_out/chip_smoke_http_*.log;
+16. the kernels' JSON summary, the GPU line, then the final JSON line.
 
 K1 and K2 report the launches of the batched serving phase (the main path),
 K2 once per form; K3, which no serving path calls, reports its launches in
@@ -205,12 +236,16 @@ its query heads per rank there (``heads_tp``); K1 and both K2 forms report
 each rank's launches while phase 13's tp = 2 engine served
 (``launches_tp_serving``) and their heads per rank (``heads_tp_serving``);
 K1 (per cache body) and both K2 forms report each phase 14 study child's
-request launches (``launches_study``).
+request launches (``launches_study``); K1 and K2's context form report
+their kernels' launches inside phase 15's server in its window (3), K2's
+self form in its window (4) (``launches_http``, counted by name in the
+server's traces: K1's decode_slice_kernel).
 """
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import gc
 import json
 import logging
@@ -218,12 +253,16 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from urllib.parse import urlencode
 
 import numpy as np
 import torch
@@ -281,6 +320,10 @@ REQUEST = dict(output_format="wav", voice_id=None, cfg_guidance_weight=0.5,
 SLOTS = 16                 # MAX_DECODE_SLOTS of the batched phase
 LANES = 2 * SLOTS          # CFG pairs: the decode kernels' batch
 MAX_NEW_TOKENS = "140"     # per-chunk decode cap (random weights never stop)
+# phase 4's wave decodes at most this per chunk (two slices) on its engine
+# built at MAX_NEW_TOKENS, whose streaming state phase 5's 105-token calls
+# need: the script's wall has to leave room for phase 15
+WAVE_NEW_TOKENS = 70
 
 
 def queued_ms(fn, n: int) -> float | None:
@@ -1043,16 +1086,22 @@ async def serve_batched(out: dict):
     texts = [TEXTS[i % 3] if i % 3 else f"Stream {i}. {TEXTS[0]}" for i in range(SLOTS)]
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    cache_info = build_voice_cache(engine)
+    cache_info = build_voice_cache(engine)   # its streaming state sized for MAX_NEW_TOKENS
+    cfg = engine.cfg
+    engine.cfg = dataclasses.replace(cfg, max_new_tokens=WAVE_NEW_TOKENS)
     t0 = time.perf_counter()
-    with profiler() as prof:
-        results = await run_requests(engine, texts, "batched")
-        torch.cuda.synchronize()
+    try:
+        with profiler() as prof:
+            results = await run_requests(engine, texts, "batched")
+            torch.cuda.synchronize()
+    finally:
+        engine.cfg = cfg
     wall = time.perf_counter() - t0
     launches = read_launches()
     t1 = time.perf_counter()
     summed_ms, busy_ms = device_ms(prof)
-    print(f"  {SLOTS} concurrent requests: wall {wall:.3f} s under the CUDA-only profiler "
+    print(f"  {SLOTS} concurrent requests at {WAVE_NEW_TOKENS} tokens per chunk: wall "
+          f"{wall:.3f} s under the CUDA-only profiler "
           f"(its summary took {time.perf_counter() - t1:.1f} s); device activity summed "
           f"{summed_ms / 1e3:.3f} s", flush=True)
     audio = report_requests(engine, results)
@@ -3185,14 +3234,13 @@ def scripts_phase(tmp: Path, model_dir: Path, out: dict) -> dict:
     """Phase 14 (see the module's docstring): the study and then
     parity_check in this thread, export_checkpoint and then demo_synthesis
     beside them → each study child's request launches."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from chatterbox_tpu_torch.runtime.checkpoint import load_checkpoint
     from chatterbox_tpu_torch.runtime.engine import EngineConfig
     from chatterbox_tpu_torch.runtime.loader import load_params
     from chatterbox_tpu_torch.scripts import quality_study
 
     card = gpu_line()
+    cfg = EngineConfig.full()   # read now: phases 12 and 13 change the environment meanwhile
     env = {k: v for k, v in os.environ.items() if k not in SCRIPT_KNOBS}
     env.update(MODEL_PATH=str(model_dir), CHATTERBOX_MAX_NEW_TOKENS=STUDY_NEW_TOKENS,
                MAX_DECODE_SLOTS=str(SLOTS), TMPDIR=str(tmp / "scripts-tmp"))
@@ -3261,7 +3309,6 @@ def scripts_phase(tmp: Path, model_dir: Path, out: dict) -> dict:
             raise AssertionError(f"{name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
     # (c) the export, read back bitwise against the weights it was made from
     export_dir = tmp / "exported"
-    cfg = EngineConfig.full()
     exported = load_checkpoint(export_dir, cfg, torch.bfloat16, "cuda")
     source = load_params(model_dir, cfg, torch.bfloat16, torch.device("cuda"), 0, {})
     export = compare_params(exported, source, "the exported checkpoint against its source weights")
@@ -3288,6 +3335,472 @@ def scripts_phase(tmp: Path, model_dir: Path, out: dict) -> dict:
                demo={"lines": demo_lines, "audio_s": demo_audio},
                ainit_s={n: r["ainit_s"] for n, r in records.items()})
     return {n: r["launches"] for n, r in records.items()}
+
+
+# ------------------------------------------------------------ the HTTP phase
+# Phase 15 runs the server's real entry point, ``python -m
+# chatterbox_tpu_torch.serve.app``, as a child process on the card at phase
+# 4's configuration (EngineConfig.full(), ref, int8 KV, 16 slots, the prompt
+# cache and streaming CFM, the seeded conds.pt) at an HTTP_NEW_TOKENS decode
+# cap, and the dispatcher's in front of it; its client is the standard
+# library's http.client. The kernels' launches inside the server are counted
+# by name in the Chrome traces its /profile/stop writes (the server's launch
+# counters live in its own process). The HTTP body of a request alone is
+# held byte for byte against the same request (the same request id, hence
+# the same sampling seeds: runtime/engine.py _decode_seed) served by an
+# engine in this process under the same environment.
+HTTP_NEW_TOKENS = "35"
+HTTP_KEY = "chip-smoke-key"
+HTTP_TEXT = "Hello from the server on the card. It streams this second sentence as well."
+HTTP_VOICE = "http-upload.wav"
+# the disconnect's request: many text chunks, so the stream outlasts the
+# disconnect by far; it asks for 10-token slices, so the server writes (and
+# learns that the client has gone) about every half second
+HTTP_LONG_TEXT = " ".join(TEXTS * 3)
+# the kernels counted in the server's traces: K1's split-S pair, K2's context
+# and self forms, K3 (which no serving path calls)
+HTTP_KERNELS = ("decode_slice_kernel", "decode_combine_kernel", "flash_ctx_kernel",
+                "flash_mha_kernel", "pipelined_slice_kernel")
+
+
+def http_call(port: int, method: str, path: str, body: bytes | None = None,
+              headers: dict | None = None, key: bool = True, timeout: float = 300):
+    """One request → (status, headers, body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body,
+                     headers={**({"X-API-Key": HTTP_KEY} if key else {}), **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        conn.close()
+
+
+def http_stream(port: int, path: str) -> dict:
+    """A GET read as it streams → its body, headers, and the walls from the
+    request to the headers, to the first audio byte past the 44-byte WAV
+    header, and to the end."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("GET", path, headers={"X-API-Key": HTTP_KEY})
+        resp = conn.getresponse()
+        t_headers = time.perf_counter() - t0
+        data, t_audio = bytearray(), None
+        while piece := resp.read1(1 << 16):
+            data += piece
+            if t_audio is None and len(data) > 44:
+                t_audio = time.perf_counter() - t0
+        return {"status": resp.status, "headers": {k.lower(): v for k, v in resp.getheaders()},
+                "body": bytes(data), "headers_s": t_headers, "first_audio_s": t_audio,
+                "wall_s": time.perf_counter() - t0, "chunked": resp.chunked}
+    finally:
+        conn.close()
+
+
+def http_wav(name: str, data: bytes, sr: int) -> float:
+    """A WAV from the server: RIFF header at ``sr``, 16-bit mono, finite and
+    not silent → its seconds of audio."""
+    if len(data) <= 44 or data[:4] != b"RIFF" or data[8:12] != b"WAVE" or data[36:40] != b"data":
+        raise AssertionError(f"{name}: no RIFF/WAVE header in {len(data)} bytes")
+    channels, rate, _, _, bits = struct.unpack("<HLLHH", data[22:36])
+    if (channels, rate, bits) != (1, sr, 16):
+        raise AssertionError(f"{name}: {channels} ch, {rate} Hz, {bits} bit")
+    pcm = np.frombuffer(data[44:], dtype="<i2").astype(np.float32) / 32768.0
+    if not np.isfinite(pcm).all() or np.abs(pcm).max() < 1e-3:
+        raise AssertionError(f"{name}: silent or non-finite audio")
+    return pcm.size / sr
+
+
+def http_profile(port: int, trace_dir: Path, work) -> dict:
+    """``work()`` between /profile/start and /profile/stop → each of
+    HTTP_KERNELS' launches in the server's Chrome trace, and the distinct
+    kernel names behind each count."""
+    status, _, body = http_call(port, "POST", f"/profile/start?dir={trace_dir}")
+    if status != 200:
+        raise AssertionError(f"/profile/start: {status} {body[:200]!r}")
+    result = work()
+    status, _, body = http_call(port, "POST", "/profile/stop")
+    if status != 200:
+        raise AssertionError(f"/profile/stop: {status} {body[:200]!r}")
+    trace = Path(json.loads(body)["trace"])
+    # the trace runs to hundreds of MiB (every host op of every thread): its
+    # kernel events are read with a pattern of the exporter's layout, not
+    # parsed whole
+    counts = {k: 0 for k in HTTP_KERNELS}
+    names: dict = {}
+    kernels = 0
+    for m in re.finditer(rb'"cat": "kernel", "name": "([^"]*)"', trace.read_bytes()):
+        kernels += 1
+        name = m.group(1).decode()
+        for k in HTTP_KERNELS:
+            if k in name:
+                counts[k] += 1
+                short = name.replace("(anonymous namespace)::", "").split("(")[0]
+                names[short] = names.get(short, 0) + 1
+    trace_mib = trace.stat().st_size / 2**20
+    trace.unlink()
+    return {"counts": counts, "names": names, "kernel_events": kernels,
+            "trace_mib": round(trace_mib, 1), "result": result}
+
+
+def multipart_body(field: str, filename: str, data: bytes) -> tuple[bytes, str]:
+    boundary = "chip-smoke-boundary"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"{field}\"; "
+            f"filename=\"{filename}\"\r\nContent-Type: audio/wav\r\n\r\n").encode() + data + \
+        f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def wait_http(port: int, path: str, proc, log: Path, timeout: float, key: bool = False):
+    """Poll ``path`` until it answers 200 → its body; the child must live."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if proc.poll() is not None:
+            raise AssertionError(f"the child exited {proc.returncode}:\n{log.read_text()[-4000:]}")
+        try:
+            status, _, body = http_call(port, "GET", path, key=key, timeout=10)
+            if status == 200:
+                return body
+        except OSError:
+            pass
+        time.sleep(0.2)
+    raise AssertionError(f"no 200 from :{port}{path} after {timeout} s:\n{log.read_text()[-4000:]}")
+
+
+def wait_log(log: Path, text: str, timeout: float) -> float:
+    """Wait until ``text`` appears in ``log`` → the seconds waited."""
+    t0 = time.perf_counter()
+    while text not in log.read_text():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{text!r} not in the server's log after {timeout} s:\n"
+                                 f"{log.read_text()[-4000:]}")
+        time.sleep(0.1)
+    return time.perf_counter() - t0
+
+
+def http_env(tmp: Path, model_dir: Path) -> dict:
+    """The server's environment: phase 4's configuration, no knob of an
+    earlier phase, a decode cap of HTTP_NEW_TOKENS."""
+    env = {k: v for k, v in os.environ.items() if k not in SCRIPT_KNOBS}
+    env.update(API_KEY=HTTP_KEY, HOST="127.0.0.1", MODEL_PATH=str(model_dir),
+               CHATTERBOX_MAX_NEW_TOKENS=HTTP_NEW_TOKENS, MAX_DECODE_SLOTS=str(SLOTS),
+               VOICES_DIR=str(tmp / "http-voices"), TMPDIR=str(tmp / "http-tmp"),
+               PRELOADED_VOICES_DIR=str(Path(__file__).resolve().parent / "preloaded-voices"))
+    return env
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_phase(tmp: Path, model_dir: Path, out: dict) -> dict:
+    """Phase 15 (see the module's docstring) → K1's, K2's and K2's context
+    form's launches inside the server, from the profiled windows."""
+    import importlib.metadata
+    import importlib.util
+    import socket
+
+    from chatterbox_tpu_torch.runtime.engine import EngineConfig, config_from_env
+
+    card = gpu_line()
+    env = http_env(tmp, model_dir)
+    (tmp / "http-tmp").mkdir()
+    port, dport = free_port(), free_port()
+    env["PORT"] = str(port)
+    root = Path(__file__).resolve().parent
+    logs = {name: tmp / f"http-{name}.log" for name in ("server", "dispatcher")}
+    procs: dict = {}
+    sr = EngineConfig.full().gen.sample_rate
+    rec: dict = {"card": card, "aiohttp": (importlib.metadata.version("aiohttp")
+                                           if importlib.util.find_spec("aiohttp") else None),
+                 "decode_cap": int(HTTP_NEW_TOKENS)}
+    print(f"  aiohttp on this machine: {rec['aiohttp'] or 'not importable'} (the port does not "
+          "import it: the children's memory maps are checked in (8))", flush=True)
+    rec["walls"] = walls = {}
+    mark = [time.perf_counter()]
+
+    def step_done(name: str) -> None:
+        walls[name] = round(time.perf_counter() - mark[0], 2)
+        mark[0] = time.perf_counter()
+
+    def spawn(name: str, args: list):
+        with open(logs[name], "w") as log:
+            procs[name] = subprocess.Popen([sys.executable, "-m", *args], env=env, cwd=root,
+                                           stdout=log, stderr=subprocess.STDOUT)
+        return procs[name]
+
+    try:
+        # (1) the entry point, booted as a user starts it
+        t0 = time.perf_counter()
+        server = spawn("server", ["chatterbox_tpu_torch.serve.app"])
+        wait_http(port, "/health", server, logs["server"], 300)
+        status = json.loads(wait_http(port, "/system-status", server, logs["server"], 60, key=True))
+        rec["boot_to_ready_s"] = time.perf_counter() - t0
+        if status["engine"]["state"] != "ready":
+            raise AssertionError(f"engine not ready: {status['engine']}")
+        rec["warm_up_wait_s"] = wait_log(logs["server"], "Voice cache warm-up complete", 120)
+        rec["gpus"] = status["gpus"]
+        print(f"  spawn to ready {rec['boot_to_ready_s']:.2f} s (then {rec['warm_up_wait_s']:.2f} s "
+              f"until the preloaded voices were warm); gpus {json.dumps(status['gpus'])}; "
+              f"kernels {status['kernels']}", flush=True)
+        step_done("1_boot")
+
+        # (2) one request alone, streamed
+        alone = http_stream(port, f"/tts/generate?{urlencode({'text': HTTP_TEXT, 'format': 'wav'})}")
+        if alone["status"] != 200 or not alone["chunked"]:
+            raise AssertionError(f"request alone: {alone['status']}, chunked {alone['chunked']}")
+        rid = alone["headers"]["x-request-id"]
+        audio_s = http_wav("alone", alone["body"], sr)
+        # the server's engine's own TTFA for this request (engine.stream's
+        # call to its first chunk), from its log line
+        wait_log(logs["server"], f"[{rid}] Time to first audio chunk:", 5)
+        server_ttfa = float(re.search(rf"\[{rid}\] Time to first audio chunk: ([0-9.]+)s",
+                                      logs["server"].read_text()).group(1))
+        rec["alone"] = {k: alone[k] for k in ("headers_s", "first_audio_s", "wall_s")}
+        rec["alone"].update(bytes=len(alone["body"]), audio_s=audio_s, request_id=rid,
+                            server_ttfa_s=server_ttfa)
+        print(f"  alone: headers {alone['headers_s'] * 1e3:.1f} ms, first audio byte "
+              f"{alone['first_audio_s'] * 1e3:.1f} ms (the server engine's own TTFA "
+              f"{server_ttfa * 1e3:.1f} ms: HTTP adds "
+              f"{(alone['first_audio_s'] - server_ttfa) * 1e3:.1f} ms), total "
+              f"{alone['wall_s']:.3f} s, {len(alone['body'])} bytes ({audio_s:.2f} s audio); "
+              f"X-Request-ID {rid}", flush=True)
+        step_done("2_alone")
+
+        # (3) four at once, profiled: K1 int8 and K2's context form run
+        texts = [HTTP_TEXT, TEXTS[0], TEXTS[2], "Four requests at once share the decoder's slots."]
+
+        def four():
+            def one(text):
+                body = json.dumps({"text": text, "format": "raw_pcm"}).encode()
+                return http_call(port, "POST", "/tts/generate", body,
+                                 {"Content-Type": "application/json"})
+            t = time.perf_counter()
+            with ThreadPoolExecutor(4) as pool:
+                answers = list(pool.map(one, texts))
+            return answers, time.perf_counter() - t
+
+        win3 = http_profile(port, tmp / "http-trace-3", four)
+        answers, wall = win3.pop("result")
+        for i, (st, hdrs, body) in enumerate(answers):
+            pcm = np.frombuffer(body[:len(body) // 2 * 2], dtype="<i2")
+            if st != 200 or hdrs.get("content-type") != "audio/pcm" or len(body) % 2 \
+                    or not pcm.size or np.abs(pcm).max() < 33:
+                raise AssertionError(f"concurrent request {i}: {st}, {hdrs}, {len(body)} bytes, "
+                                     "odd, empty or silent")
+        rec["concurrent"] = {"wall_s": wall, "bytes": [len(a[2]) for a in answers], **win3}
+        print(f"  4 concurrent POSTs (raw_pcm) under /profile: wall {wall:.3f} s, bytes "
+              f"{rec['concurrent']['bytes']}; launches in the trace {win3['counts']} of "
+              f"{win3['kernel_events']} kernels ({win3['trace_mib']} MiB); {win3['names']}",
+              flush=True)
+        for k in ("decode_slice_kernel", "decode_combine_kernel", "flash_ctx_kernel"):
+            if win3["counts"][k] == 0:
+                raise AssertionError(f"the server's path launched no {k} under /profile")
+        if not any("char" in n or "int8" in n for n in win3["names"]
+                   if "decode_slice_kernel" in n):
+            raise AssertionError(f"K1's int8 body not among {list(win3['names'])}")
+        step_done("3_concurrent")
+
+        # (4) a cloned voice: uploaded, listed, used (its prompt cache runs
+        # K2's self form), deleted
+        wav = (root / "preloaded-voices" / "demo-voice.wav").read_bytes()
+
+        def clone():
+            body, ctype = multipart_body("file", HTTP_VOICE, wav)
+            st, _, answer = http_call(port, "POST", "/voices", body, {"Content-Type": ctype})
+            if st != 201:
+                raise AssertionError(f"upload: {st} {answer[:300]!r}")
+            st, _, listed = http_call(port, "GET", "/voices")
+            if st != 200 or HTTP_VOICE not in json.loads(listed):
+                raise AssertionError(f"GET /voices: {st} {listed[:300]!r}")
+            return http_stream(port, "/tts/generate?" + urlencode(
+                {"text": TEXTS[0], "voice_id": HTTP_VOICE, "format": "wav"}))
+
+        win4 = http_profile(port, tmp / "http-trace-4", clone)
+        voiced = win4.pop("result")
+        if voiced["status"] != 200:
+            raise AssertionError(f"request in {HTTP_VOICE}: {voiced['status']}")
+        voiced_s = http_wav("cloned voice", voiced["body"], sr)
+        deletes = [http_call(port, "DELETE", f"/voices/{HTTP_VOICE}")[0] for _ in range(2)]
+        if deletes != [200, 404]:
+            raise AssertionError(f"DELETE twice: {deletes}")
+        rec["clone"] = {"audio_s": voiced_s, "wall_s": voiced["wall_s"], "deletes": deletes, **win4}
+        print(f"  cloned voice {HTTP_VOICE}: uploaded, listed, {voiced_s:.2f} s of audio in "
+              f"{voiced['wall_s']:.3f} s, DELETE {deletes}; launches in the trace {win4['counts']} "
+              f"of {win4['kernel_events']} kernels; {win4['names']}", flush=True)
+        if win4["counts"]["flash_mha_kernel"] == 0:
+            raise AssertionError("building the uploaded voice's prompt cache launched no K2")
+        step_done("4_clone")
+
+        # (5) a client that goes mid-stream
+        sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+        query = urlencode({"text": HTTP_LONG_TEXT, "format": "wav", "audio_tokens_per_slice": 10})
+        sock.sendall((f"GET /tts/generate?{query} "
+                      f"HTTP/1.1\r\nHost: 127.0.0.1\r\nX-API-Key: {HTTP_KEY}\r\n\r\n").encode())
+        got = b""
+        while b"\r\n\r\n" not in got or len(got.partition(b"\r\n\r\n")[2]) <= 64:
+            piece = sock.recv(1 << 16)
+            if not piece:
+                raise AssertionError(f"the stream ended early: {got[:300]!r}")
+            got += piece
+        drid = re.search(rb"X-Request-ID: (\S+)", got).group(1).decode()
+        sock.close()
+        t0 = time.perf_counter()
+        while True:
+            active = json.loads(http_call(port, "GET", "/system-status")[2])["active_requests"]
+            if active == 0:
+                break
+            if time.perf_counter() - t0 > 10:
+                raise AssertionError(f"active_requests {active} 10 s after the client left")
+            time.sleep(0.05)
+        drained = time.perf_counter() - t0
+        wait_log(logs["server"], f"[{drid}] client disconnected; cancelling", 5)
+        after = http_stream(port, f"/tts/generate?{urlencode({'text': TEXTS[2], 'format': 'wav'})}")
+        if after["status"] != 200:
+            raise AssertionError(f"the request after the disconnect: {after['status']}")
+        http_wav("after the disconnect", after["body"], sr)
+        rec["disconnect"] = {"drained_s": drained, "request_id": drid}
+        print(f"  client left mid-stream ({drid}): the handler cancelled it, active_requests 0 "
+              f"after {drained:.2f} s; the next request streamed "
+              f"{len(after['body'])} bytes", flush=True)
+        step_done("5_disconnect")
+
+        # (6) bad requests: statuses only (the bodies are held to the JAX
+        # server's on the CPU)
+        bad = {"no key": http_call(port, "GET", "/tts/generate?text=hi", key=False)[0],
+               "no text": http_call(port, "GET", "/tts/generate?format=wav")[0],
+               "bad format": http_call(port, "GET", "/tts/generate?text=hi&format=ogg")[0]}
+        if bad != {"no key": 401, "no text": 400, "bad format": 400}:
+            raise AssertionError(f"bad requests: {bad}")
+        rec["bad_requests"] = bad
+        step_done("6_bad_requests")
+
+        # (7) the dispatcher's entry point in front of the server
+        dispatcher = spawn("dispatcher", ["chatterbox_tpu_torch.serve.dispatcher", "--backends",
+                                          f"http://127.0.0.1:{port}", "--host", "127.0.0.1",
+                                          "--port", str(dport)])
+        wait_http(dport, "/dispatcher-status", dispatcher, logs["dispatcher"], 60)
+        proxied = http_stream(dport, f"/tts/generate?{urlencode({'text': TEXTS[0], 'format': 'wav'})}")
+        prid = proxied["headers"].get("x-request-id")
+        if proxied["status"] != 200 or not prid:
+            raise AssertionError(f"through the dispatcher: {proxied['status']} {proxied['headers']}")
+        proxied_s = http_wav("through the dispatcher", proxied["body"], sr)
+        wait_log(logs["server"], f"[{prid}] GET /tts/generate took", 5)
+        backends = json.loads(http_call(dport, "GET", "/dispatcher-status", key=False)[2])
+        want = [{"url": f"http://127.0.0.1:{port}", "healthy": True, "active": 0}]
+        if backends["backends"] != want:
+            raise AssertionError(f"/dispatcher-status: {backends}")
+        rec["dispatcher"] = {"first_audio_s": proxied["first_audio_s"], "wall_s": proxied["wall_s"],
+                             "audio_s": proxied_s, "status": backends}
+        print(f"  through the dispatcher: {proxied_s:.2f} s of audio, first audio byte "
+              f"{proxied['first_audio_s'] * 1e3:.1f} ms, served by the backend as {prid}; "
+              f"{json.dumps(backends)}", flush=True)
+        step_done("7_dispatcher")
+
+        # (8) neither child loaded aiohttp (its C extensions would be mapped);
+        # SIGINT: both exit 0; the server shuts its engine down
+        rec["aiohttp_mapped"] = {name: "aiohttp" in Path(f"/proc/{proc.pid}/maps").read_text()
+                                 for name, proc in procs.items()}
+        if any(rec["aiohttp_mapped"].values()):
+            raise AssertionError(f"a child mapped aiohttp: {rec['aiohttp_mapped']}")
+        codes = {}
+        for name in ("dispatcher", "server"):
+            procs[name].send_signal(signal.SIGINT)
+            t0 = time.perf_counter()
+            codes[name] = procs[name].wait(30)
+            rec[f"{name}_stop_s"] = time.perf_counter() - t0
+        if codes != {"dispatcher": 0, "server": 0}:
+            raise AssertionError(f"exit codes after SIGINT: {codes}\n{logs['server'].read_text()[-3000:]}")
+        if "Engine shutdown: releasing device buffers." not in logs["server"].read_text():
+            raise AssertionError("the server's log shows no engine shutdown")
+        print(f"  SIGINT: both exited 0 (dispatcher {rec['dispatcher_stop_s']:.2f} s, server "
+              f"{rec['server_stop_s']:.2f} s); the server's log shows the engine's shutdown",
+              flush=True)
+        step_done("8_sigint")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        for name, log in logs.items():
+            if log.exists():
+                shutil.copy(log, Path.cwd() / "chiprun_out" / f"chip_smoke_http_{name}.log")
+
+    # (9) the HTTP body against the engine's WAV for the same request id
+    saved = dict(os.environ)
+    os.environ.clear()
+    os.environ.update(env)
+    try:
+        if config_from_env() != EngineConfig.full():
+            raise AssertionError("the server's config is not EngineConfig.full()")
+        body, stats, ttfa = asyncio.run(engine_wav(rid, HTTP_TEXT))
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    same = body == alone["body"]
+    step_done("9_engine")
+    rec["engine"] = {"identical": same, "ttfa_s": ttfa, "bytes": len(body)}
+    if not same:
+        a = np.frombuffer(alone["body"][44:], dtype="<i2").astype(np.int32)
+        b = np.frombuffer(body[44:], dtype="<i2").astype(np.int32)
+        n = min(a.size, b.size)
+        rec["engine"]["max_sample_diff"] = int(np.abs(a[:n] - b[:n]).max()) if n else None
+        raise AssertionError(f"the HTTP body differs from the engine's WAV: {len(alone['body'])} "
+                             f"against {len(body)} bytes, largest sample difference "
+                             f"{rec['engine']['max_sample_diff']}")
+    gen = EngineConfig.full().gen
+    check_wav("alone", alone["body"], stats, gen.sample_rate, gen.samples_per_token,
+              int(gen.sample_rate * REQUEST["crossfade_duration_milliseconds"] / 1000))
+    print(f"  the HTTP body of {rid} is byte-identical to the in-process engine's WAV "
+          f"({len(body)} bytes); this engine's TTFA {ttfa * 1e3:.1f} ms (another process: the "
+          f"server's was {server_ttfa * 1e3:.1f} ms); {card}", flush=True)
+    print(f"  step walls (s): {json.dumps(walls)}", flush=True)
+    out.update(rec)
+    return {"decode_attention": win3["counts"]["decode_slice_kernel"],
+            "flash_mha": win4["counts"]["flash_mha_kernel"],
+            "flash_mha_context": win3["counts"]["flash_ctx_kernel"]}
+
+
+async def engine_wav(rid: str, text: str):
+    """``text`` as the HTTP handler sends it, through a TTSEngine() built
+    from the environment → (the WAV, the request's record, its TTFA)."""
+    from chatterbox_tpu_torch.runtime.cancellation import CancellationToken
+    from chatterbox_tpu_torch.runtime.engine import TTSEngine
+    from chatterbox_tpu_torch.serve.api import parse_tts_request
+
+    req = parse_tts_request({"text": text, "format": "wav"})
+    engine = TTSEngine()
+    await engine.ainit()
+    try:
+        data = b""
+        async for chunk in engine.stream(
+                text=req.text, output_format=req.format, voice_id=req.voice_id,
+                cfg_guidance_weight=req.cfg_guidance_weight,
+                synthesis_temperature=req.synthesis_temperature,
+                text_processing_chunk_size=req.text_processing_chunk_size,
+                audio_tokens_per_slice=req.audio_tokens_per_slice,
+                remove_trailing_milliseconds=req.remove_trailing_milliseconds,
+                remove_leading_milliseconds=req.remove_leading_milliseconds,
+                chunk_overlap_strategy=req.chunk_overlap_strategy,
+                crossfade_duration_milliseconds=req.crossfade_duration_milliseconds,
+                request_id=rid, cancellation_token=CancellationToken()):
+            data += chunk
+        stats = engine.request_stats[rid]
+        return data, stats, stats["ttfa_s"]
+    finally:
+        engine.shutdown()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def phase(title: str):
@@ -3483,6 +3996,22 @@ def main() -> int:
         bench_phase(Path(tmp), serving["bench"])
         done(t0, walls, "kernels_off_and_bench")
 
+        # phase 14 runs beside phases 12 and 13: its scripts are processes of
+        # their own whose checks hold no time, and run one after the other
+        # the three would leave phase 15 no room in the script's time limit
+        serving["scripts"] = {}
+
+        def run_scripts() -> dict:
+            t = phase("14. (beside phases 12 and 13) the scripts at full width, each a process "
+                      f"on the card: the quality study ({', '.join(STUDY_ONLY)} against default), "
+                      "parity_check, export_checkpoint, demo_synthesis --full-model")
+            launches = scripts_phase(Path(tmp), model_dir, serving["scripts"])
+            done(t, walls, "scripts")
+            return launches
+
+        side = ThreadPoolExecutor(1)
+        scripts_run = side.submit(run_scripts)
+
         t0 = phase("12. tensor- and data-parallel T3: 2 ranks on the card (gloo)")
         serving["parallel"] = {}
         tp_launches = parallel_phase(serving["parallel"])
@@ -3502,14 +4031,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         done(t0, walls, "tp_serving")
 
-        t0 = phase("14. the scripts at full width, each a process on the card: the quality "
-                   f"study ({', '.join(STUDY_ONLY)} against default), parity_check, "
-                   "export_checkpoint, demo_synthesis --full-model")
-        serving["scripts"] = {}
-        study_launches = scripts_phase(Path(tmp), model_dir, serving["scripts"])
-        done(t0, walls, "scripts")
+        study_launches = scripts_run.result()
+        side.shutdown()
 
-    print("== 15. summary", flush=True)
+        t0 = phase("15. the HTTP server at full width: python -m chatterbox_tpu_torch.serve.app "
+                   "and the dispatcher as child processes; a request alone, 4 at once, a cloned "
+                   "voice, a client that leaves, bad requests, SIGINT; the body against the engine")
+        serving["http"] = {}
+        http_launches = http_phase(Path(tmp), model_dir, serving["http"])
+        done(t0, walls, "http")
+        print(f"  http: {json.dumps(serving['http'])}", flush=True)
+
+    print("== 16. summary", flush=True)
     # ms / plain_ms / library_ms: device time per call; call_ms: with the
     # host's dispatch; bound_ms: bytes over 3.35 TB/s or operations over peak
     k3_main = {**k3["bfloat16"], "max_abs_err": max(k3["bfloat16"]["max_abs_err"], k3_live["live"]),
@@ -3527,6 +4060,7 @@ def main() -> int:
              launches_tp_serving=tp_serving["launches"]["decode_attention"],
              heads_tp_serving=tp_serving["heads"]["decode_attention"],
              launches_study={n: l["decode_attention"] for n, l in study_launches.items()},
+             launches_http=http_launches["decode_attention"],
              other_bodies={"bfloat16": k1[f"bfloat16_B{LANES}"], "B2_checks": {
                  c: k1[c] for c in ("int8", "bfloat16", "float32")}, "slice_edge_checks": {
                  c: k1[f"slice_edges_B{LANES}_{c}"] for c in ("int8", "bfloat16", "float32")},
@@ -3543,6 +4077,7 @@ def main() -> int:
              launches_tp_serving=tp_serving["launches"]["flash_mha"],
              heads_tp_serving=tp_serving["heads"]["flash_mha"],
              launches_study={n: l["flash_mha"]["float32"] for n, l in study_launches.items()},
+             launches_http=http_launches["flash_mha"],
              launches_from="phase 4: the default voice's prompt prefill", **k2["float32"],
              other_bodies={"bfloat16": k2["bfloat16"], "other_head_dims": {
                  c: k2[f"other_dh_{c}"] for c in ("float32", "bfloat16")},
@@ -3558,6 +4093,7 @@ def main() -> int:
              launches_tp_serving=tp_serving["launches"]["flash_mha_context"],
              heads_tp_serving=tp_serving["heads"]["flash_mha"],
              launches_study={n: l["flash_mha"]["float32_ctx"] for n, l in study_launches.items()},
+             launches_http=http_launches["flash_mha_context"],
              launches_from="phase 4: every cached and streaming estimator evaluation",
              **k2c["f32_bf16"], other_bodies={"f32_f32": k2c["f32_f32"],
                                               "bf16_bf16": k2c["bf16_bf16"],

@@ -1,10 +1,12 @@
 """The port's HTTP server (``chatterbox_tpu_torch.serve``), probe for probe
 as tests/test_api.py holds the JAX server: one module-wide app from the
 factory with no engine passed in (CHATTERBOX_FORCE_CPU=1 and
-CHATTERBOX_TINY_MODEL=1, so EngineConfig.tiny_ref() on the CPU). Beside
-that, the same bad requests get the same answers from both servers (the JAX
-one over a stub engine), the request parser coerces as the JAX package's
-pydantic model does, and the settings are the JAX package's."""
+CHATTERBOX_TINY_MODEL=1, so EngineConfig.tiny_ref() on the CPU), served by
+the port's own HTTP layer (``serve/web.py``) on a real socket and driven by
+aiohttp's client, an independent implementation. Beside that, the same bad
+requests get the same answers from both servers (the JAX one over a stub
+engine), the request parser coerces as the JAX package's pydantic model
+does, and the settings are the JAX package's."""
 import asyncio
 import dataclasses
 import os
@@ -12,7 +14,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-from aiohttp import FormData
+from aiohttp import ClientSession, FormData
 from aiohttp.test_utils import TestClient, TestServer
 
 import torch_port_helpers  # noqa: F401  (caps torch's threads)
@@ -45,6 +47,32 @@ def _restore_env(saved: dict) -> None:
     reset_config_cache()
 
 
+class PortClient:
+    """aiohttp's client against the port's server on 127.0.0.1: ``get``,
+    ``post``, ``put``, ``delete`` take a path, as aiohttp's TestClient's do;
+    ``server.app`` is the app."""
+
+    def __init__(self, server, session: ClientSession):
+        self.server, self._session = server, session
+
+    @classmethod
+    async def start(cls, app) -> "PortClient":
+        from chatterbox_tpu_torch.serve import web
+
+        server = web.AppServer(app)
+        await server.start("127.0.0.1", 0)
+        return cls(server, ClientSession(base_url=f"http://127.0.0.1:{server.port}"))
+
+    def __getattr__(self, method: str):
+        async def call(path: str, **kwargs):
+            return await self._session.request(method.upper(), path, **kwargs)
+        return call
+
+    async def close(self) -> None:
+        await self._session.close()
+        await self.server.close()
+
+
 @pytest.fixture(scope="module")
 def api(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_api")
@@ -54,9 +82,7 @@ def api(tmp_path_factory):
     loop = asyncio.new_event_loop()
 
     async def start():
-        client = TestClient(TestServer(create_app(warm_voices=False)))
-        await client.start_server()
-        return client
+        return await PortClient.start(create_app(warm_voices=False))
 
     client = loop.run_until_complete(start())
     sr = 24000

@@ -191,17 +191,18 @@ def test_dispatcher_matches():
     """The port's dispatcher is the JAX package's: the same routes, the same
     backend picks under load and failures, and the same answers proxied
     and broadcast from backends."""
-    from aiohttp import web
-    from aiohttp.test_utils import TestClient, TestServer
+    from aiohttp import ClientSession, web
+    from aiohttp.test_utils import TestServer
 
     from chatterbox_tpu.serve import dispatcher as jdisp
     from chatterbox_tpu_torch.serve import dispatcher as tdisp
+    from chatterbox_tpu_torch.serve import web as tweb
 
-    def routes(mod):
-        app = mod.create_dispatcher_app(["http://a:1", "http://b:2"])
-        return sorted((r.method, r.resource.canonical) for r in app.router.routes())
-
-    assert routes(tdisp) == routes(jdisp)
+    # the port's route table against aiohttp's router under the JAX dispatcher
+    backends = ["http://a:1", "http://b:2"]
+    assert sorted((r.method, r.path) for r in tdisp.create_dispatcher_app(backends).router.routes()) \
+        == sorted((r.method, r.resource.canonical)
+                  for r in jdisp.create_dispatcher_app(backends).router.routes())
 
     def picks(mod):
         d = mod.Dispatcher(["http://a", "http://b", "http://c", "http://d"])
@@ -235,8 +236,16 @@ def test_dispatcher_matches():
         url = str(server.make_url("")).rstrip("/")
         answers = []
         for mod in (tdisp, jdisp):
-            client = TestClient(TestServer(mod.create_dispatcher_app([url, url])))
-            await client.start_server()
+            app = mod.create_dispatcher_app([url, url])
+            if mod is tdisp:   # the port's dispatcher on its own HTTP layer
+                dispatcher = tweb.AppServer(app)
+                await dispatcher.start("127.0.0.1", 0)
+                base = f"http://127.0.0.1:{dispatcher.port}"
+            else:
+                dispatcher = TestServer(app)
+                await dispatcher.start_server()
+                base = str(dispatcher.make_url("")).rstrip("/")
+            client = ClientSession(base_url=base)
             got = []
             for method, path, data in (("get", "/tts/generate?text=hi", None),
                                        ("post", "/tts/generate", b'{"text": "hi"}'),
@@ -248,6 +257,7 @@ def test_dispatcher_matches():
             r = await client.get("/dispatcher-status")
             got.append((r.status, [b["healthy"] for b in (await r.json())["backends"]]))
             await client.close()
+            await dispatcher.close()
             answers.append(got)
         await server.close()
         return answers

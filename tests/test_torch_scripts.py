@@ -5,8 +5,10 @@ scripts, on the CPU at the tiny configs.
   (read by path), and the one stated mapping: a knob at anything but "1"
   becomes the plain-version swap of its kernel (``common.kernel_swap``);
 * ``quality_salvage`` against ``scripts/quality_salvage.py`` on the same
-  seeded WAVs (rows within the 0.001 of their rounding, the merge rule, the
-  JAX result files refused);
+  seeded WAVs (rows within the 0.001 of their rounding, the JAX result files
+  refused); the merge rule as the JAX script's for the same baseline, and
+  the port's three deliberate repairs: ``--tiny``, another baseline refused
+  and not overwritten, the earlier report's other top-level keys kept;
 * a ``--tiny`` study in child processes: a knob that changes the output
   (MCD > 0) and the control (``prompt_cache_step`` is the default: the same
   request in two fresh processes gives the same WAV, MCD 0.0);
@@ -201,8 +203,10 @@ def test_salvage_rows_match_the_jax_script(tmp_path, monkeypatch, capsys):
 
 
 def test_salvage_merge_rule_matches_the_jax_script(tmp_path, monkeypatch):
-    """An existing report with the same baseline keeps its other rows; one
-    with another baseline is replaced: the same in both packages."""
+    """An existing report with the same baseline keeps its other rows, as in
+    the JAX script. One with another baseline the JAX script replaces with
+    the new rows alone; the port refuses it (naming the file) and leaves it
+    as it was: a deliberate deviation."""
     wav_dir = tmp_path / "study"
     _seeded_wavs(wav_dir)
     first = _run_jax_salvage(wav_dir, tmp_path / "base.json", monkeypatch)
@@ -213,13 +217,62 @@ def test_salvage_merge_rule_matches_the_jax_script(tmp_path, monkeypatch):
         for who in ("jax", "port"):
             (tmp_path / f"{label}_{who}.json").write_text(json.dumps(prev))
         want = _run_jax_salvage(wav_dir, tmp_path / f"{label}_jax.json", monkeypatch)
-        quality_salvage.main([str(wav_dir), "--out", str(tmp_path / f"{label}_port.json")])
-        got = json.loads((tmp_path / f"{label}_port.json").read_text())
+        assert ("from_before" in want["variants"]) == (label == "same")
+        port_out = tmp_path / f"{label}_port.json"
+        if label == "other":
+            with pytest.raises(SystemExit, match=str(port_out)):
+                quality_salvage.main([str(wav_dir), "--out", str(port_out)])
+            assert json.loads(port_out.read_text()) == prev
+            continue
+        quality_salvage.main([str(wav_dir), "--out", str(port_out)])
+        got = json.loads(port_out.read_text())
         assert list(got["variants"]) == list(want["variants"])
-        assert ("from_before" in got["variants"]) == (label == "same")
         assert got["variants"]["noisy"]["mcd_db"] > 0   # the new row replaced the old
-        if label == "same":
-            assert got["variants"]["from_before"] == want["variants"]["from_before"]
+        assert got["variants"]["from_before"] == want["variants"]["from_before"]
+
+
+def test_salvage_tiny_labels_the_rows(tmp_path):
+    """``--tiny`` marks the report as a tiny study's (the JAX script
+    hard-codes tiny=False); the same WAVs under the other label are another
+    baseline, so they do not merge into it."""
+    wav_dir = tmp_path / "study"
+    _seeded_wavs(wav_dir)
+    quality_salvage.main([str(wav_dir), "--tiny", "--out", str(tmp_path / "tiny.json")])
+    quality_salvage.main([str(wav_dir), "--out", str(tmp_path / "full.json")])
+    tiny, full = (json.loads((tmp_path / f"{n}.json").read_text()) for n in ("tiny", "full"))
+    assert tiny["tiny"] is True and full["tiny"] is False
+    assert tiny["variants"] == full["variants"]
+    with pytest.raises(SystemExit, match="another baseline"):
+        quality_salvage.main([str(wav_dir), "--out", str(tmp_path / "tiny.json")])
+
+
+@pytest.mark.parametrize("prev", ["other_text", "not_json", "no_variants"])
+def test_merge_refuses_to_overwrite(tmp_path, prev):
+    """merge_into refuses another baseline's report, or a file that is not a
+    report, with the file's name, and leaves the file as it was."""
+    report = {"text_chars": 96, "tiny": True, "default_audio_s": 1.5,
+              "variants": {"a": {"mcd_db": 1.0, "lsd_db": 1.0, "audio_s": 1.0}}}
+    text = {"other_text": json.dumps({**report, "text_chars": 40}), "not_json": "{cut",
+            "no_variants": json.dumps({"text_chars": 96})}[prev]
+    out = tmp_path / "report.json"
+    out.write_text(text)
+    with pytest.raises(SystemExit, match=str(out)):
+        quality_study.merge_into(out, report)
+    assert out.read_text() == text
+
+
+def test_merge_keeps_the_earlier_reports_other_keys(tmp_path):
+    """A merge keeps every top-level key of the earlier report that the new
+    one lacks, and its rows beneath the new ones."""
+    out = tmp_path / "report.json"
+    base = {"text_chars": 96, "tiny": False, "default_audio_s": 2.0}
+    out.write_text(json.dumps({**base, "card": "NVIDIA H100 80GB HBM3, 700.00 W", "note": "run 1",
+                               "variants": {"old": {"mcd_db": 1.0}, "b": {"mcd_db": 9.0}}}))
+    got = quality_study.merge_into(out, {**base, "note": "run 2",
+                                         "variants": {"b": {"mcd_db": 2.0}}})
+    assert got == json.loads(out.read_text())
+    assert got == {**base, "card": "NVIDIA H100 80GB HBM3, 700.00 W", "note": "run 2",
+                   "variants": {"old": {"mcd_db": 1.0}, "b": {"mcd_db": 2.0}}}
 
 
 @pytest.mark.parametrize("name", common.JAX_RESULTS)
