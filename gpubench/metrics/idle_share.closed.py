@@ -1,0 +1,2 @@
+"""idle_share.closed: see ``gpubench.layers.idle_share``."""
+from gpubench.layers import idle_share as read  # noqa: F401

@@ -1,0 +1,2 @@
+"""mfu.closed: see ``gpubench.layers.mfu``."""
+from gpubench.layers import mfu as read  # noqa: F401
