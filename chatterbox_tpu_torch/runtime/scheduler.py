@@ -1,9 +1,16 @@
 """Continuous-batching T3 decoder (torch counterpart of
 ``chatterbox_tpu/runtime/scheduler.py``).
 
-N decode slots share one set of weights and one KV cache
-``[L, 2N, Hk, S, Dh]`` (int8 with f32 scales ``[L, 2N, Hk, S]``, or the
-params dtype); every decode slice advances all slots together. Lanes are
+N decode slots share one set of weights and one KV cache, held per layer:
+``cache["k"][i]`` is ``[2N, Hk, C, Dh]`` (int8 with f32 scales
+``[2N, Hk, C]``, or the params dtype); every decode slice advances all slots
+together. The capacity C follows the positions the slots reach: before each
+slice it becomes the slice's attention view (the 256-bucket of max(pos) +
+steps + 1) when that is larger, or when that is at most C/2; before a
+prefill it grows to hold the prefix and the first step. A resize moves one
+layer's tensor at a time (allocate, copy the live prefix, drop the old), so
+it never holds two whole caches; lanes of idle slots whose ``pos`` lies past
+a shrunk C restart at 0, so no write or read leaves it. Lanes are
 ``[slot0-cond, slot0-uncond, slot1-cond, …]``. A request's text chunk is
 prefilled straight into its slot's two lanes between slices (in place: only
 the first P positions are written, and entries past ``pos`` left by an
@@ -70,6 +77,17 @@ class _Submission:
 
 # Short-slice lengths for fresh look-ahead admissions (3..20 tokens).
 LOOKAHEAD_STEPS = (8, 20)
+# The cache's capacity moves in steps of this many positions (K1's slice).
+CACHE_BUCKET = 256
+
+
+def _moved(old: torch.Tensor, rows: int, keep: int) -> torch.Tensor:
+    """One layer's ``[B, Hk, S, …]`` cache tensor at ``rows`` positions: its
+    first ``keep`` copied, the rest zero (the plain attention reads them)."""
+    new = old.new_empty((*old.shape[:2], rows, *old.shape[3:]))
+    new[:, :, :keep] = old[:, :, :keep]
+    new[:, :, keep:].zero_()
+    return new
 
 
 class BatchedT3Decoder:
@@ -82,24 +100,27 @@ class BatchedT3Decoder:
         self.n_slots = n_slots
         self.slice_size = slice_size
         self.calls = calls
-        L, Dh, S = cfg.num_layers, cfg.head_dim, cfg.max_seq_len
+        L, Dh = cfg.num_layers, cfg.head_dim
         Hk = params["backbone"]["layers"]["wk"].shape[1] // Dh   # this shard's kv heads
         B = 2 * n_slots
         dev = params["speech_emb"].device
         self.device = dev
+        # the cache's capacity C, in positions (see _capacity)
+        self.rows = S = self._bucket(1)
         i32 = dict(dtype=torch.int32, device=dev)
         self.cache = {"start": torch.zeros((B,), **i32), "pos": torch.zeros((B,), **i32)}
+
+        def layers(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(L)]
+
         if cfg.kv_cache_dtype == "int8":
-            self.cache.update(
-                k=torch.zeros((L, B, Hk, S, Dh), dtype=torch.int8, device=dev),
-                v=torch.zeros((L, B, Hk, S, Dh), dtype=torch.int8, device=dev),
-                k_scale=torch.zeros((L, B, Hk, S), dtype=torch.float32, device=dev),
-                v_scale=torch.zeros((L, B, Hk, S), dtype=torch.float32, device=dev),
-            )
+            self.cache.update(k=layers((B, Hk, S, Dh), torch.int8),
+                              v=layers((B, Hk, S, Dh), torch.int8),
+                              k_scale=layers((B, Hk, S), torch.float32),
+                              v_scale=layers((B, Hk, S), torch.float32))
         else:
             dtype = params["speech_emb"].dtype
-            self.cache.update(k=torch.zeros((L, B, Hk, S, Dh), dtype=dtype, device=dev),
-                              v=torch.zeros((L, B, Hk, S, Dh), dtype=dtype, device=dev))
+            self.cache.update(k=layers((B, Hk, S, Dh), dtype), v=layers((B, Hk, S, Dh), dtype))
         self.state = make_decode_state(cfg, [0] * n_slots, 0.8, 0.95, 0.5, 1.2, dev)
         self.state["done"][:] = True  # all slots idle
 
@@ -144,7 +165,8 @@ class BatchedT3Decoder:
 
     def run_slice(self, n_steps: int, s_view: int):
         """One decode slice over every slot → (tokens [N, n_steps], done [N])
-        as numpy, in one device-to-host copy."""
+        as numpy, in one device-to-host copy. ``s_view`` must exceed every
+        active lane's pos + n_steps: the cache is resized to hold it."""
         if self.calls is None:
             return self._run_slice(n_steps, s_view)
         return self.calls.decoder_run_slice(self, n_steps, s_view)
@@ -154,23 +176,23 @@ class BatchedT3Decoder:
                 temperature: float, top_p: float, cfg_weight: float, rep_penalty: float,
                 seed: int, tp_group=None) -> None:
         cfg, dev = self.cfg, self.device
+        # the prefix and the first step's write at P
+        self._resize(self._capacity(cond_lanes.shape[1] + text.shape[1] + 1, shrink=False))
         text_t = torch.as_tensor(text, device=dev)
         tlen = torch.full((2,), text_len, dtype=torch.int64, device=dev)
         k, v, pad = t3_prefill_raw(self.params, cfg, cond_lanes, text_t, tlen, tp_group)
         P = k.shape[2]
         lanes = slice(2 * slot, 2 * slot + 2)
-        # [L, 2, P, Hk, …] → the cache's [L, 2, Hk, P, …]
-        head_major = lambda x: x.transpose(2, 3)  # noqa: E731
         if "k_scale" in self.cache:
             kq, ks = _quantize_kv(k)
             vq, vs = _quantize_kv(v)
-            self.cache["k"][:, lanes, :, :P] = head_major(kq)
-            self.cache["v"][:, lanes, :, :P] = head_major(vq)
-            self.cache["k_scale"][:, lanes, :, :P] = head_major(ks)
-            self.cache["v_scale"][:, lanes, :, :P] = head_major(vs)
+            parts = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         else:
-            self.cache["k"][:, lanes, :, :P] = head_major(k)
-            self.cache["v"][:, lanes, :, :P] = head_major(v)
+            parts = {"k": k, "v": v}
+        for name, x in parts.items():
+            # [L, 2, P, Hk, …] → each layer's [2, Hk, P, …]
+            for layer, xi in zip(self.cache[name], x.transpose(2, 3)):
+                layer[lanes, :, :P] = xi
         self.cache["start"][lanes] = pad
         self.cache["pos"][lanes] = P
         st = self.state
@@ -193,11 +215,48 @@ class BatchedT3Decoder:
         """Attention view for a slice: the 256-bucket of max(pos) + n_steps + 1
         over ``slots``. Only the plain attention reads up to it; the kernel
         stops at each row's own pos."""
-        need = max(self._pos_host[s] for s in slots) + n_steps + 1
-        return min(self.cfg.max_seq_len, ((need + 255) // 256) * 256)
+        return self._bucket(max(self._pos_host[s] for s in slots) + n_steps + 1)
+
+    def _bucket(self, positions: int) -> int:
+        """The 256-bucket that holds ``positions``, at most max_seq_len."""
+        return min(self.cfg.max_seq_len, -(-positions // CACHE_BUCKET) * CACHE_BUCKET)
+
+    def _capacity(self, positions: int, shrink: bool) -> int:
+        """The capacity for a prefill or (``shrink``) a slice that reaches
+        ``positions``: their bucket when it is larger than C; on a slice also
+        when it is at most C/2 (so slots that straddle a bucket do not resize
+        every slice); else C."""
+        want = self._bucket(positions)
+        if want > self.rows or (shrink and 2 * want <= self.rows):
+            return want
+        return self.rows
+
+    @torch.inference_mode()
+    def _resize(self, rows: int) -> None:
+        """Move the cache to ``rows`` positions, one layer's tensor at a
+        time, so that the transient above the larger cache is one layer's
+        tensor. Every rank under tensor parallelism resizes here from the
+        same arguments."""
+        if rows == self.rows:
+            return
+        with metrics.span("t3.cache.resize", rows_from=self.rows, rows_to=rows):
+            if rows < self.rows:
+                # idle lanes still write at their pos every step: a stale pos
+                # past the new capacity restarts at 0 (active lanes lie inside
+                # the view)
+                stale = self.cache["pos"] >= rows
+                self.cache["start"].masked_fill_(stale, 0)
+                self.cache["pos"].masked_fill_(stale, 0)
+            keep = min(self.rows, rows)
+            for name in ("k", "v", "k_scale", "v_scale"):
+                layers = self.cache.get(name, ())
+                for i in range(len(layers)):
+                    layers[i] = _moved(layers[i], rows, keep)
+            self.rows = rows
 
     @torch.inference_mode()
     def _run_slice(self, n_steps: int, s_view: int, tp_group=None):
+        self._resize(self._capacity(s_view, shrink=True))
         with metrics.span("t3.slice.enqueue", steps=n_steps):
             toks = t3_decode_slice(self.params, self.cfg, self.cache, self.state, n_steps,
                                    s_view, tp_group=tp_group)
@@ -297,8 +356,9 @@ class BatchedT3Decoder:
             self._queues[slot] = asyncio.Queue()
             self._pos_host[slot] = P
             self._produced[slot] = 0
-            # the cache holds S positions: a slot's last slice may overshoot
-            # its cap by up to one slice, and every write must stay inside
+            # the cache holds at most max_seq_len positions: a slot's last
+            # slice may overshoot its cap by up to one slice, and every write
+            # must stay inside
             longest = max(self.slice_size, LOOKAHEAD_STEPS[-1])
             self._caps[slot] = min(sub.max_new_tokens, self.cfg.max_seq_len - P - longest)
             self._lookahead[slot] = min(sub.lookahead, LOOKAHEAD_STEPS[-1])
@@ -348,6 +408,7 @@ class BatchedT3Decoder:
                 with metrics.span("t3.slice", stage="t3_decode_device", items=len(active),
                                   steps=n_steps, slots=len(active)) as sl:
                     tokens, done = await asyncio.to_thread(self.run_slice, n_steps, s_view)
+                    sl.set(cache_rows=self.rows)
                 dt = sl.dt
                 for s in active:
                     self._pos_host[s] += n_steps

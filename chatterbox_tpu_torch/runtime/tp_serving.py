@@ -290,11 +290,17 @@ class ShardedCalls:
         self.decoder = None           # a follower's batched decoder
         self.token_digest = 0         # crc32 over every T3 call's tokens, in order
         self.token_calls = 0
+        self.cache_rows = 0           # the batched decoder's capacity after its last call
+        self.rows_digest = 0          # crc32 over that capacity after each of its calls
 
     def record_tokens(self, toks: np.ndarray) -> None:
         self.token_digest = zlib.crc32(np.ascontiguousarray(toks, np.int64).tobytes(),
                                        self.token_digest)
         self.token_calls += 1
+
+    def record_rows(self, decoder) -> None:
+        self.cache_rows = decoder.rows
+        self.rows_digest = zlib.crc32(np.int64(decoder.rows).tobytes(), self.rows_digest)
 
     # ------------------------------------------------------ T3, per request
     def t3_prefill(self, cond_lanes: torch.Tensor, lanes: np.ndarray, text_len: int):
@@ -353,6 +359,7 @@ class ShardedCalls:
                 tensors={"cond_lanes": cond_lanes}) as (g, _):
             decoder._insert(slot, cond_lanes, text, text_len, temperature, top_p, cfg_weight,
                             rep_penalty, seed, g)
+        self.record_rows(decoder)
 
     def decoder_finish(self, decoder, slot: int) -> None:
         decoder = decoder or self.decoder
@@ -365,6 +372,7 @@ class ShardedCalls:
                 as (g, _):
             toks, done = decoder._run_slice(n_steps, s_view, g)
         self.record_tokens(toks)
+        self.record_rows(decoder)
         return toks, done
 
     # --------------------------------------------------------------- S3Gen
@@ -443,11 +451,13 @@ class ShardedCalls:
 
     # -------------------------------------------------------------- checks
     def stats(self) -> Dict:
-        """This rank's live handles, token digest and T3 call count, and its
-        kernel launches (K1's by body, K2's by form)."""
+        """This rank's live handles, token digest and T3 call count, its
+        batched decoder's cache capacity and their digest, and its kernel
+        launches (K1's by body, K2's by form)."""
         handles = getattr(self.t3, "handles", None)
         return {"handles": None if handles is None else len(handles),
                 "token_digest": self.token_digest, "token_calls": self.token_calls,
+                "cache_rows": self.cache_rows, "rows_digest": self.rows_digest,
                 "launches": {"decode_attention": dict(decode_attention.launches),
                              "flash_mha": dict(flash_mha.launches)}}
 

@@ -1592,8 +1592,8 @@ def batched_bf16_decoder(engine, k1: dict, k3: dict) -> int:
 
     t3c = engine.cfg.t3.with_(kv_cache_dtype="native")
     dec = BatchedT3Decoder(engine.params["t3"], t3c, n_slots=SLOTS, slice_size=35)
-    if dec.cache["k"].dtype != torch.bfloat16:
-        raise AssertionError(f"native KV cache is {dec.cache['k'].dtype}")
+    if dec.cache["k"][0].dtype != torch.bfloat16:
+        raise AssertionError(f"native KV cache is {dec.cache['k'][0].dtype}")
     view = fill_slots(engine, dec)
     reset_launches()
     toks, _ = dec.run_slice(35, view)
@@ -1609,7 +1609,7 @@ def batched_bf16_decoder(engine, k1: dict, k3: dict) -> int:
     g = torch.Generator(device=dev).manual_seed(6)
     start, pos = dec.cache["start"], dec.cache["pos"]
     H, Hk, Dh = t3c.num_heads, t3c.num_kv_heads, t3c.head_dim
-    shape = (f"live cache B={LANES} H={H} S={t3c.max_seq_len} Dh={Dh}, windows "
+    shape = (f"live cache B={LANES} H={H} S={dec.rows} Dh={Dh}, windows "
              f"{int((pos - start).min())}–{int((pos - start).max())}")
     for layer in (0, t3c.num_layers - 1):
         rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731

@@ -1,8 +1,9 @@
 """The benchmark's readers of the engine's spans (``gpubench/spans.py`` and
-its eight ``gpubench/metrics/*.closed.py``) on a hand-made context: two
+its nine ``gpubench/metrics/*.closed.py``) on a hand-made context: two
 worker threads whose spans overlap in time, each kernel attributed by the
-thread that launched it; and the join of torch.profiler's device events to
-their runtime calls, with the thread id as CUPTI reports it."""
+thread that launched it; the decoder's cache capacity from the slices'
+attributes; and the join of torch.profiler's device events to their
+runtime calls, with the thread id as CUPTI reports it."""
 import threading
 from types import SimpleNamespace
 
@@ -89,6 +90,20 @@ def test_reader_finds_nothing_without_spans(name):
                                   "s3gen_device_ms.closed", "idle_t3_enqueue.closed"])
 def test_trace_readers_find_nothing_without_launches(name):
     assert read(name, ctx(launches=[])) is None
+
+
+@pytest.mark.parametrize("window, want", [
+    ([ev("t3.slice", LOOP, 0, 10, steps=35, cache_rows=256),
+      ev("t3.cache.resize", T3, 11, 12, rows_from=256, rows_to=768),
+      ev("t3.slice", LOOP, 10, 20, steps=35, cache_rows=768),
+      ev("t3.cache.resize", T3, 21, 22, rows_from=768, rows_to=512),
+      ev("t3.slice", LOOP, 20, 30, steps=35, cache_rows=512)], 768.0),
+    (SPANS, None),                                   # slices without the attribute
+    ([ev("t3.cache.resize", T3, 0, 1, rows_from=256, rows_to=512)], None),   # no slice
+    ([], None),
+], ids=["largest", "no-attribute", "no-slice", "no-spans"])
+def test_cache_rows_reads_the_largest_slice_capacity(window, want):
+    assert read("t3_cache_rows.closed", ctx(spans_=window)) == want
 
 
 def test_innermost_span_by_thread_and_time():

@@ -13,8 +13,22 @@ hold it to the JAX package's decoder and to its own contract:
   garbage) do not change its tokens;
 * a crash of the loop fails the active and the queued requests loudly.
 
+And the cache's capacity C (``BatchedT3Decoder.rows``), on a config whose
+cache spans three 256-buckets (``LONG``, max_seq_len 768):
+
+* ``_capacity``: a slice grows C to its view's bucket when that is larger
+  and shrinks it only to a view at most C/2; a prefill only grows it; it
+  never passes max_seq_len;
+* a long chunk grows C to max_seq_len, a medium one that outlives it keeps
+  C (its view is more than C/2), a short one after both shrinks C to 256,
+  where the medium one's lanes lie past it: greedy and sampled tokens equal
+  a decoder pinned at max_seq_len (the cache before C followed the reach),
+  int8 and native;
+* a resize holds at most one layer's share above the larger cache (the
+  live cache tensors counted on the CPU while it runs).
+
 Both packages get the JAX init's parameters (converted) and the same
-conditioning lanes.
+conditioning lanes; ``LONG`` runs on the port's own init.
 """
 import asyncio
 
@@ -31,10 +45,15 @@ from chatterbox_tpu.models.t3 import cond_embeddings, init_t3_params
 from chatterbox_tpu.runtime.scheduler import BatchedT3Decoder as JBatchedT3Decoder
 from chatterbox_tpu_torch.convert import convert_params
 from chatterbox_tpu_torch.models.t3 import T3Config
+from chatterbox_tpu_torch.models.t3 import cond_embeddings as tcond_embeddings
+from chatterbox_tpu_torch.models.t3 import init_t3_params as tinit_t3_params
+from chatterbox_tpu_torch.runtime import scheduler
 from chatterbox_tpu_torch.runtime.cancellation import CancellationToken
 from chatterbox_tpu_torch.runtime.scheduler import BatchedT3Decoder, DecodeError
 
 CFG = T3Config.tiny()
+# tiny, with room for 600 speech tokens: max_seq_len 768, three buckets
+LONG = T3Config.tiny().with_(max_speech_tokens=600)
 
 
 @pytest.fixture(scope="module")
@@ -252,7 +271,8 @@ def test_stale_cache_past_pos_is_not_read(setup):
         await _collect(dec, to_t(lanes), *_text([255, 1, 2, 3, 4, 5, 6, 0]), max_new=40, seed=9)
         with torch.inference_mode():
             for name, val in (("k", 1e4), ("v", -1e4)):
-                dec.cache[name][:, 0:2, :, P:] = val  # slot 0's lanes, past the prefix
+                for layer in dec.cache[name]:
+                    layer[0:2, :, P:] = val  # slot 0's lanes, past the prefix
         return await _collect(dec, to_t(lanes), text, tlen, max_new=24, seed=5)
 
     a = _run(params, 1, 6, fresh)
@@ -285,3 +305,159 @@ def test_loop_crash_fails_active_and_queued_requests(setup):
     outs, again = _run(params, 1, 4, body)
     assert all(isinstance(o, DecodeError) and "synthetic" in str(o) for o in outs), outs
     assert len(again) >= 1
+
+
+# ------------------------------------------------- the cache's capacity C
+def long_model(cfg=LONG):
+    """The port's init at ``cfg`` and its conditioning lanes [2, C, D]."""
+    params = tinit_t3_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    spk = torch.full((1, cfg.speaker_embed_dim), 0.1)
+    prompt = torch.zeros((1, cfg.speech_cond_prompt_len), dtype=torch.int64)
+    with torch.inference_mode():
+        cond = tcond_embeddings(params, cfg, spk, prompt, torch.full((1,), 0.5))
+        uncond = tcond_embeddings(params, cfg, torch.zeros_like(spk), prompt, torch.zeros(1))
+    return params, torch.cat([cond, uncond], 0)
+
+
+class PinnedDecoder(BatchedT3Decoder):
+    """The cache held at max_seq_len whatever the slots reach."""
+
+    def _capacity(self, positions, shrink):
+        return self.cfg.max_seq_len
+
+
+def watch_resizes(dec):
+    """→ the list that each resize of ``dec`` appends (rows from, rows to) to."""
+    seen, real = [], dec._resize
+
+    def spy(rows):
+        if rows != dec.rows:
+            seen.append((dec.rows, rows))
+        real(rows)
+
+    dec._resize = spy
+    return seen
+
+
+# P = LONG.cond_len + 8 = 14; slices of 20: the long chunk (cap 734) reaches
+# 754 positions, the medium one (admitted at the long one's 400th token,
+# cap 400) about 420, the short one 44
+REACH_SLICE = 20
+REACH_RESIZES = [(256, 512), (512, 768), (768, 256)]
+
+
+async def reach_scenario(dec, lanes, temperature):
+    """A long chunk; a medium one admitted once the long one has 400 tokens,
+    which outlives it; then a short one → their tokens."""
+    half = asyncio.Event()
+
+    async def long():
+        rows, got = [], 0
+        try:
+            async for row in dec.decode_chunk(lanes, *_text([255, 5, 6, 0]), temperature, 0.95,
+                                              0.5, 1.2, 2000, None, seed=1):
+                rows.append(row)
+                got += len(row)
+                if got >= 400:
+                    half.set()
+        finally:
+            half.set()
+        return np.concatenate(rows)
+
+    async def medium():
+        await half.wait()
+        return await _collect(dec, lanes, *_text([255, 7, 8, 0]), max_new=400,
+                              temperature=temperature, seed=2)
+
+    a, d = await asyncio.gather(long(), medium())
+    e = await _collect(dec, lanes, *_text([255, 3, 0]), max_new=30, temperature=temperature,
+                       seed=3)
+    return [a, d, e]
+
+
+@pytest.mark.parametrize("rows, positions, shrink, want", [
+    (256, 256, True, 256),     # fits
+    (256, 257, True, 512),     # crosses a bucket: grow
+    (256, 10_000, True, 768),  # never past max_seq_len
+    (768, 512, True, 768),     # a view above C/2: keep
+    (768, 300, True, 768),     # its view 512, above C/2: keep
+    (768, 256, True, 256),     # a view at most C/2: shrink to it
+    (768, 20, True, 256),
+    (512, 256, True, 256),
+    (768, 20, False, 768),     # a prefill never shrinks
+    (256, 300, False, 512),
+], ids=lambda v: str(v))
+def test_capacity_grows_past_a_bucket_and_shrinks_at_half(rows, positions, shrink, want):
+    params, _ = long_model()
+    dec = BatchedT3Decoder(params, LONG, n_slots=1, slice_size=REACH_SLICE)
+    assert LONG.max_seq_len == 768 and dec.rows == 256
+    dec.rows = rows
+    assert dec._capacity(positions, shrink) == want
+
+
+@pytest.mark.parametrize("kv, temperature", [("int8", 0.0), ("native", 0.8), ("int8", 0.8)],
+                         ids=["greedy-int8", "sampled-native", "sampled-int8"])
+def test_capacity_follows_reach_and_keeps_the_pinned_tokens(kv, temperature):
+    """C grows to max_seq_len with the long chunk, stays while the medium
+    one's view (512) exceeds C/2, and shrinks to 256 for the short one,
+    clamping the medium one's released lanes (pos ~434) inside it; every
+    chunk's tokens equal those of a decoder pinned at max_seq_len."""
+    cfg = LONG.with_(kv_cache_dtype=kv)
+    params, lanes = long_model(cfg)
+
+    async def run(cls):
+        dec = cls(params, cfg, n_slots=2, slice_size=REACH_SLICE)
+        seen = watch_resizes(dec)
+        try:
+            toks = await reach_scenario(dec, lanes, temperature)
+        finally:
+            dec.stop()
+        return toks, seen, dec
+
+    got, seen, dec = asyncio.run(run(BatchedT3Decoder))
+    want, _, pinned = asyncio.run(run(PinnedDecoder))
+    assert seen == REACH_RESIZES
+    assert dec.rows == 256 and pinned.rows == cfg.max_seq_len
+    assert [len(t) for t in got] == [734, 400, 30]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    # every lane inside C: the released medium slot's stale pos restarted at 0
+    pos, start = dec.cache["pos"], dec.cache["start"]
+    assert int(pos.max()) < dec.rows and bool((start <= pos).all())
+    assert all(t.shape[2] == dec.rows for name in ("k", "v") for t in dec.cache[name])
+
+
+@pytest.mark.parametrize("kv", ["int8", "native"])
+@pytest.mark.parametrize("rows_from, rows_to", [(256, 768), (768, 256)], ids=["grow", "shrink"])
+def test_resize_holds_at_most_one_layer_above_the_larger_cache(monkeypatch, kv, rows_from,
+                                                               rows_to):
+    """The live cache bytes (every layer tensor that still has a reference)
+    at each moved tensor: never more than the larger cache plus one layer's
+    share; and the resize does not hold both caches at once."""
+    import weakref
+
+    cfg = LONG.with_(kv_cache_dtype=kv, num_layers=6)
+    params, _ = long_model(cfg)
+    dec = BatchedT3Decoder(params, cfg, n_slots=2, slice_size=REACH_SLICE)
+    dec._resize(rows_from)
+    names = [n for n in ("k", "v", "k_scale", "v_scale") if n in dec.cache]
+    refs = [weakref.ref(t) for n in names for t in dec.cache[n]]
+
+    def live():
+        return sum(t.nbytes for t in (r() for r in refs) if t is not None)
+
+    before, peak, real = live(), [0], scheduler._moved
+
+    def spy(old, rows, keep):
+        new = real(old, rows, keep)
+        refs.append(weakref.ref(new))
+        peak[0] = max(peak[0], live())   # the old tensor and its successor
+        return new
+
+    monkeypatch.setattr(scheduler, "_moved", spy)
+    dec._resize(rows_to)
+    after = live()
+    assert dec.rows == rows_to and after * rows_from == before * rows_to
+    larger = max(before, after)
+    assert larger < peak[0] <= larger + larger // cfg.num_layers
+    assert peak[0] < before + after

@@ -88,7 +88,11 @@ def env(tmp_path, monkeypatch):
         monkeypatch.setenv(k, v)
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))   # read once per process
     monkeypatch.chdir(tmp_path)
-    return tmp_path
+    yield tmp_path
+    # a variable absent before the test is not restored by delenv: drop what
+    # the scripts set (monkeypatch then restores the ones that were there)
+    for k in SET_BY_SCRIPTS:
+        os.environ.pop(k, None)
 
 
 # ------------------------------------------------------------ the study's lists

@@ -24,7 +24,10 @@ rank 0 in this process and starts its follower itself, on
   JAX's noise injected, at tests/test_torch_engine_parity.py's bounds; the
   follower's token digest equals rank 0's;
 * ``clear_voice_cache``, a cancelled request and ``shutdown`` free the
-  follower's state; a killed follower fails the next request with an error.
+  follower's state; a killed follower fails the next request with an error;
+* the batched decoder at tp = 2 grows and shrinks its cache in step with
+  rank 0 (tests/test_torch_scheduler.py's reach scenario) and takes the
+  unsharded decoder's tokens.
 """
 import asyncio
 import contextlib
@@ -37,6 +40,8 @@ import pytest
 import torch
 
 import torch_tp_serving_workers as workers
+from test_torch_scheduler import (LONG, REACH_RESIZES, REACH_SLICE, long_model, reach_scenario,
+                                  watch_resizes)
 from test_torch_engine_parity import (CASES, FRAME_TOL, ISTFT_FRAME, LSD_DB, MCD_DB, PCM_STEP,
                                       QUEUE_ROOM, REQUEST, TEXTS, WAVE_TOL, YARDSTICK_SHARE,
                                       _ids, _inject_jax_noise, _pcm, _serve)
@@ -69,7 +74,9 @@ from chatterbox_tpu_torch.ops.initializers import ShapeInit
 from chatterbox_tpu_torch.parallel.mesh import Rank
 from chatterbox_tpu_torch.runtime.cancellation import CancellationToken
 from chatterbox_tpu_torch.runtime.engine import EngineConfig, TTSEngine
-from chatterbox_tpu_torch.runtime.tp_serving import TPError
+from chatterbox_tpu_torch.runtime.scheduler import BatchedT3Decoder
+from chatterbox_tpu_torch.runtime.tp_serving import (FollowerSpec, ShardedCalls, TPError, TPGroup,
+                                                     params_to_numpy, shard_engine_params)
 
 CFG = S3GenRefConfig.tiny()
 JCFG = JCfg.tiny()
@@ -476,3 +483,39 @@ def test_killed_follower_fails_the_request(tp_engine):
         assert time.monotonic() - t0 < 30
     with pytest.raises(TPError):
         eng.calls.t3_state([0], 0.0, 0.95, 0.5, 1.2)
+
+
+def test_tp_decoder_resizes_its_cache_with_rank0():
+    """The reach scenario (a long chunk grows the cache to max_seq_len, a
+    short one after a medium one shrinks it to 256) through a batched
+    decoder at tp = 2, int8, sampled: the follower, replaying rank 0's
+    inserts and slices, holds the same capacity after every call and takes
+    the same tokens, and those are the unsharded decoder's."""
+    cfg = dataclasses.replace(EngineConfig.tiny(), t3=LONG.with_(kv_cache_dtype="int8"))
+    params, lanes = long_model(cfg.t3)
+
+    async def run(dec):
+        seen = watch_resizes(dec)
+        try:
+            return await reach_scenario(dec, lanes, 0.8), seen
+        finally:
+            dec.stop()
+
+    want, _ = asyncio.run(run(BatchedT3Decoder(params, cfg.t3, n_slots=2,
+                                               slice_size=REACH_SLICE)))
+    with _engine_threads():
+        group = TPGroup(cfg, ["cpu", "cpu"], FollowerSpec(
+            cfg, 0, "", "float32", params=params_to_numpy({"t3": params})))
+        try:
+            calls = ShardedCalls(cfg, shard_engine_params({"t3": params}, cfg, 2, 0, False),
+                                 torch.device("cpu"), t3=group.t3)
+            got, seen = asyncio.run(run(calls.make_decoder(2, REACH_SLICE)))
+            lead, (follower,) = calls.stats(), group.follower_stats()
+        finally:
+            group.close()
+    assert seen == REACH_RESIZES
+    assert lead["cache_rows"] == 256 and lead["token_calls"] > 0
+    for key in ("cache_rows", "rows_digest", "token_digest", "token_calls"):
+        assert follower[key] == lead[key], key
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
